@@ -1,0 +1,198 @@
+"""Shared kernel plumbing: build, load, launch rule and launch counters.
+
+**Build.** Every CUDA source in ``src/repro_torch/csrc/*.cu`` is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface, under ``build/kernels/`` at the repository root, and loaded with
+``ctypes``. The build happens at first use (or by calling
+``build_kernels()``): one ``nvcc`` process per source, all started together.
+A library's file name carries a digest of its source, the shared headers
+and the flags, so an edited source is rebuilt and never confused with an old
+build.
+
+**Launch rule.** A wrapper whose tensors lie on the CPU computes the
+kernel's plain PyTorch version (the CPU tests rely on it); a wrapper whose
+tensors lie on a CUDA device launches the kernel or raises. There is no
+fallback from a kernel to its plain version.
+
+**Counters.** ``LAUNCHES[name]`` grows by one each time a wrapper launches
+its kernel, and nowhere else; ``SEEN[name]`` counts the launches per call
+signature (shapes, tile, epilogue flags), so a run can replay the exact
+shapes its main path gave a kernel. ``reset_launches()`` clears both.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from collections import Counter
+from typing import Dict, Optional, Tuple
+
+import torch
+
+KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+SEEN: Dict[str, Counter] = {k: Counter() for k in KERNELS}
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("matmul", "im2col_gemm", "winograd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        SEEN[k].clear()
+
+
+def count_launch(name: str, signature: Tuple) -> None:
+    LAUNCHES[name] += 1
+    SEEN[name][signature] += 1
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{source}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:12]}.so"
+
+
+def build_kernels() -> float:
+    """Compile every source that has no current build, one ``nvcc`` per
+    source in parallel. Returns the wall seconds spent (0.0 when all were
+    built already). Raises with the compiler's output on any failure."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        todo = [s for s in SOURCES if not library_path(s).exists()]
+        if not todo:
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for s in todo:
+            tmp = library_path(s).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC),
+                   "-o", str(tmp), str(CSRC / f"{s}.cu")]
+            procs.append((s, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for s, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"nvcc {s}.cu failed ({p.returncode}):\n{log}")
+            else:
+                if log.strip():
+                    print(f"[nvcc {s}.cu]\n{log.rstrip()}", flush=True)
+                os.replace(tmp, library_path(s))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<source>.cu``, built on first use."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        build_kernels()
+        with _LOCK:
+            lib = _LIBS.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(library_path(source)))
+                _LIBS[source] = lib
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bind(source: str, symbol: str, n_ptrs: int, n_ints: int):
+    """C function ``symbol(ptr * n_ptrs, int * n_ints, stream) -> int`` of a
+    source's library, with its ctypes signature set. Pointers and the stream
+    are ``c_void_p`` — anything else would truncate them to 32 bits."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Operand checks and the launch rule
+# ---------------------------------------------------------------------------
+
+def on_cpu(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+    """Check a kernel's operands and say which version runs: True for the
+    plain version (every operand on the CPU), False for the kernel (every
+    operand on one CUDA device). Raises on anything the kernel does not
+    take: a dtype other than float32, a non-contiguous operand, operands on
+    different devices, or a device that is neither."""
+    ts = [t for t in tensors if t is not None]
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: operands must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return False
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when the C launcher returned a CUDA error (``cudaGetLastError``
+    right after the launch) — a refused launch never runs, and a later
+    ``synchronize`` would not report it."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+
+
+def epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
+                   residual: Optional[torch.Tensor], relu: bool,
+                   channel_axis: int) -> torch.Tensor:
+    """The kernels' epilogue in plain torch: bias -> residual -> ReLU."""
+    if bias is not None:
+        shape = [1] * y.dim()
+        shape[channel_axis] = bias.shape[0]
+        y = y + bias.reshape(shape)
+    if residual is not None:
+        y = y + residual
+    if relu:
+        y = torch.relu(y)
+    return y

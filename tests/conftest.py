@@ -10,6 +10,12 @@ def rng():
     return np.random.default_rng(0)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skips without one (run on the "
+                   "card with `-m gpu`)")
+
+
 def pytest_terminal_summary(terminalreporter, exitstatus, config):
     """Surface hypothesis-stub skips as their own summary line: a local run
     without the real engine must say how many property tests it silently

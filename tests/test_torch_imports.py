@@ -1,0 +1,56 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the ``repro`` package, and
+no function of the port defaults to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text())
+    for mod in _imports(tree):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_no_entry_point_defaults_to_cpu():
+    seen = 0
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            args = node.args.args + node.args.kwonlyargs
+            defaults = ([None] * (len(node.args.args) - len(node.args.defaults))
+                        + list(node.args.defaults) + list(node.args.kw_defaults))
+            for arg, default in zip(args, defaults):
+                if arg.arg != "device" or default is None:
+                    continue
+                seen += 1
+                assert isinstance(default, ast.Constant) and default.value == "cuda", \
+                    f"{path.name}:{node.name} device default"
+    assert seen >= 5
+
+
+def test_port_imports_without_cuda_or_triton():
+    """Importing every module builds nothing: kernels compile at first use."""
+    import importlib
+    from repro_torch.kernels import common
+    loaded = dict(common._LIBS)
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = [p for p in rel.parts if p != "__init__"]
+        importlib.import_module(".".join(parts))
+    assert common._LIBS == loaded
