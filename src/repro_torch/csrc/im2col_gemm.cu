@@ -1,13 +1,21 @@
 // Implicit-GEMM valid convolution with a fused epilogue:
 //     out[n, k, oy, ox] = relu?(sum_{c,a,b} w[k, c, a, b] * x[n, c, oy*s + a, ox*s + b]
 //                               + bias[k] + residual[n, k, oy, ox])
+// batched (rt_conv_im2col_batch_f32) and single-image (rt_conv_im2col_f32).
 //
-// Replaces the TPU kernel `conv_im2col_batch`
-// (src/repro/kernels/im2col_gemm/im2col_gemm.py:155, body
-// `_conv_batch_kernel` :129): fused im2col + GEMM whose (C*f*f, ow) patch
-// block of each output row is built in VMEM and fed to the MXU, so the patch
-// matrix is never written to HBM; grid (N, K blocks, output rows), bias /
-// residual / ReLU finished on chip before the store.
+// Replaces two TPU kernels:
+// - `conv_im2col_batch` (src/repro/kernels/im2col_gemm/im2col_gemm.py:155,
+//   body `_conv_batch_kernel` :129): fused im2col + GEMM whose (C*f*f, ow)
+//   patch block of each output row is built in VMEM and fed to the MXU, so
+//   the patch matrix is never written to HBM; grid (N, K blocks, output
+//   rows), bias / residual / ReLU finished on chip before the store;
+// - `conv_im2col` (im2col_gemm.py:76, body `_conv_kernel` :50): the same for
+//   one (C, H, W) image, grid (K blocks, output rows), its residual
+//   transposed to (oh, K, ow) for the row grid (im2col_gemm.py:108).
+//
+// The single-image entry point launches the same template at N = 1: a
+// (C, H, W) image, a (K, oh, ow) residual and output are the N = 1 layouts,
+// so the residual is read in place, without the TPU kernel's transpose.
 //
 // On the H100 the same idea is an implicit GEMM: M = output channels (the
 // `conv-bk*` K-block is the CTA's M tile), N = batch * output pixels, K =
@@ -69,6 +77,22 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+int launch(const float* x, const float* w, const float* bias,
+           const float* res, float* out, int N, int C, int H, int W, int K,
+           int f, int s, int oh, int ow, int relu, int bm, int bn, int bk,
+           cudaStream_t stream) {
+#define RT_LAUNCH(BM_, BN_, BK_)                                              \
+  if (bm == BM_ && bn == BN_ && bk == BK_) {                                 \
+    dim3 grid((N * oh * ow + BN_ - 1) / BN_, (K + BM_ - 1) / BM_);           \
+    conv_kernel<BM_, BN_, BK_><<<grid, rt::kThreads, 0, stream>>>(           \
+        x, w, bias, res, out, N, C, H, W, K, f, s, oh, ow, relu);            \
+    return (int)cudaGetLastError();                                          \
+  }
+  RT_FOR_EACH_TILE(RT_LAUNCH)
+#undef RT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x (N, C, H, W), w (K, C, f, f), bias (K,) or null, res (N, K, oh, ow) or
@@ -80,14 +104,17 @@ extern "C" int rt_conv_im2col_batch_f32(const float* x, const float* w,
                                         int K, int f, int s, int oh, int ow,
                                         int relu, int bm, int bn, int bk,
                                         cudaStream_t stream) {
-#define RT_LAUNCH(BM_, BN_, BK_)                                              \
-  if (bm == BM_ && bn == BN_ && bk == BK_) {                                 \
-    dim3 grid((N * oh * ow + BN_ - 1) / BN_, (K + BM_ - 1) / BM_);           \
-    conv_kernel<BM_, BN_, BK_><<<grid, rt::kThreads, 0, stream>>>(           \
-        x, w, bias, res, out, N, C, H, W, K, f, s, oh, ow, relu);            \
-    return (int)cudaGetLastError();                                          \
-  }
-  RT_FOR_EACH_TILE(RT_LAUNCH)
-#undef RT_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return launch(x, w, bias, res, out, N, C, H, W, K, f, s, oh, ow, relu, bm,
+                bn, bk, stream);
+}
+
+// x (C, H, W), w (K, C, f, f), bias (K,) or null, res (K, oh, ow) or null ->
+// out (K, oh, ow), fp32 contiguous: the batched kernel at N = 1.
+extern "C" int rt_conv_im2col_f32(const float* x, const float* w,
+                                  const float* bias, const float* res,
+                                  float* out, int C, int H, int W, int K,
+                                  int f, int s, int oh, int ow, int relu,
+                                  int bm, int bn, int bk, cudaStream_t stream) {
+  return launch(x, w, bias, res, out, 1, C, H, W, K, f, s, oh, ow, relu, bm,
+                bn, bk, stream);
 }

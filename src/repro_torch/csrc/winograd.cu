@@ -1,13 +1,20 @@
-// Batched Winograd point-GEMM: M[n, p] = U[p] @ V[n, p] for every image n
-// and transform point p, with U (P, K, C) shared across the batch.
+// Winograd point-GEMM: M[n, p] = U[p] @ V[n, p] for every image n and
+// transform point p, with U (P, K, C) shared across the batch; batched
+// (rt_winograd_point_gemm_batch_f32) and single-image
+// (rt_winograd_point_gemm_f32).
 //
-// Replaces the TPU kernel `winograd_point_gemm_batch`
-// (src/repro/kernels/winograd/winograd.py:77, body
-// `_point_gemm_batch_kernel` :64): grid (N, P, K tiles, T tiles, C tiles)
-// with the C reduction innermost on the sequential grid into an f32 VMEM
-// accumulator, inputs zero-padded to block multiples. P = 16 for
-// F(2x2, 3x3), 36 for F(4x4, 3x3); no epilogue — the bias / residual / ReLU
-// run after the inverse transform (ops.winograd_conv_batch).
+// Replaces two TPU kernels:
+// - `winograd_point_gemm_batch` (src/repro/kernels/winograd/winograd.py:77,
+//   body `_point_gemm_batch_kernel` :64): grid (N, P, K tiles, T tiles,
+//   C tiles) with the C reduction innermost on the sequential grid into an
+//   f32 VMEM accumulator, inputs zero-padded to block multiples;
+// - `winograd_point_gemm` (winograd.py:36, body `_point_gemm_kernel` :23):
+//   the same for one image, grid (P, K tiles, T tiles, C tiles), under the
+//   single-image `winograd_conv`.
+// P = 16 for F(2x2, 3x3), 36 for F(4x4, 3x3); no epilogue — the bias /
+// residual / ReLU run after the inverse transform (ops.winograd_conv*). The
+// single-image entry point is the batched kernel at N = 1: a (P, C, T) V is
+// the N = 1 layout.
 //
 // On the H100 each (n, p) pair is one blockIdx.z of a batched GEMM whose C
 // walk is a loop inside the CTA (gemm_tile.cuh). U is addressed with batch
@@ -48,15 +55,8 @@ point_gemm_kernel(const float* __restrict__ U, const float* __restrict__ V,
   }
 }
 
-}  // namespace
-
-// U (P, K, C), V (N, P, C, T) -> O (N, P, K, T), fp32 contiguous. Returns
-// cudaGetLastError() after the launch; an unknown tile returns
-// cudaErrorInvalidValue.
-extern "C" int rt_winograd_point_gemm_batch_f32(const float* U, const float* V,
-                                                float* O, int N, int P, int K,
-                                                int C, int T, int bm, int bn,
-                                                int bk, cudaStream_t stream) {
+int launch(const float* U, const float* V, float* O, int N, int P, int K,
+           int C, int T, int bm, int bn, int bk, cudaStream_t stream) {
 #define RT_LAUNCH(BM_, BN_, BK_)                                              \
   if (bm == BM_ && bn == BN_ && bk == BK_) {                                 \
     dim3 grid((T + BN_ - 1) / BN_, (K + BM_ - 1) / BM_, N * P);              \
@@ -67,4 +67,25 @@ extern "C" int rt_winograd_point_gemm_batch_f32(const float* U, const float* V,
   RT_FOR_EACH_TILE(RT_LAUNCH)
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// U (P, K, C), V (N, P, C, T) -> O (N, P, K, T), fp32 contiguous. Returns
+// cudaGetLastError() after the launch; an unknown tile returns
+// cudaErrorInvalidValue.
+extern "C" int rt_winograd_point_gemm_batch_f32(const float* U, const float* V,
+                                                float* O, int N, int P, int K,
+                                                int C, int T, int bm, int bn,
+                                                int bk, cudaStream_t stream) {
+  return launch(U, V, O, N, P, K, C, T, bm, bn, bk, stream);
+}
+
+// U (P, K, C), V (P, C, T) -> O (P, K, T), fp32 contiguous: the batched
+// kernel at N = 1.
+extern "C" int rt_winograd_point_gemm_f32(const float* U, const float* V,
+                                          float* O, int P, int K, int C, int T,
+                                          int bm, int bn, int bk,
+                                          cudaStream_t stream) {
+  return launch(U, V, O, 1, P, K, C, T, bm, bn, bk, stream);
 }

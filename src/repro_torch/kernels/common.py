@@ -35,13 +35,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch")
+# one launch counter per hand-written kernel: the three a served plan runs,
+# then the four reached through their ``ops`` entry points only
+KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
+           "matmul_batch", "conv_im2col", "winograd_point_gemm",
+           "flash_attention")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 SEEN: Dict[str, Counter] = {k: Counter() for k in KERNELS}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "im2col_gemm", "winograd")
+SOURCES = ("matmul", "im2col_gemm", "winograd", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -130,13 +134,14 @@ def library(source: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(source: str, symbol: str, n_ptrs: int, n_ints: int):
-    """C function ``symbol(ptr * n_ptrs, int * n_ints, stream) -> int`` of a
-    source's library, with its ctypes signature set. Pointers and the stream
-    are ``c_void_p`` — anything else would truncate them to 32 bits."""
+def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """C function ``symbol(ptr * n_ptrs, int * n_ints, float * n_floats,
+    stream) -> int`` of a source's library, with its ctypes signature set.
+    Pointers and the stream are ``c_void_p`` — anything else would truncate
+    them to 32 bits."""
     fn = getattr(library(source), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

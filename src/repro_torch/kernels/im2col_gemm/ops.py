@@ -1,5 +1,6 @@
-"""Variant registry for the implicit-GEMM conv kernel, and the map from each
-``conv-bk*`` variant onto a Hopper CTA tile.
+"""Variant registry for the implicit-GEMM conv kernels (``conv_im2col_op``
+on one image, ``conv_im2col_batch_op`` on a batch), and the map from each
+``conv-bk*`` variant onto a Hopper CTA tile, the same for both.
 
 The reference's ``conv-bk*`` value is the kernel's K-block (output
 channels per program). Here it is the CTA's M tile, capped at 128 (a 256-row
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.kernels.im2col_gemm.im2col_gemm import conv_im2col_batch
+from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col,
+                                                         conv_im2col_batch)
 
 VARIANTS: Dict[str, int] = {"conv-bk64": 64, "conv-bk128": 128, "conv-bk256": 256}
 
@@ -25,6 +27,14 @@ CTA_TILES: Dict[str, Tuple[int, int, int]] = {
     "conv-bk128": (128, 16, 64),
     "conv-bk256": (128, 16, 64),
 }
+
+
+def conv_im2col_op(x, w, stride: int = 1, variant: str = "conv-bk128",
+                   bias=None, residual=None, relu: bool = False):
+    """One (C, H, W) image through the implicit-GEMM conv under ``variant``."""
+    bm, bk, bn = CTA_TILES[variant]
+    return conv_im2col(x, w, stride, bm=bm, bk=bk, bn=bn, bias=bias,
+                       residual=residual, relu=relu)
 
 
 def conv_im2col_batch_op(x, w, stride: int = 1, variant: str = "conv-bk128",

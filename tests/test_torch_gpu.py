@@ -5,7 +5,8 @@ These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
 on the card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 This file imports no JAX, so it runs where only the port is installed.
-Tolerance: fp32 rtol=atol=1e-4 on unit-scale operands (sum order only).
+Tolerance: fp32 rtol=atol=1e-4 on unit-scale operands (sum order only),
+1e-3 for a full Winograd conv against the plain convolution.
 """
 import itertools
 
@@ -13,15 +14,24 @@ import pytest
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.im2col_gemm.im2col_gemm import conv_im2col_batch_plain
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import CTA_TILES as FA_TILES
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col_batch_plain,
+                                                         conv_im2col_plain)
 from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
-from repro_torch.kernels.im2col_gemm.ops import conv_im2col_batch_op
-from repro_torch.kernels.matmul.matmul import matmul_plain
+from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
+                                                 conv_im2col_op)
+from repro_torch.kernels.matmul.matmul import matmul_batch_plain, matmul_plain
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
-from repro_torch.kernels.matmul.ops import matmul_op
+from repro_torch.kernels.matmul.ops import matmul_batch_op, matmul_op
 from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
+from repro_torch.kernels.winograd.ops import winograd_conv
+from repro_torch.kernels.winograd.ref import conv3x3_ref
 from repro_torch.kernels.winograd.winograd import (
-    winograd_point_gemm_batch, winograd_point_gemm_batch_plain)
+    winograd_point_gemm, winograd_point_gemm_batch,
+    winograd_point_gemm_batch_plain, winograd_point_gemm_plain)
 
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)
 EPILOGUES = list(itertools.product((False, True), repeat=3))   # bias, res, relu
@@ -82,3 +92,89 @@ def test_gpu_point_gemm_kernel_vs_plain(variant, cuda):
         got = winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn)
         torch.testing.assert_close(got, winograd_point_gemm_batch_plain(u, v),
                                    **GEMM_TOL)
+
+
+@pytest.mark.parametrize("variant", sorted(MM_TILES))
+def test_gpu_matmul_batch_kernel_vs_plain(variant, cuda):
+    """Every tile and epilogue; x broadcast over the batch (stride 0, read in
+    place), then y broadcast, then neither."""
+    gen = torch.Generator().manual_seed(0)
+    B, M, K, N = 3, 150, 270, 333
+    xs, ys = _cuda_rand(gen, M, K, scale=K ** -0.5), _cuda_rand(gen, K, N)
+    xb, yb = _cuda_rand(gen, B, M, K, scale=K ** -0.5), _cuda_rand(gen, B, K, N)
+    b, r = _cuda_rand(gen, M), _cuda_rand(gen, B, M, N)
+    before = common.LAUNCHES["matmul_batch"]
+    operands = [(xs.expand(B, M, K), yb), (xb, ys.expand(B, K, N)), (xb, yb)]
+    for (x, y), (hb, hr, relu) in zip(operands * 3, EPILOGUES):
+        ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+        got = matmul_batch_op(x, y, variant=variant, **ep)
+        torch.testing.assert_close(got, matmul_batch_plain(x, y, **ep), **GEMM_TOL)
+    assert common.LAUNCHES["matmul_batch"] == before + len(EPILOGUES)
+
+
+@pytest.mark.parametrize("variant", sorted(CONV_TILES))
+@pytest.mark.parametrize("cfg", [(3, 32, 16, 3, 1), (8, 19, 20, 3, 2),
+                                 (5, 14, 32, 5, 1), (64, 16, 130, 1, 2)])
+def test_gpu_conv_single_kernel_vs_plain(variant, cfg, cuda):
+    gen = torch.Generator().manual_seed(0)
+    C, H, K, f, s = cfg
+    oh = (H - f) // s + 1
+    x, w = _cuda_rand(gen, C, H, H), _cuda_rand(gen, K, C, f, f, scale=(C * f * f) ** -0.5)
+    b, r = _cuda_rand(gen, K), _cuda_rand(gen, K, oh, oh)
+    before = common.LAUNCHES["conv_im2col"]
+    for hb, hr, relu in EPILOGUES:
+        ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+        got = conv_im2col_op(x, w, s, variant=variant, **ep)
+        torch.testing.assert_close(got, conv_im2col_plain(x, w, s, **ep), **GEMM_TOL)
+    assert common.LAUNCHES["conv_im2col"] == before + len(EPILOGUES)
+
+
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(MM_TILES))
+def test_gpu_point_gemm_single_kernel_vs_plain(variant, cuda):
+    from repro_torch.kernels.winograd.ops import cta_tile
+    gen = torch.Generator().manual_seed(0)
+    bm, bk, bn = cta_tile(variant)
+    for (P, K, C, T) in [(16, 60, 48, 75), (36, 130, 70, 9)]:
+        u, v = _cuda_rand(gen, P, K, C, scale=C ** -0.5), _cuda_rand(gen, P, C, T)
+        got = winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn)
+        torch.testing.assert_close(got, winograd_point_gemm_plain(u, v), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_gpu_winograd_conv_single_vs_conv(m, cuda):
+    gen = torch.Generator().manual_seed(0)
+    x, w = _cuda_rand(gen, 16, 30, 31), _cuda_rand(gen, 24, 16, 3, 3, scale=(16 * 9) ** -0.5)
+    before = common.LAUNCHES["winograd_point_gemm"]
+    got = winograd_conv(x, w, m=m, variant="wino-128x128")
+    assert common.LAUNCHES["winograd_point_gemm"] == before + 1
+    torch.testing.assert_close(got, conv3x3_ref(x, w), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("tile", sorted(set(FA_TILES.values())))
+def test_gpu_flash_attention_kernel_vs_plain(tile, d, cuda):
+    """Every CTA tile at every head dim: causal and not, a ragged sequence
+    (not a multiple of any tile), and Sq != Sk both ways."""
+    gen = torch.Generator().manual_seed(0)
+    bq, bkv = tile
+    for (bh, sq, sk) in [(3, 256, 256), (2, 200, 200), (2, 96, 160), (2, 160, 96)]:
+        q, k, v = (_cuda_rand(gen, bh, s, d) for s in (sq, sk, sk))
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("variant", sorted(FA_TILES))
+def test_gpu_flash_attention_op_gqa(variant, cuda):
+    gen = torch.Generator().manual_seed(0)
+    q = _cuda_rand(gen, 2, 256, 8, 64)
+    k, v = _cuda_rand(gen, 2, 256, 2, 64), _cuda_rand(gen, 2, 256, 2, 64)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention_op(q, k, v, causal=True, variant=variant)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    kr, vr = k.repeat_interleave(4, dim=2), v.repeat_interleave(4, dim=2)
+    fold = lambda t: t.transpose(1, 2).reshape(16, 256, 64)
+    want = flash_attention_plain(fold(q), fold(kr), fold(vr), causal=True)
+    torch.testing.assert_close(got, want.reshape(2, 8, 256, 64).transpose(1, 2),
+                               **GEMM_TOL)
