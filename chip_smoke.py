@@ -63,8 +63,10 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): fp32 outside
-# the tensor cores, and HBM3 bandwidth
+# the tensor cores, TF32 on the tensor cores (a 3xTF32 product costs three),
+# and HBM3 bandwidth
 FP32_FLOPS = 67e12
+TF32_FLOPS = 494.7e12
 HBM_BYTES_S = 3.35e12
 
 # BENCH_executor.json -> networks.edge_cnn.tile_variant.selected_assignment:
@@ -243,6 +245,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "bound_fp32_ms": t["bound_fp32_ms"],
                      "launches_per_pass": t["launches"],
                      "timed_on": (path if k in ENTRY_KERNELS
                                   else f"{path} b=8 forward"),
@@ -567,9 +570,11 @@ def kernel_table(torch):
     from repro_torch.kernels.matmul.matmul import (matmul, matmul_batch,
                                                    matmul_batch_plain,
                                                    matmul_plain)
-    from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
+    from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
+    from repro_torch.kernels.matmul.ops import cta_plan
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
+    from repro_torch.kernels.winograd.ops import MM_CTA_TILES as WINO_MM_TILES
     from repro_torch.kernels.winograd.ref import point_gemm_ref
     from repro_torch.kernels.winograd.winograd import (
         winograd_point_gemm, winograd_point_gemm_batch,
@@ -578,12 +583,17 @@ def kernel_table(torch):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda") * scale
 
+    def mm_plans(M, K, N, batch):
+        """(bm, bk, bn, split_k) of every variant's plan at one shape."""
+        return [(bm, bk, bn, split) for bm, bn, bk, split in
+                (cta_plan(M, N, K, batch, v) for v in MM_VARIANTS)]
+
     def mm_ops(sig):
-        M, K, N, bm, bk, bn, hb, hr, relu = sig
+        M, K, N, bm, bk, bn, split, hb, hr, relu = sig
         x, y = rnd(M, K, scale=K ** -0.5), rnd(K, N)
         ep = dict(bias=rnd(M) if hb else None,
                   residual=rnd(M, N) if hr else None, relu=relu)
-        return (lambda: matmul(x, y, bm=bm, bk=bk, bn=bn, **ep),
+        return (lambda: matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, **ep),
                 lambda: matmul_plain(x, y, **ep),
                 lambda: matmul_ref(x, y))
 
@@ -620,13 +630,14 @@ def kernel_table(torch):
         return 2 * N * P * K * C * T, 4 * (P * K * C + N * P * C * T + N * P * K * T)
 
     def mmb_ops(sig):
-        B, M, K, N, x_bcast, y_bcast, bm, bk, bn, hb, hr, relu = sig
+        B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu = sig
         x = (rnd(M, K, scale=K ** -0.5).expand(B, M, K) if x_bcast
              else rnd(B, M, K, scale=K ** -0.5))
         y = rnd(K, N).expand(B, K, N) if y_bcast else rnd(B, K, N)
         ep = dict(bias=rnd(M) if hb else None,
                   residual=rnd(B, M, N) if hr else None, relu=relu)
-        return (lambda: matmul_batch(x, y, bm=bm, bk=bk, bn=bn, **ep),
+        return (lambda: matmul_batch(x, y, bm=bm, bk=bk, bn=bn, split_k=split,
+                                     **ep),
                 lambda: matmul_batch_plain(x, y, **ep),
                 lambda: matmul_ref(x, y))
 
@@ -674,8 +685,8 @@ def kernel_table(torch):
         "matmul": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:140",
-            ops=mm_ops, work=mm_work,
-            sweep=lambda s: [(*s[:3], *t, *e) for t in MM_TILES.values()
+            ops=mm_ops, work=mm_work, flops_s=TF32_FLOPS / 3,
+            sweep=lambda s: [(*s[:3], *p, *e) for p in mm_plans(*s[:3], 1)
                              for e in eps]),
         "conv_im2col_batch": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
@@ -688,12 +699,12 @@ def kernel_table(torch):
             replaces="src/repro/kernels/winograd/winograd.py:77",
             ops=wino_ops, work=wino_work,
             sweep=lambda s: [(*s[:5], *t) for t in
-                             list(WINO_TILES.values()) + list(MM_TILES.values())]),
+                             list(WINO_TILES.values()) + list(WINO_MM_TILES.values())]),
         "matmul_batch": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:87",
-            ops=mmb_ops, work=mmb_work,
-            sweep=lambda s: [(*s[:6], *t, *e) for t in MM_TILES.values()
+            ops=mmb_ops, work=mmb_work, flops_s=TF32_FLOPS / 3,
+            sweep=lambda s: [(*s[:6], *p, *e) for p in mm_plans(*s[1:4], s[0])
                              for e in eps]),
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
@@ -707,7 +718,7 @@ def kernel_table(torch):
             replaces="src/repro/kernels/winograd/winograd.py:36",
             ops=wino1_ops, work=lambda s: wino_work((1, *s)),
             sweep=lambda s: [(*s[:4], *t) for t in
-                             list(WINO_TILES.values()) + list(MM_TILES.values())]),
+                             list(WINO_TILES.values()) + list(WINO_MM_TILES.values())]),
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",
@@ -767,9 +778,15 @@ def check_and_time(torch, name, seen, passes, reps):
     across the tile/epilogue sweep at the largest of them; then, for each
     path in ``passes`` ({path: {signature: launches}} of one b=8 forward),
     time that pass's launches — kernel, plain version, library call and
-    bound, each summed over the pass."""
+    bound, each summed over the pass. The bound takes the operations at the
+    peak rate of the kind the kernel runs (``flops_s``: 3xTF32 on the tensor
+    cores, else fp32 outside them) and, as ``bound_fp32_ms``, at the fp32
+    rate (the same for a SIMT kernel); a tensor-core kernel's pass lists
+    every signature with both."""
     from repro_torch.kernels import common
     spec = kernel_table(torch)[name]
+    flops_s = spec.get("flops_s", FP32_FLOPS)
+    tc = flops_s != FP32_FLOPS
     assert seen, f"{name}: the served paths gave it no launch"
     largest = max(seen, key=lambda s: spec["work"](s)[0])
     worst = 0.0
@@ -782,31 +799,41 @@ def check_and_time(torch, name, seen, passes, reps):
         worst = max(worst, float((got - want).abs().max()))
     out = {}
     for path, counts in passes.items():
-        t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_fp32_ms"), 0.0)
         flop_s = byte_s = 0.0
         per_sig = []
         for sig, n in counts.items():
             kern, plain, lib = spec["ops"](sig)
             ms = n * time_ms(torch, kern, reps)
             plain_ms = n * time_ms(torch, plain, reps)
+            lib_ms = n * time_ms(torch, lib, reps)
             t["ms"] += ms
             t["plain_ms"] += plain_ms
-            t["library_ms"] += n * time_ms(torch, lib, reps)
+            t["library_ms"] += lib_ms
             flops, nbytes = spec["work"](sig)
-            bound = n * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+            bound = n * max(flops / flops_s, nbytes / HBM_BYTES_S) * 1e3
+            bound32 = n * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
             t["bound_ms"] += bound
-            flop_s += n * flops / FP32_FLOPS
+            t["bound_fp32_ms"] += bound32
+            flop_s += n * flops / flops_s
             byte_s += n * nbytes / HBM_BYTES_S
-            per_sig.append((ms, plain_ms, bound, sig))
+            per_sig.append((ms, plain_ms, lib_ms, bound, bound32, n, sig))
         t["bound_by"] = "operations" if flop_s >= byte_s else "bytes"
         t["launches"] = sum(counts.values())
         out[path] = t
+        fp32 = f", fp32 bound {t['bound_fp32_ms']:.4f}" if tc else ""
         print(f"{name}: one pass of {path}: {t['launches']} launches, "
               f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-              f"{t['bound_by']})", flush=True)
-        for ms, plain_ms, bound, sig in sorted(per_sig, reverse=True)[:TOP_SIGNATURES]:
-            print(f"    {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.4f}) at {sig}")
+              f"{t['bound_by']}{fp32})", flush=True)
+        assert t["ms"] >= t["bound_ms"], (name, path, "faster than its bound")
+        listed = sorted(per_sig, key=lambda r: r[0], reverse=True)
+        for ms, plain_ms, lib_ms, bound, bound32, n, sig in (
+                listed if tc else listed[:TOP_SIGNATURES]):
+            fp32 = f", fp32 bound {bound32:.4f}" if tc else ""
+            print(f"    {ms:.4f} ms (plain {plain_ms:.4f}, library "
+                  f"{lib_ms:.4f}, bound {bound:.4f}{fp32}) x{n} at {sig}")
     common.reset_launches()          # the launches above were not the main path
     print(f"{name}: {len(seen)} main-path signatures + sweep hold to plain, "
           f"max |err| {worst:.3g}", flush=True)

@@ -1,5 +1,6 @@
-// Tiled fp32 matmul with a fused epilogue: C = relu?(A @ B + bias + residual),
-// single (rt_matmul_f32) and batched (rt_matmul_batch_f32).
+// fp32 matmul with a fused epilogue, C = relu?(A @ B + bias + residual), on
+// Hopper's tensor cores at fp32 accuracy: single (rt_matmul_f32) and batched
+// (rt_matmul_batch_f32).
 //
 // Replaces two TPU kernels:
 // - `matmul` (src/repro/kernels/matmul/matmul.py:140, body `_matmul_kernel`
@@ -11,69 +12,177 @@
 //   walk with the batch as the leading grid axis, bias (M,) shared and
 //   residual (B, M, N).
 //
-// Both entry points launch one template: the batched one puts the batch on
-// blockIdx.z and offsets A and B by their own batch strides, so an operand
-// broadcast over the batch (stride 0) is read in place and never copied per
-// image; the single one is the same kernel at B = 1.
+// What bounds it on the H100. The served edge_cnn plan (M = 16-96 output
+// channels, K = C*f*f = 27-1,152, N = batch * output pixels = 32-7,200) is
+// bound by bytes: its 14 GEMMs at b=8 move 30.4 MB for 0.38 GFLOP (9.1 us
+// at 3.35 TB/s against 5.6 us of fp32 operations), so what counts is that
+// the card is filled and no tile computes on zeros. resnet18's 20 convs as
+// per-image GEMMs at b=8 (M = 64-512, K up to 4,608, N = 1-11,881 per
+// image; 58.7 GFLOP) are bound by operations at the fp32 rate outside the
+// tensor cores (0.886 ms at 67 TFLOP/s), by bytes once 3xTF32 runs them at
+// 494.7 / 3 = 164.9 TFLOP/s (0.526 ms of traffic, mostly the unfolded
+// patches B, against 0.356 ms of operations). Its late layers (N = 25, 9,
+// 1 per image) give few output tiles for a long reduction.
 //
-// On the H100 the grid's blocks run in parallel, so the K walk becomes a
-// loop inside each CTA (gemm_tile.cuh) and the f32 accumulator lives in
-// registers. Ragged edges are masked while staging tiles, so nothing is
-// padded or sliced in device memory. The epilogue is fused before the one
-// store of each output element, as in the TPU kernel: the activation is
-// written once and never read back for a separate bias/residual/ReLU pass.
+// What the design does (the plan of each call comes from ops.cta_plan):
+// 1. Tensor cores at fp32 accuracy: 3xTF32 mma.sync.m16n8k8 (mma_tf32.cuh),
+//    both halves of both operands split in registers from one shared-memory
+//    tile each, and each stage's products summed from zero before an fp32
+//    add into the running sum (the tensor cores' own adds round toward
+//    zero). wgmma's 64-row warpgroup tile does not fit M = 16-96, and it
+//    reads B from shared memory, where the split would need two copies.
+// 2. A 3-stage cp.async ring for the A and B tiles. B, which streams, always
+//    moves in 16-byte copies (a row of odd N as an aligned window one chunk
+//    wider); A in 16-byte copies where K % 4 == 0, else 4-byte ones (K =
+//    27); ragged edges zero-filled by the copy itself; nothing is padded.
+// 3. Tiles fitted to the shape: BM and BN are the smallest instantiated
+//    sizes covering M and N under the variant's ceiling, so an M = 16 layer
+//    runs a 16-row tile instead of a 128-row tile that is 87% zeros.
+// 4. Deterministic split-K where the output tiles cannot fill the 132 SMs:
+//    blockIdx.z carries (batch, split); each split covers a whole number of
+//    BK steps and stores its raw partial tile to a workspace the wrapper
+//    allocates; splitk_reduce then adds the partials in split order and
+//    applies bias -> residual -> ReLU once, to the full sum. No atomics: two
+//    calls on the same inputs give bit-identical outputs.
+// 5. No split where the grid already fills the card: the epilogue is then
+//    fused into the single store of each output element, as in the TPU
+//    kernel, and the output is written once and never read back.
 //
-// Bound: on the plan's shapes (M = output channels, K = C*f*f, N = batch *
-// output pixels) fp32 FMA at 67 TFLOP/s for wide layers, device memory at
-// 3.35 TB/s for narrow ones. The design answers the FMA bound only with
-// register blocking ((BM/16) x (BN/16) outputs per thread); tensor-core
-// paths (3xTF32 to keep fp32 accuracy, wgmma, TMA) are later work.
-#include "gemm_tile.cuh"
+// The batch is on blockIdx.z; A and B are offset by their own batch strides,
+// so an operand broadcast over the batch (stride 0) is read in place.
+#include "mma_tf32.cuh"
 
 namespace {
 
+using rt::tc::Tile;
+
+// The fused epilogue, in the reference's order: bias -> residual -> ReLU.
+__device__ __forceinline__ float finish(float v, const float* bias,
+                                        const float* res, int m, long long idx,
+                                        int relu) {
+  if (bias) v += bias[m];
+  if (res) v += res[idx];
+  if (relu) v = fmaxf(v, 0.f);
+  return v;
+}
+
+// grid (N tiles, M tiles, Bn * split). Split s of batch entry z walks BK
+// steps [s * per, (s + 1) * per) of K; with split == 1 it stores the
+// finished output, else its raw partial sum into ws[s][z].
 template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(rt::kThreads)
+__global__ void __launch_bounds__(Tile<BM, BN, BK>::kThreads)
 matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
               const float* __restrict__ bias, const float* __restrict__ res,
-              float* __restrict__ C, int M, int N, int K, int relu,
-              long long sA, long long sB) {
-  const long long z = blockIdx.z;           // batch index; 0 when unbatched
-  A += z * sA;
-  B += z * sB;
-  C += z * M * N;
-  if (res) res += z * M * N;
+              float* __restrict__ C, float* __restrict__ ws, int M, int N,
+              int K, int relu, int split, int a16, long long sA,
+              long long sB) {
+  using T = Tile<BM, BN, BK>;
+  extern __shared__ float4 smem4[];
+  const int Bn = gridDim.z / split;
+  const int z = blockIdx.z % Bn, s = blockIdx.z / Bn;
+  const long long MN = (long long)M * N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[BM / 16][BN / 16] = {};
-  rt::gemm_tile<BM, BN, BK>(M, N, K, m0, n0, rt::RowMajor{A, K},
-                            rt::RowMajor{B, N}, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int per = ((K + BK - 1) / BK + split - 1) / split;
+  const int kbeg = s * per * BK, kend = min(K, kbeg + per * BK);
+  const float* Bz = B + z * sB;
+  const int bmis = (int)(reinterpret_cast<uintptr_t>(Bz) / 4 % 4);
+  float acc[T::MT][T::NT][4] = {};
+  rt::tc::mma_tile<BM, BN, BK>(A + z * sA, Bz, M, N, K, m0, n0, kbeg, kend,
+                               a16, bmis, reinterpret_cast<float*>(smem4),
+                               acc);
+
+  float* out = split == 1 ? C + z * MN : ws + (s * (long long)Bn + z) * MN;
+  if (res) res += z * MN;
+  const int r0 = m0 + rt::tc::warp_row<BM, BN, BK>() + threadIdx.x % 32 / 4;
+  const int c0 = n0 + rt::tc::warp_col<BM, BN, BK>() + threadIdx.x % 4 * 2;
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
+  for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const long long idx = (long long)m * N + n;
-      C[idx] = rt::finish(acc[i][j], bias, res, m, idx, relu);
-    }
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = r0 + mt * 16 + h * 8;
+        if (m >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = c0 + nt * 8 + e;
+          if (n >= N) continue;
+          const long long idx = (long long)m * N + n;
+          const float v = acc[mt][nt][2 * h + e];
+          out[idx] = split == 1 ? finish(v, bias, res, m, idx, relu) : v;
+        }
+      }
+}
+
+// C[i] = epilogue(ws[0][i] + ws[1][i] + ... + ws[split-1][i]), in that
+// order, over the Bn * M * N outputs.
+__global__ void splitk_reduce(const float* __restrict__ ws,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ res,
+                              float* __restrict__ C, int M, int N, int split,
+                              long long total, int relu) {
+  const long long MN = (long long)M * N;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    float v = ws[i];
+    for (int s = 1; s < split; ++s) v += ws[s * total + i];
+    C[i] = finish(v, bias, res, (int)(i % MN / N), i, relu);
   }
 }
 
+template <int BM, int BN, int BK>
+int launch_tile(const float* A, const float* B, const float* bias,
+                const float* res, float* C, float* ws, int Bn, int M, int N,
+                int K, int relu, long long sA, long long sB, int split,
+                cudaStream_t stream) {
+  using T = Tile<BM, BN, BK>;
+  // raise the dynamic shared memory cap above 48 KB once per instantiation,
+  // at its first launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_kernel<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long mt = (M + BM - 1) / BM, zt = (long long)Bn * split;
+  if (mt > 65535 || zt > 65535) return (int)cudaErrorInvalidValue;
+  // A's 16-byte copies need 16-byte aligned rows in every batch entry
+  const bool a16 = K % 4 == 0 && sA % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  dim3 grid((N + BN - 1) / BN, (unsigned)mt, (unsigned)zt);
+  matmul_kernel<BM, BN, BK><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      A, B, bias, res, C, ws, M, N, K, relu, split, a16, sA, sB);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long total = (long long)Bn * M * N;
+  const long long blocks = (total + 255) / 256;
+  splitk_reduce<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      ws, bias, res, C, M, N, split, total, relu);
+  return (int)cudaGetLastError();
+}
+
+// Every (BM, BN, BK) CTA tile ops.cta_plan may choose (ops.TILE_M, TILE_N,
+// TILE_K): BM in 16..128, BN in 8..128, BK 16 or 32.
+#define RT_MMA_BN(X, BM, BK) \
+  X(BM, 8, BK) X(BM, 32, BK) X(BM, 64, BK) X(BM, 128, BK)
+#define RT_MMA_BM(X, BK)                                            \
+  RT_MMA_BN(X, 16, BK) RT_MMA_BN(X, 32, BK) RT_MMA_BN(X, 64, BK) \
+      RT_MMA_BN(X, 128, BK)
+#define RT_FOR_EACH_MMA_TILE(X) RT_MMA_BM(X, 16) RT_MMA_BM(X, 32)
+
 int launch(const float* A, const float* B, const float* bias,
-           const float* res, float* C, int Bn, int M, int N, int K, int relu,
-           long long sA, long long sB, int bm, int bn, int bk,
-           cudaStream_t stream) {
+           const float* res, float* C, float* ws, int Bn, int M, int N, int K,
+           int relu, long long sA, long long sB, int bm, int bn, int bk,
+           int split, cudaStream_t stream) {
+  const int steps = (K + bk - 1) / bk;
+  // every split must own at least one BK step, and a split needs a workspace
+  if (split < 1) return (int)cudaErrorInvalidValue;
+  const int per = (steps + split - 1) / split;
+  if (split > 1 && (ws == nullptr || (split - 1) * per >= steps))
+    return (int)cudaErrorInvalidValue;
 #define RT_LAUNCH(BM_, BN_, BK_)                                              \
-  if (bm == BM_ && bn == BN_ && bk == BK_) {                                 \
-    dim3 grid((N + BN_ - 1) / BN_, (M + BM_ - 1) / BM_, Bn);                 \
-    matmul_kernel<BM_, BN_, BK_><<<grid, rt::kThreads, 0, stream>>>(         \
-        A, B, bias, res, C, M, N, K, relu, sA, sB);                          \
-    return (int)cudaGetLastError();                                          \
-  }
-  RT_FOR_EACH_TILE(RT_LAUNCH)
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                   \
+    return launch_tile<BM_, BN_, BK_>(A, B, bias, res, C, ws, Bn, M, N, K,   \
+                                      relu, sA, sB, split, stream);
+  RT_FOR_EACH_MMA_TILE(RT_LAUNCH)
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -81,23 +190,27 @@ int launch(const float* A, const float* B, const float* bias,
 }  // namespace
 
 // A (M, K), B (K, N), bias (M,) or null, res (M, N) or null -> C (M, N), all
-// fp32 row-major. Returns cudaGetLastError() after the launch; an unknown
-// tile returns cudaErrorInvalidValue without launching.
+// fp32 row-major; ws (split, M, N) fp32 scratch when split > 1, else null.
+// Returns cudaGetLastError() after the launches; an unknown tile or an
+// illegal split returns cudaErrorInvalidValue without launching.
 extern "C" int rt_matmul_f32(const float* A, const float* B, const float* bias,
-                             const float* res, float* C, int M, int N, int K,
-                             int relu, int bm, int bn, int bk,
-                             cudaStream_t stream) {
-  return launch(A, B, bias, res, C, 1, M, N, K, relu, 0, 0, bm, bn, bk, stream);
+                             const float* res, float* C, float* ws, int M,
+                             int N, int K, int relu, int bm, int bn, int bk,
+                             int split, cudaStream_t stream) {
+  return launch(A, B, bias, res, C, ws, 1, M, N, K, relu, 0, 0, bm, bn, bk,
+                split, stream);
 }
 
 // A (Bn, M, K) with batch stride sA, B (Bn, K, N) with batch stride sB (each
 // matrix row-major; a stride of 0 broadcasts one matrix over the batch),
-// bias (M,) or null, res (Bn, M, N) or null -> C (Bn, M, N) contiguous.
+// bias (M,) or null, res (Bn, M, N) or null -> C (Bn, M, N) contiguous; ws
+// (split, Bn, M, N) when split > 1. The strides are 64-bit.
 extern "C" int rt_matmul_batch_f32(const float* A, const float* B,
                                    const float* bias, const float* res,
-                                   float* C, int Bn, int M, int N, int K,
-                                   int relu, int sA, int sB, int bm, int bn,
-                                   int bk, cudaStream_t stream) {
-  return launch(A, B, bias, res, C, Bn, M, N, K, relu, sA, sB, bm, bn, bk,
-                stream);
+                                   float* C, float* ws, int Bn, int M, int N,
+                                   int K, int relu, int bm, int bn, int bk,
+                                   int split, long long sA, long long sB,
+                                   cudaStream_t stream) {
+  return launch(A, B, bias, res, C, ws, Bn, M, N, K, relu, sA, sB, bm, bn, bk,
+                split, stream);
 }

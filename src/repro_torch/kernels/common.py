@@ -134,14 +134,17 @@ def library(source: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
-    """C function ``symbol(ptr * n_ptrs, int * n_ints, float * n_floats,
-    stream) -> int`` of a source's library, with its ctypes signature set.
-    Pointers and the stream are ``c_void_p`` — anything else would truncate
-    them to 32 bits."""
+def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
+         n_longs: int = 0):
+    """C function ``symbol(ptr * n_ptrs, int * n_ints, long long * n_longs,
+    float * n_floats, stream) -> int`` of a source's library, with its ctypes
+    signature set. Pointers and the stream are ``c_void_p`` — anything else
+    would truncate them to 32 bits. A ``c_int`` wraps silently past 2**31 - 1:
+    a wrapper checks its ints with ``check_int32`` or passes them as longs."""
     fn = getattr(library(source), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * n_longs + [ctypes.c_float] * n_floats
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -170,6 +173,15 @@ def on_cpu(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     return False
+
+
+def check_int32(name: str, **values: int) -> None:
+    """Raise on a value a C ``int`` parameter cannot hold: ctypes would wrap
+    it silently (2**31 + 5 arrives as -2147483643)."""
+    for key, v in values.items():
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise ValueError(f"{name}: {key}={v} does not fit the kernel's "
+                             f"int32 parameter")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,32 +1,40 @@
-"""Variant registry for the tiled matmul kernels (``matmul_op`` and the
-batched ``matmul_batch_op``), and the map from each TPU block variant onto a
-legal Hopper CTA tile.
+"""Variant registry for the matmul kernels (``matmul_op`` and the batched
+``matmul_batch_op``), and the rule that turns a TPU block variant and a
+GEMM shape into a launch plan for ``csrc/matmul.cu``.
 
 ``VARIANTS`` keeps the reference's keys and TPU (bm, bk, bn) blocks, so
 every column name the selection produces (``<base>@mm-...``) executes. The
 TPU blocks are sized for a 128x128 MXU and many megabytes of VMEM; fp32
 ``mm-512x256x256`` would need 512 KB for its A block alone against 227 KB of
-shared memory per H100 block. ``CTA_TILES`` therefore maps each key with one
-rule — halve the M and N blocks, capped at 128, and take a K depth of
-``bk / 16`` — onto a (BM, BK, BN) tile of ``csrc/gemm_tile.cuh``. Every tile
-uses 256 threads and at most 16.6 KB of static shared memory. The batched
-kernel takes the same tile per key, with the batch on the grid's z axis:
+shared memory per H100 block. ``CTA_TILES`` therefore maps each key onto a
+ceiling tile by one rule — halve the M and N blocks, capped at 128, and take
+a K depth of ``bk / 8`` (two or four of the tensor core's 8-deep steps):
 
-    variant            TPU (bm, bk, bn)   Hopper CTA (BM, BK, BN)
-    mm-128x128x128     (128, 128, 128)    ( 64,  8,  64)
-    mm-256x128x128     (256, 128, 128)    (128,  8,  64)
-    mm-128x128x256     (128, 128, 256)    ( 64,  8, 128)
-    mm-256x128x256     (256, 128, 256)    (128,  8, 128)
-    mm-512x128x128     (512, 128, 128)    (128,  8,  64)   M block capped
-    mm-128x256x128     (128, 256, 128)    ( 64, 16,  64)
-    mm-256x256x256     (256, 256, 256)    (128, 16, 128)
-    mm-512x256x256     (512, 256, 256)    (128, 16, 128)   M block capped
+    variant            TPU (bm, bk, bn)   ceiling (BM, BK, BN)
+    mm-128x128x128     (128, 128, 128)    ( 64, 16,  64)
+    mm-256x128x128     (256, 128, 128)    (128, 16,  64)
+    mm-128x128x256     (128, 128, 256)    ( 64, 16, 128)
+    mm-256x128x256     (256, 128, 256)    (128, 16, 128)
+    mm-512x128x128     (512, 128, 128)    (128, 16,  64)   M block capped
+    mm-128x256x128     (128, 256, 128)    ( 64, 32,  64)
+    mm-256x256x256     (256, 256, 256)    (128, 32, 128)
+    mm-512x256x256     (512, 256, 256)    (128, 32, 128)   M block capped
+
+``cta_plan`` fits the ceiling to the shape of each call (see its rule). On
+a shape that fills the card with ceiling tiles the plan is the ceiling, so
+the six distinct ceilings stay six distinct kernels and the selection's
+columns keep their meaning; the two capped keys run as their 256-row
+twins.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.kernels.matmul.matmul import matmul, matmul_batch
+from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, cta_warps,
+                                               matmul, matmul_batch)
+
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+WARPS_PER_SM = 8                # two warps on each of an SM's four schedulers
 
 # (bm, bk, bn) TPU blocks, as in the reference
 VARIANTS: Dict[str, Tuple[int, int, int]] = {
@@ -40,31 +48,67 @@ VARIANTS: Dict[str, Tuple[int, int, int]] = {
     "mm-512x256x256": (512, 256, 256),
 }
 
-# (BM, BK, BN) Hopper CTA tile per variant — the table in the docstring
+# (BM, BK, BN) ceiling tile per variant — the table in the docstring
 CTA_TILES: Dict[str, Tuple[int, int, int]] = {
-    "mm-128x128x128": (64, 8, 64),
-    "mm-256x128x128": (128, 8, 64),
-    "mm-128x128x256": (64, 8, 128),
-    "mm-256x128x256": (128, 8, 128),
-    "mm-512x128x128": (128, 8, 64),
-    "mm-128x256x128": (64, 16, 64),
-    "mm-256x256x256": (128, 16, 128),
-    "mm-512x256x256": (128, 16, 128),
+    "mm-128x128x128": (64, 16, 64),
+    "mm-256x128x128": (128, 16, 64),
+    "mm-128x128x256": (64, 16, 128),
+    "mm-256x128x256": (128, 16, 128),
+    "mm-512x128x128": (128, 16, 64),
+    "mm-128x256x128": (64, 32, 64),
+    "mm-256x256x256": (128, 32, 128),
+    "mm-512x256x256": (128, 32, 128),
 }
+
+
+def cta_plan(M: int, N: int, K: int, batch: int,
+             variant: str) -> Tuple[int, int, int, int]:
+    """(BM, BN, BK, split_k) for a (batch x) (M, K) @ (K, N) call under
+    ``variant``. The rule:
+
+    1. BK is the ceiling's. BM is the smallest of ``TILE_M`` that covers
+       min(M, ceiling BM), BN the smallest of ``TILE_N`` that covers
+       min(N, ceiling BN): a tile never computes more zero rows or columns
+       than the next smaller instantiated size would.
+    2. The output tiles of all batch entries, ``tiles`` CTAs of ``cta_warps``
+       warps each, fill the card when they give every one of the ``SMS``
+       streaming multiprocessors a CTA and ``WARPS_PER_SM`` warps. Then
+       split_k = 1. Otherwise K is split ``want`` ways, the least that
+       fills the card: K's ``steps = ceil(K / BK)`` BK steps are dealt out
+       ``per = max(1, steps // want)`` to a slice, giving split_k =
+       ceil(steps / per) >= want slices, or split_k = steps (one step per
+       slice) where K is too short for that."""
+    cm, bk, cn = CTA_TILES[variant]
+    bm = next(t for t in TILE_M if t >= min(M, cm))
+    bn = next(t for t in TILE_N if t >= min(N, cn))
+    tiles = -(-M // bm) * -(-N // bn) * batch
+    steps = -(-K // bk)
+    if tiles == 0 or steps <= 1:
+        return bm, bn, bk, 1
+    want = max(-(-SMS // tiles),
+               -(-SMS * WARPS_PER_SM // (tiles * cta_warps(bm, bn))))
+    if want == 1:
+        return bm, bn, bk, 1
+    per = max(1, steps // want)
+    return bm, bn, bk, -(-steps // per)
 
 
 def matmul_op(x, y, variant: str = "mm-128x128x128", bias=None,
               residual=None, relu: bool = False):
-    """(M, K) @ (K, N) under ``variant``'s CTA tile, epilogue fused."""
-    bm, bk, bn = CTA_TILES[variant]
-    return matmul(x, y, bm=bm, bk=bk, bn=bn, bias=bias, residual=residual,
-                  relu=relu)
+    """(M, K) @ (K, N) under ``variant``'s plan for this shape, epilogue
+    applied once to the full sum."""
+    (M, K), N = x.shape, y.shape[1]
+    bm, bn, bk, split = cta_plan(M, N, K, 1, variant)
+    return matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=bias,
+                  residual=residual, relu=relu)
 
 
 def matmul_batch_op(x, y, variant: str = "mm-128x128x128", bias=None,
                     residual=None, relu: bool = False):
-    """(B, M, K) @ (B, K, N) under ``variant``'s CTA tile, one tile walk per
-    batch entry, epilogue fused; ``x`` or ``y`` may be broadcast over B."""
-    bm, bk, bn = CTA_TILES[variant]
-    return matmul_batch(x, y, bm=bm, bk=bk, bn=bn, bias=bias,
+    """(B, M, K) @ (B, K, N) under ``variant``'s plan for this shape, the
+    batch on the grid, epilogue applied once to the full sum; ``x`` or
+    ``y`` may be broadcast over B."""
+    B, M, K = x.shape
+    bm, bn, bk, split = cta_plan(M, y.shape[2], K, B, variant)
+    return matmul_batch(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=bias,
                         residual=residual, relu=relu)

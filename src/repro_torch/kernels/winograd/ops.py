@@ -13,13 +13,23 @@ domain.
 
 Tile map. ``wino-*`` keeps the reference's (bk, bt) TPU blocks (K by T,
 channel block 128); a Hopper CTA tile halves each, capped at 128, with a
-channel depth of 8 — the rule of ``kernels/matmul/ops.py``. ``mm-*`` on a
-Winograd base takes the matmul variant's CTA tile as (K, C, T):
+channel depth of 8. ``mm-*`` on a Winograd base tiles the point-GEMM as
+(K, C, T) by the same rule — halve the M and N blocks, capped at 128, and a
+channel depth of ``bk / 16`` — kept here in ``MM_CTA_TILES`` (the matmul
+kernel's own plan rule, ``kernels/matmul/ops.py``, does not move these):
 
-    variant        TPU (bk, bt)   Hopper CTA (BM, BK, BN)
-    wino-128x128   (128, 128)     (64, 8,  64)
-    wino-256x128   (256, 128)     (128, 8, 64)
-    wino-128x256   (128, 256)     (64, 8, 128)
+    variant           TPU block         Hopper CTA (BM, BK, BN)
+    wino-128x128      (128, 128)        ( 64, 8,  64)
+    wino-256x128      (256, 128)        (128, 8,  64)
+    wino-128x256      (128, 256)        ( 64, 8, 128)
+    mm-128x128x128    (128, 128, 128)   ( 64, 8,  64)
+    mm-256x128x128    (256, 128, 128)   (128, 8,  64)
+    mm-128x128x256    (128, 128, 256)   ( 64, 8, 128)
+    mm-256x128x256    (256, 128, 256)   (128, 8, 128)
+    mm-512x128x128    (512, 128, 128)   (128, 8,  64)
+    mm-128x256x128    (128, 256, 128)   ( 64, 16, 64)
+    mm-256x256x256    (256, 256, 256)   (128, 16, 128)
+    mm-512x256x256    (512, 256, 256)   (128, 16, 128)
 """
 from __future__ import annotations
 
@@ -29,7 +39,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import epilogue
-from repro_torch.kernels.matmul.ops import CTA_TILES as MM_CTA_TILES
 from repro_torch.kernels.winograd.winograd import (winograd_point_gemm,
                                                    winograd_point_gemm_batch)
 from repro_torch.primitives.conv import _WINO_SETS
@@ -42,6 +51,18 @@ CTA_TILES: Dict[str, Tuple[int, int, int]] = {
     "wino-128x128": (64, 8, 64),
     "wino-256x128": (128, 8, 64),
     "wino-128x256": (64, 8, 128),
+}
+
+# (BM, BK, BN) point-GEMM tile of each ``mm-*`` variant on a Winograd base
+MM_CTA_TILES: Dict[str, Tuple[int, int, int]] = {
+    "mm-128x128x128": (64, 8, 64),
+    "mm-256x128x128": (128, 8, 64),
+    "mm-128x128x256": (64, 8, 128),
+    "mm-256x128x256": (128, 8, 128),
+    "mm-512x128x128": (128, 8, 64),
+    "mm-128x256x128": (64, 16, 64),
+    "mm-256x256x256": (128, 16, 128),
+    "mm-512x256x256": (128, 16, 128),
 }
 
 

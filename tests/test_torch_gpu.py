@@ -23,10 +23,13 @@ from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col_batch_plain
 from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
 from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
                                                  conv_im2col_op)
-from repro_torch.kernels.matmul.matmul import matmul_batch_plain, matmul_plain
+from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_M, TILE_N, matmul,
+                                               matmul_batch, matmul_batch_plain,
+                                               matmul_plain)
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
-from repro_torch.kernels.matmul.ops import matmul_batch_op, matmul_op
+from repro_torch.kernels.matmul.ops import cta_plan, matmul_batch_op, matmul_op
 from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
+from repro_torch.kernels.winograd.ops import MM_CTA_TILES as WINO_MM_TILES
 from repro_torch.kernels.winograd.ops import winograd_conv
 from repro_torch.kernels.winograd.ref import conv3x3_ref
 from repro_torch.kernels.winograd.winograd import (
@@ -82,7 +85,7 @@ def test_gpu_conv_kernel_vs_plain(variant, cfg, cuda):
         torch.testing.assert_close(got, want, **GEMM_TOL)
 
 
-@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(MM_TILES))
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(WINO_MM_TILES))
 def test_gpu_point_gemm_kernel_vs_plain(variant, cuda):
     from repro_torch.kernels.winograd.ops import cta_tile
     gen = torch.Generator().manual_seed(0)
@@ -112,6 +115,104 @@ def test_gpu_matmul_batch_kernel_vs_plain(variant, cuda):
     assert common.LAUNCHES["matmul_batch"] == before + len(EPILOGUES)
 
 
+# edge_cnn's GEMMs at b=8 (M, K, N), as the PBQP-selected plan runs them
+EDGE_CNN_GEMMS = [(16, 27, 7200), (32, 144, 6272), (16, 32, 6272), (16, 288, 5408),
+                  (32, 288, 4608), (32, 288, 3872), (32, 32, 5408), (48, 288, 800),
+                  (48, 432, 512), (64, 48, 512), (64, 432, 288), (64, 1152, 128),
+                  (64, 128, 288), (96, 576, 32)]
+
+
+@pytest.mark.parametrize("shape", EDGE_CNN_GEMMS, ids=lambda s: "x".join(map(str, s)))
+def test_gpu_matmul_edge_cnn_signatures(shape, cuda):
+    """Each edge_cnn GEMM under the two variants PBQP picks for it, with no
+    epilogue and with all three fused; one launch count per call."""
+    gen = torch.Generator().manual_seed(0)
+    M, K, N = shape
+    x, y = _cuda_rand(gen, M, K, scale=K ** -0.5), _cuda_rand(gen, K, N)
+    b, r = _cuda_rand(gen, M), _cuda_rand(gen, M, N)
+    for variant in ("mm-256x256x256", "mm-128x256x128"):
+        for ep in (dict(), dict(bias=b, residual=r, relu=True)):
+            before = common.LAUNCHES["matmul"]
+            got = matmul_op(x, y, variant=variant, **ep)
+            assert common.LAUNCHES["matmul"] == before + 1
+            torch.testing.assert_close(got, matmul_plain(x, y, **ep), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 9, 25])
+def test_gpu_matmul_batch_split_k_late_layers(n, cuda):
+    """resnet18's late layers as b=8 per-image GEMMs (M=512, K=4608, weights
+    broadcast): the plan splits K, and every epilogue — residual and ReLU
+    above all — is applied once, after the full sum."""
+    gen = torch.Generator().manual_seed(0)
+    B, M, K = 8, 512, 4608
+    w, y = _cuda_rand(gen, M, K, scale=K ** -0.5), _cuda_rand(gen, B, K, n)
+    b, r = _cuda_rand(gen, M), _cuda_rand(gen, B, M, n)
+    x = w.expand(B, M, K)
+    assert cta_plan(M, n, K, B, "mm-128x128x128")[3] > 1
+    for hb, hr, relu in EPILOGUES:
+        ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+        before = common.LAUNCHES["matmul_batch"]
+        got = matmul_batch_op(x, y, **ep)
+        assert common.LAUNCHES["matmul_batch"] == before + 1
+        torch.testing.assert_close(got, matmul_batch_plain(x, y, **ep), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("bm", TILE_M)
+@pytest.mark.parametrize("bn", TILE_N)
+@pytest.mark.parametrize("bk", TILE_K)
+def test_gpu_matmul_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every tile csrc/matmul.cu instantiates, unsplit and split three ways,
+    at a ragged shape with 16-byte rows (K, N % 4 == 0) and with 4-byte
+    rows (K = 27 + 16k, N = 4j + 1, 2, 3)."""
+    gen = torch.Generator().manual_seed(0)
+    for M, K, N in [(150, 272, 332), (150, 155, 333), (37, 91, 334), (21, 75, 335)]:
+        x, y = _cuda_rand(gen, M, K, scale=K ** -0.5), _cuda_rand(gen, K, N)
+        b, r = _cuda_rand(gen, M), _cuda_rand(gen, M, N)
+        for split in (1, 3):
+            got = matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=b,
+                         residual=r, relu=True)
+            want = matmul_plain(x, y, bias=b, residual=r, relu=True)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("N", [7200, 7201, 7202, 7203])
+def test_gpu_matmul_unaligned_rows(N, cuda):
+    """edge_cnn's first conv (K = 27: 4-byte copies of A) at N = 0..3 mod 4
+    (4-byte copies of B where N % 4 != 0), single and batched, and a view
+    whose rows start off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(0)
+    M, K = 16, 27
+    x, y = _cuda_rand(gen, M, K, scale=K ** -0.5), _cuda_rand(gen, K, N)
+    for variant in sorted(MM_TILES):
+        torch.testing.assert_close(matmul_op(x, y, variant=variant),
+                                   matmul_plain(x, y), **GEMM_TOL)
+    xb, yb = _cuda_rand(gen, 3, 64, 72, scale=72 ** -0.5), _cuda_rand(gen, 3, 72, N)
+    torch.testing.assert_close(matmul_batch_op(xb, yb), matmul_batch_plain(xb, yb),
+                               **GEMM_TOL)
+    flat = _cuda_rand(gen, 1 + 64 * 72)
+    xo = flat[1:].view(64, 72)                         # 4-byte aligned only
+    yo = _cuda_rand(gen, 72, N)
+    torch.testing.assert_close(matmul_op(xo, yo), matmul_plain(xo, yo), **GEMM_TOL)
+
+
+def test_gpu_matmul_deterministic(cuda):
+    """Two calls on the same inputs give bit-identical outputs, with and
+    without a split of K."""
+    gen = torch.Generator().manual_seed(0)
+    x, y = _cuda_rand(gen, 64, 1152, scale=1152 ** -0.5), _cuda_rand(gen, 1152, 128)
+    b, r = _cuda_rand(gen, 64), _cuda_rand(gen, 64, 128)
+    xb, yb = _cuda_rand(gen, 512, 4608, scale=4608 ** -0.5), _cuda_rand(gen, 8, 4608, 9)
+    rb = _cuda_rand(gen, 8, 512, 9)
+    calls = [lambda: matmul_op(x, y, "mm-256x256x256", bias=b, residual=r, relu=True),
+             lambda: matmul(x, y, bm=64, bk=32, bn=128, bias=b, residual=r),
+             lambda: matmul_batch_op(xb.expand(8, 512, 4608), yb, residual=rb,
+                                     relu=True)]
+    assert cta_plan(64, 128, 1152, 1, "mm-256x256x256")[3] > 1
+    for call in calls:
+        first, second = call(), call()
+        assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("variant", sorted(CONV_TILES))
 @pytest.mark.parametrize("cfg", [(3, 32, 16, 3, 1), (8, 19, 20, 3, 2),
                                  (5, 14, 32, 5, 1), (64, 16, 130, 1, 2)])
@@ -129,7 +230,7 @@ def test_gpu_conv_single_kernel_vs_plain(variant, cfg, cuda):
     assert common.LAUNCHES["conv_im2col"] == before + len(EPILOGUES)
 
 
-@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(MM_TILES))
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(WINO_MM_TILES))
 def test_gpu_point_gemm_single_kernel_vs_plain(variant, cuda):
     from repro_torch.kernels.winograd.ops import cta_tile
     gen = torch.Generator().manual_seed(0)
