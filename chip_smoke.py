@@ -102,7 +102,7 @@ SERVE_TOL = dict(rtol=1e-3, atol=1e-3)    # fp32 sum order compounding over ~20 
 LONG_CALL_MS, LONG_CALL_BUDGET_MS = 1.0, 200.0  # time_ms: eager above this
 RATE_WINDOWS, RATE_WINDOW_S = 5, 2.0      # served img/s: windows per path, seconds each
 TOP_DEVICE_OPS = 8                        # device ops listed per profiled burst
-TOP_SIGNATURES = 4                        # costliest call signatures listed per timed pass
+TOP_SIGNATURES = 4                        # costliest signatures listed per SIMT kernel pass
 
 
 def main() -> int:
@@ -565,7 +565,8 @@ def kernel_table(torch):
     from repro_torch.kernels.im2col_gemm.im2col_gemm import (
         conv_im2col, conv_im2col_batch, conv_im2col_batch_plain,
         conv_im2col_plain)
-    from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
+    from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
+    from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_plan
     from repro_torch.kernels.im2col_gemm.ref import conv_ref
     from repro_torch.kernels.matmul.matmul import (matmul, matmul_batch,
                                                    matmul_batch_plain,
@@ -602,21 +603,33 @@ def kernel_table(torch):
         return (2 * M * K * N + M * N * (hb + hr + relu),
                 4 * (M * K + K * N + M * N * (1 + hr) + M * hb))
 
+    def conv_plans(N, C, H, W, K, f, s):
+        """(bm, bk, bn, split_k) of every variant's plan at one conv."""
+        P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
+        return [(bm, bk, bn, split) for bm, bn, bk, split in
+                (conv_plan(K, P, C * f * f, v) for v in CONV_VARIANTS)]
+
     def conv_ops(sig):
-        N, C, H, W, K, f, s, bm, bk, bn, hb, hr, relu = sig
+        N, C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu = sig
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
         x, w = rnd(N, C, H, W), rnd(K, C, f, f, scale=(C * f * f) ** -0.5)
         ep = dict(bias=rnd(K) if hb else None,
                   residual=rnd(N, K, oh, ow) if hr else None, relu=relu)
-        return (lambda: conv_im2col_batch(x, w, s, bm=bm, bk=bk, bn=bn, **ep),
+        return (lambda: conv_im2col_batch(x, w, s, bm=bm, bk=bk, bn=bn,
+                                          split_k=split, **ep),
                 lambda: conv_im2col_batch_plain(x, w, s, **ep),
                 lambda: conv_ref(x, w, s))
 
     def conv_work(sig):
-        N, C, H, W, K, f, s, _, _, _, hb, hr, relu = sig
-        P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
+        """FLOPs, and bytes counting only the rows and columns of x that
+        some window reads (a 1x1 s2 conv reads a quarter of x)."""
+        N, C, H, W, K, f, s, *_, hb, hr, relu = sig
+        oh, ow = (H - f) // s + 1, (W - f) // s + 1
+        rows, cols = ((o * f if f < s else (o - 1) * s + f) for o in (oh, ow))
+        P = N * oh * ow
         return (2 * P * K * C * f * f + P * K * (hb + hr + relu),
-                4 * (N * C * H * W + K * C * f * f + P * K * (1 + hr) + K * hb))
+                4 * (N * C * rows * cols + K * C * f * f + P * K * (1 + hr)
+                     + K * hb))
 
     def wino_ops(sig):
         N, P, K, C, T, bm, bk, bn = sig
@@ -648,12 +661,13 @@ def kernel_table(torch):
                      + B * M * N * (1 + hr) + M * hb))
 
     def conv1_ops(sig):
-        C, H, W, K, f, s, bm, bk, bn, hb, hr, relu = sig
+        C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu = sig
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
         x, w = rnd(C, H, W), rnd(K, C, f, f, scale=(C * f * f) ** -0.5)
         ep = dict(bias=rnd(K) if hb else None,
                   residual=rnd(K, oh, ow) if hr else None, relu=relu)
-        return (lambda: conv_im2col(x, w, s, bm=bm, bk=bk, bn=bn, **ep),
+        return (lambda: conv_im2col(x, w, s, bm=bm, bk=bk, bn=bn,
+                                    split_k=split, **ep),
                 lambda: conv_im2col_plain(x, w, s, **ep),
                 lambda: conv_ref(x[None], w, s))
 
@@ -691,8 +705,8 @@ def kernel_table(torch):
         "conv_im2col_batch": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:155",
-            ops=conv_ops, work=conv_work,
-            sweep=lambda s: [(*s[:7], *t, *e) for t in CONV_TILES.values()
+            ops=conv_ops, work=conv_work, flops_s=TF32_FLOPS / 3,
+            sweep=lambda s: [(*s[:7], *p, *e) for p in conv_plans(*s[:7])
                              for e in eps]),
         "winograd_point_gemm_batch": dict(
             source="src/repro_torch/csrc/winograd.cu",
@@ -709,9 +723,9 @@ def kernel_table(torch):
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:76",
-            ops=conv1_ops,
+            ops=conv1_ops, flops_s=TF32_FLOPS / 3,
             work=lambda s: conv_work((1, *s)),
-            sweep=lambda s: [(*s[:6], *t, *e) for t in CONV_TILES.values()
+            sweep=lambda s: [(*s[:6], *p, *e) for p in conv_plans(1, *s[:6])
                              for e in eps]),
         "winograd_point_gemm": dict(
             source="src/repro_torch/csrc/winograd.cu",

@@ -1,94 +1,234 @@
 // Implicit-GEMM valid convolution with a fused epilogue:
 //     out[n, k, oy, ox] = relu?(sum_{c,a,b} w[k, c, a, b] * x[n, c, oy*s + a, ox*s + b]
 //                               + bias[k] + residual[n, k, oy, ox])
-// batched (rt_conv_im2col_batch_f32) and single-image (rt_conv_im2col_f32).
+// batched (rt_conv_im2col_batch_f32) and single-image (rt_conv_im2col_f32),
+// on Hopper's tensor cores at fp32 accuracy.
 //
 // Replaces two TPU kernels:
 // - `conv_im2col_batch` (src/repro/kernels/im2col_gemm/im2col_gemm.py:155,
-//   body `_conv_batch_kernel` :129): fused im2col + GEMM whose (C*f*f, ow)
-//   patch block of each output row is built in VMEM and fed to the MXU, so
-//   the patch matrix is never written to HBM; grid (N, K blocks, output
-//   rows), bias / residual / ReLU finished on chip before the store;
+//   body `_conv_batch_kernel` :129, epilogue `_finish` :38): fused im2col +
+//   GEMM whose (C*f*f, ow) patch block of each output row is built in VMEM
+//   and fed to the MXU, so the patch matrix is never written to HBM; grid
+//   (N, K blocks, output rows), bias / residual / ReLU finished on chip
+//   before the store;
 // - `conv_im2col` (im2col_gemm.py:76, body `_conv_kernel` :50): the same for
-//   one (C, H, W) image, grid (K blocks, output rows), its residual
-//   transposed to (oh, K, ow) for the row grid (im2col_gemm.py:108).
+//   one (C, H, W) image, its residual transposed to (oh, K, ow) for the row
+//   grid (im2col_gemm.py:108).
+// The single-image entry point launches the batched kernel at N = 1: a
+// (C, H, W) image and a (K, oh, ow) residual and output are the N = 1
+// layouts, so the residual is read in place, without the transpose.
 //
-// The single-image entry point launches the same template at N = 1: a
-// (C, H, W) image, a (K, oh, ow) residual and output are the N = 1 layouts,
-// so the residual is read in place, without the TPU kernel's transpose.
+// The GEMM: M = output channels K, N = batch * output pixels P, reduction
+// R = C*f*f in the reference's (c, a, b) order. A is the (K, R) weight
+// matrix; B, the (R, P) patch matrix, is gathered stage by stage from x and
+// never exists in device memory.
 //
-// On the H100 the same idea is an implicit GEMM: M = output channels (the
-// `conv-bk*` K-block is the CTA's M tile), N = batch * output pixels, K =
-// C*f*f in the reference's (c, a, b) order. Each CTA stages its slice of the
-// patch matrix — BK patch rows by BN output pixels — in shared memory
-// straight from x with stride s (PatchLoader below), so the patch matrix
-// never exists in device memory. Folding the batch into N keeps CTAs full on
-// the small late layers (a 4x4 output is 16 pixels per image). The residual
-// is read in its (N, K, oh, ow) layout; no transpose as the TPU kernel
-// needed. f = 1 is the same kernel (conv-1x1 columns route here).
+// What bounds it on the H100 (FLOPs and bytes as chip_smoke.py counts them,
+// each operand read once): the served resnet18 / mix pass at b=8 (7 convs,
+// 8.8 GFLOP) is bound by operations, 0.131 ms at the fp32 rate outside the
+// tensor cores (67 TFLOP/s), ~0.06 ms at 3xTF32 (494.7 / 3 TFLOP/s); so is
+// resnet18's 20 convs on one image (7.8 GFLOP, 0.117 and ~0.055 ms). The
+// edge_cnn / mix pass (5 small convs) is bound by bytes, ~1.3 us, and in
+// practice by launch and pipeline latency. The first version of this file
+// (a 256-thread fp32 SIMT tile, fixed 128 x 64 tiles, no split) ran at 5-10%
+// of those bounds: resnet18's late layers (512 -> 512, 3x3, on 7x7 to 3x3
+// inputs) gave 4 CTAs a 4,608-long reduction each (~1 ms per layer), a
+// 128-row tile computed half zeros on 64-channel layers, and every staged
+// element cost four integer divisions.
 //
-// Bound: fp32 FMA (67 TFLOP/s at 700 W) on the wide layers, device memory
-// (3.35 TB/s) on the narrow ones. The gather costs integer index math per
-// staged element; a later version would precompute the (c, a, b) offsets and
-// use cp.async/TMA im2col mode.
-#include "gemm_tile.cuh"
+// What the design does (the plan of each call comes from ops.cta_plan):
+// 1. Tensor cores at fp32 accuracy, through the tile loop of mma_tf32.cuh
+//    (3xTF32 mma.sync.m16n8k8, each stage's products summed from zero and
+//    promoted to the running sum with a round-to-nearest fp32 add), with
+//    this file's stage loader in place of matmul's.
+// 2. An implicit-GEMM patch loader on cp.async (PatchStages). Each thread
+//    stages one patch row of each stage for NC fixed output pixels. The x
+//    offset of each pixel's patch origin, img*C*H*W + oy*s*W + ox*s, is
+//    computed once per CTA and kept in registers; the offset of the row,
+//    c*H*W + a*W + b, once per stage. Each element is a 4-byte cp.async
+//    whose source size zero-fills past R or past P: nothing is padded.
+//    A, the weights, takes matmul's A loader (16-byte copies where R % 4 ==
+//    0, else 4-byte: R = 27 and 147 are on the served paths).
+// 3. Tiles fitted to the shape: BM the smallest instantiated size covering
+//    K under the variant's ceiling, BN the same for P, so a 64-channel
+//    layer runs a 64-row tile.
+// 4. Deterministic split-K where the output tiles cannot give every SM a
+//    CTA and 8 warps (resnet18's late layers, its 256 -> 512 stride-2
+//    conv): blockIdx.z is the slice of R, each a whole number of BK steps;
+//    partials go to a (split, N, K, oh*ow) workspace, and splitk_reduce
+//    (epilogue.cuh, shared with matmul.cu) adds them in split order and
+//    applies bias -> residual -> ReLU once, to the full sum. No atomics.
+// 5. No split where the grid fills the card: the epilogue is then fused
+//    into the single store of each output element.
+//
+// Left for later: wgmma with TMA's im2col mode. TMA im2col tensor maps
+// describe a padded NHWC convolution window, while this kernel reads NCHW
+// with the reference's (c, a, b) patch order and valid padding; wgmma's
+// 64-row warpgroup tile does not fit edge_cnn's 16-64 output channels, and
+// it reads B from shared memory, where the 3xTF32 split needs two copies.
+#include "epilogue.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-// Patch-matrix element (k, j): k = (c, a, b), j = (image, oy, ox).
-struct PatchLoader {
-  const float* x;
-  int C, H, W, f, s, ow, ohw;
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    const int img = j / ohw, p = j - img * ohw;
-    const int oy = p / ow, ox = p - oy * ow;
-    const int ff = f * f;
-    const int c = k / ff, r = k - c * ff;
-    const int a = r / f, b = r - a * f;
-    return x[(((long long)img * C + c) * H + oy * s + a) * W + ox * s + b];
-  }
-};
+using rt::tc::Tile;
 
+// The stage loader of one thread (mma_tile's Load): the weights through
+// load_a; of the patch matrix, row r of every stage for the NC output
+// pixels n0 + (tid % TPR) + i * TPR of its CTA, i < NC, unshifted (boff 0).
 template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(rt::kThreads)
-conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ bias, const float* __restrict__ res,
-            float* __restrict__ out, int Nimg, int C, int H, int W, int K,
-            int f, int s, int oh, int ow, int relu) {
-  const int ohw = oh * ow;
-  const int M = K, N = Nimg * ohw, R = C * f * f;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[BM / 16][BN / 16] = {};
-  rt::gemm_tile<BM, BN, BK>(M, N, R, m0, n0, rt::RowMajor{w, R},
-                            PatchLoader{x, C, H, W, f, s, ow, ohw}, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+struct PatchStages {
+  using T = Tile<BM, BN, BK>;
+  static constexpr int TPR = T::kThreads / BK;   // threads per stage row
+  static constexpr int NC = BN / TPR;            // pixels per thread
+  static_assert(T::kThreads % BK == 0 && BN % TPR == 0, "patch stage layout");
+
+  const float* x;
+  const float* w;
+  int K, m0, HW, W, f, ff, R, r;
+  bool a16;
+  int col[NC];       // x offset of each pixel's patch origin; -1 past P
+
+  __device__ __forceinline__ PatchStages(const float* x_, const float* w_,
+                                         int K_, int m0_, bool a16_, int C,
+                                         int H, int W_, int f_, int s, int ow,
+                                         int ohw, int P, int n0)
+      : x(x_), w(w_), K(K_), m0(m0_), HW(H * W_), W(W_), f(f_), ff(f_ * f_),
+        R(C * f_ * f_), r(threadIdx.x / TPR), a16(a16_) {
 #pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= N) continue;
-    const int img = n / ohw, p = n - img * ohw;
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i) {
-      const int m = m0 + ty + 16 * i;
-      if (m >= M) continue;
-      const long long idx = ((long long)img * K + m) * ohw + p;
-      out[idx] = rt::finish(acc[i][j], bias, res, m, idx, relu);
+    for (int i = 0; i < NC; ++i) {
+      const int j = n0 + threadIdx.x % TPR + i * TPR;
+      const int img = j / ohw, p = j - img * ohw;
+      const int oy = p / ow, ox = p - oy * ow;
+      col[i] = j < P ? img * C * HW + oy * s * W + ox * s : -1;
     }
   }
+
+  // Issue the copies of the stage at k0: w[m0:m0+BM, k0:k0+BK] into As,
+  // patch rows k0 .. k0 + BK into Bs.
+  __device__ __forceinline__ void operator()(float* As, float* Bs,
+                                             int k0) const {
+    rt::tc::load_a<BM, BN, BK>(As, w, K, R, m0, k0, a16);
+    const int k = k0 + r;
+    const int c = k / ff, rem = k - c * ff;
+    const int a = rem / f, b = rem - a * f;
+    const int off = c * HW + a * W + b;
+    float* dst = Bs + r * T::LDB + threadIdx.x % TPR;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const bool ok = k < R && col[i] >= 0;
+      rt::tc::cp_async4(dst + i * TPR, ok ? x + col[i] + off : x, ok);
+    }
+  }
+  __device__ __forceinline__ int boff(int) const { return 0; }
+};
+
+// grid (P tiles, K tiles, split). Slice z walks BK steps [z * per,
+// (z + 1) * per) of R; with split == 1 it stores the finished output, else
+// its raw partial sum into ws[z]. Offsets into x, w and out fit in int32
+// (the wrapper refuses larger tensors); the workspace's are 64-bit.
+//
+// Occupancy: left to itself, ptxas holds the 256-thread 128 x 64 tile (the
+// wide layers' tile) to one CTA, 8 warps, per SM. The launch bound asks for
+// two CTAs and at least 12 warps an SM, which caps that tile at 128
+// registers a thread and the others at 170, with no spills. (Capping every
+// tile at 128 registers spills on the 32-wide tiles and makes them slower
+// on an H100.)
+__host__ __device__ constexpr int conv_min_blocks(int threads) {
+  return 12 * 32 / threads > 2 ? 12 * 32 / threads : 2;
 }
 
+template <int BM, int BN, int BK>
+__global__ void __launch_bounds__(Tile<BM, BN, BK>::kThreads,
+                                  conv_min_blocks(Tile<BM, BN, BK>::kThreads))
+conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ bias, const float* __restrict__ res,
+            float* __restrict__ out, float* __restrict__ ws, int C, int H,
+            int W, int K, int f, int s, int ow, int ohw, int P, int relu,
+            int split, int a16) {
+  using T = Tile<BM, BN, BK>;
+  extern __shared__ float4 smem4[];
+  const int R = C * f * f;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+  const int per = ((R + BK - 1) / BK + split - 1) / split;
+  const int kbeg = z * per * BK, kend = min(R, kbeg + per * BK);
+  const PatchStages<BM, BN, BK> load(x, w, K, m0, a16 != 0, C, H, W, f, s,
+                                     ow, ohw, P, n0);
+  float acc[T::MT][T::NT][4] = {};
+  rt::tc::mma_tile<BM, BN, BK>(load, kbeg, kend,
+                               reinterpret_cast<float*>(smem4), acc);
+
+  float* dst = split == 1 ? out : ws + z * (long long)K * P;
+  const int r0 = m0 + rt::tc::warp_row<BM, BN, BK>() + threadIdx.x % 32 / 4;
+  const int c0 = n0 + rt::tc::warp_col<BM, BN, BK>() + threadIdx.x % 4 * 2;
+#pragma unroll
+  for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = c0 + nt * 8 + e;
+      if (n >= P) continue;
+      const int img = n / ohw, p = n - img * ohw;
+      const int base = img * K * ohw + p;      // out[img, 0, p]
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r0 + mt * 16 + h * 8;
+          if (m >= K) continue;
+          const int idx = base + m * ohw;
+          const float v = acc[mt][nt][2 * h + e];
+          dst[idx] = split == 1 ? rt::tc::finish(v, bias, res, m, idx, relu)
+                                : v;
+        }
+    }
+}
+
+template <int BM, int BN, int BK>
+int launch_tile(const float* x, const float* w, const float* bias,
+                const float* res, float* out, float* ws, int N, int C, int H,
+                int W, int K, int f, int s, int oh, int ow, int relu,
+                int split, cudaStream_t stream) {
+  using T = Tile<BM, BN, BK>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_kernel<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const int R = C * f * f, ohw = oh * ow, P = N * ohw;
+  const int mt = (K + BM - 1) / BM;
+  if (mt > 65535 || split > 65535) return (int)cudaErrorInvalidValue;
+  // A's 16-byte copies need 16-byte aligned weight rows
+  const bool a16 = R % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  dim3 grid((P + BN - 1) / BN, mt, split);
+  conv_kernel<BM, BN, BK><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      x, w, bias, res, out, ws, C, H, W, K, f, s, ow, ohw, P, relu, split,
+      a16);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return rt::tc::launch_splitk_reduce(ws, bias, res, out, K, ohw, split,
+                                      (long long)K * P, relu, stream);
+}
+
+// Every (BM, BN, BK) CTA tile ops.cta_plan may choose (im2col_gemm.TILE_M,
+// TILE_N, TILE_K): BM in 16..128, BN in 8..64, BK 16.
+#define RT_CONV_BN(X, BM) X(BM, 8, 16) X(BM, 32, 16) X(BM, 64, 16)
+#define RT_FOR_EACH_CONV_TILE(X) \
+  RT_CONV_BN(X, 16) RT_CONV_BN(X, 32) RT_CONV_BN(X, 64) RT_CONV_BN(X, 128)
+
 int launch(const float* x, const float* w, const float* bias,
-           const float* res, float* out, int N, int C, int H, int W, int K,
-           int f, int s, int oh, int ow, int relu, int bm, int bn, int bk,
-           cudaStream_t stream) {
+           const float* res, float* out, float* ws, int N, int C, int H,
+           int W, int K, int f, int s, int oh, int ow, int relu, int bm,
+           int bn, int bk, int split, cudaStream_t stream) {
+  // every split must own at least one BK step, and a split needs a workspace
+  if (split < 1 || bk < 1) return (int)cudaErrorInvalidValue;
+  const int steps = (C * f * f + bk - 1) / bk;
+  const int per = (steps + split - 1) / split;
+  if (split > 1 && (ws == nullptr || (split - 1) * per >= steps))
+    return (int)cudaErrorInvalidValue;
 #define RT_LAUNCH(BM_, BN_, BK_)                                              \
-  if (bm == BM_ && bn == BN_ && bk == BK_) {                                 \
-    dim3 grid((N * oh * ow + BN_ - 1) / BN_, (K + BM_ - 1) / BM_);           \
-    conv_kernel<BM_, BN_, BK_><<<grid, rt::kThreads, 0, stream>>>(           \
-        x, w, bias, res, out, N, C, H, W, K, f, s, oh, ow, relu);            \
-    return (int)cudaGetLastError();                                          \
-  }
-  RT_FOR_EACH_TILE(RT_LAUNCH)
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                   \
+    return launch_tile<BM_, BN_, BK_>(x, w, bias, res, out, ws, N, C, H, W,  \
+                                      K, f, s, oh, ow, relu, split, stream);
+  RT_FOR_EACH_CONV_TILE(RT_LAUNCH)
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -96,25 +236,30 @@ int launch(const float* x, const float* w, const float* bias,
 }  // namespace
 
 // x (N, C, H, W), w (K, C, f, f), bias (K,) or null, res (N, K, oh, ow) or
-// null -> out (N, K, oh, ow), fp32 contiguous. Returns cudaGetLastError()
-// after the launch; an unknown tile returns cudaErrorInvalidValue.
+// null -> out (N, K, oh, ow), fp32 contiguous; ws (split, N, K, oh, ow) fp32
+// scratch when split > 1, else null. Returns cudaGetLastError() after the
+// launches; an unknown tile or an illegal split returns
+// cudaErrorInvalidValue without launching.
 extern "C" int rt_conv_im2col_batch_f32(const float* x, const float* w,
                                         const float* bias, const float* res,
-                                        float* out, int N, int C, int H, int W,
-                                        int K, int f, int s, int oh, int ow,
-                                        int relu, int bm, int bn, int bk,
+                                        float* out, float* ws, int N, int C,
+                                        int H, int W, int K, int f, int s,
+                                        int oh, int ow, int relu, int bm,
+                                        int bn, int bk, int split,
                                         cudaStream_t stream) {
-  return launch(x, w, bias, res, out, N, C, H, W, K, f, s, oh, ow, relu, bm,
-                bn, bk, stream);
+  return launch(x, w, bias, res, out, ws, N, C, H, W, K, f, s, oh, ow, relu,
+                bm, bn, bk, split, stream);
 }
 
 // x (C, H, W), w (K, C, f, f), bias (K,) or null, res (K, oh, ow) or null ->
-// out (K, oh, ow), fp32 contiguous: the batched kernel at N = 1.
+// out (K, oh, ow), fp32 contiguous; ws (split, K, oh, ow) when split > 1:
+// the batched kernel at N = 1.
 extern "C" int rt_conv_im2col_f32(const float* x, const float* w,
                                   const float* bias, const float* res,
-                                  float* out, int C, int H, int W, int K,
-                                  int f, int s, int oh, int ow, int relu,
-                                  int bm, int bn, int bk, cudaStream_t stream) {
-  return launch(x, w, bias, res, out, 1, C, H, W, K, f, s, oh, ow, relu, bm,
-                bn, bk, stream);
+                                  float* out, float* ws, int C, int H, int W,
+                                  int K, int f, int s, int oh, int ow,
+                                  int relu, int bm, int bn, int bk, int split,
+                                  cudaStream_t stream) {
+  return launch(x, w, bias, res, out, ws, 1, C, H, W, K, f, s, oh, ow, relu,
+                bm, bn, bk, split, stream);
 }

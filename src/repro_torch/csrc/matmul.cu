@@ -41,30 +41,22 @@
 // 4. Deterministic split-K where the output tiles cannot fill the 132 SMs:
 //    blockIdx.z carries (batch, split); each split covers a whole number of
 //    BK steps and stores its raw partial tile to a workspace the wrapper
-//    allocates; splitk_reduce then adds the partials in split order and
-//    applies bias -> residual -> ReLU once, to the full sum. No atomics: two
-//    calls on the same inputs give bit-identical outputs.
+//    allocates; splitk_reduce (epilogue.cuh) then adds the partials in
+//    split order and applies bias -> residual -> ReLU once, to the full sum.
+//    No atomics: two calls on the same inputs give bit-identical outputs.
 // 5. No split where the grid already fills the card: the epilogue is then
 //    fused into the single store of each output element, as in the TPU
 //    kernel, and the output is written once and never read back.
 //
 // The batch is on blockIdx.z; A and B are offset by their own batch strides,
 // so an operand broadcast over the batch (stride 0) is read in place.
+#include "epilogue.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
 
+using rt::tc::finish;
 using rt::tc::Tile;
-
-// The fused epilogue, in the reference's order: bias -> residual -> ReLU.
-__device__ __forceinline__ float finish(float v, const float* bias,
-                                        const float* res, int m, long long idx,
-                                        int relu) {
-  if (bias) v += bias[m];
-  if (res) v += res[idx];
-  if (relu) v = fmaxf(v, 0.f);
-  return v;
-}
 
 // grid (N tiles, M tiles, Bn * split). Split s of batch entry z walks BK
 // steps [s * per, (s + 1) * per) of K; with split == 1 it stores the
@@ -86,10 +78,11 @@ matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int kbeg = s * per * BK, kend = min(K, kbeg + per * BK);
   const float* Bz = B + z * sB;
   const int bmis = (int)(reinterpret_cast<uintptr_t>(Bz) / 4 % 4);
+  const rt::tc::RowMajorStages<BM, BN, BK> load{A + z * sA, Bz, M, N, K, m0,
+                                               n0, a16 != 0, bmis};
   float acc[T::MT][T::NT][4] = {};
-  rt::tc::mma_tile<BM, BN, BK>(A + z * sA, Bz, M, N, K, m0, n0, kbeg, kend,
-                               a16, bmis, reinterpret_cast<float*>(smem4),
-                               acc);
+  rt::tc::mma_tile<BM, BN, BK>(load, kbeg, kend,
+                               reinterpret_cast<float*>(smem4), acc);
 
   float* out = split == 1 ? C + z * MN : ws + (s * (long long)Bn + z) * MN;
   if (res) res += z * MN;
@@ -114,22 +107,6 @@ matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
       }
 }
 
-// C[i] = epilogue(ws[0][i] + ws[1][i] + ... + ws[split-1][i]), in that
-// order, over the Bn * M * N outputs.
-__global__ void splitk_reduce(const float* __restrict__ ws,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ res,
-                              float* __restrict__ C, int M, int N, int split,
-                              long long total, int relu) {
-  const long long MN = (long long)M * N;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    float v = ws[i];
-    for (int s = 1; s < split; ++s) v += ws[s * total + i];
-    C[i] = finish(v, bias, res, (int)(i % MN / N), i, relu);
-  }
-}
-
 template <int BM, int BN, int BK>
 int launch_tile(const float* A, const float* B, const float* bias,
                 const float* res, float* C, float* ws, int Bn, int M, int N,
@@ -152,11 +129,8 @@ int launch_tile(const float* A, const float* B, const float* bias,
       A, B, bias, res, C, ws, M, N, K, relu, split, a16, sA, sB);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
-  const long long total = (long long)Bn * M * N;
-  const long long blocks = (total + 255) / 256;
-  splitk_reduce<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      ws, bias, res, C, M, N, split, total, relu);
-  return (int)cudaGetLastError();
+  return rt::tc::launch_splitk_reduce(ws, bias, res, C, M, N, split,
+                                      (long long)Bn * M * N, relu, stream);
 }
 
 // Every (BM, BN, BK) CTA tile ops.cta_plan may choose (ops.TILE_M, TILE_N,

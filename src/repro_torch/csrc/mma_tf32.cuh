@@ -1,10 +1,13 @@
 // fp32 GEMM tile loop on Hopper's tensor cores at fp32 accuracy (3xTF32),
-// fed by a cp.async ring. Used by matmul.cu; the SIMT loop of the other
-// kernels stays in gemm_tile.cuh.
+// fed by a cp.async ring. Used by matmul.cu and im2col_gemm.cu; the SIMT
+// loop of the Winograd kernels stays in gemm_tile.cuh.
 //
 // One CTA computes a BM x BN tile of C[m, n] = sum_k A[m, k] * B[k, n] over
-// a K range [kbeg, kend), with A (M, K) and B (K, N) row-major in device
-// memory:
+// a K range [kbeg, kend). The caller's stage loader fills the shared-memory
+// stages: matmul.cu's copies A (M, K) and B (K, N), both row-major in device
+// memory (RowMajorStages, load_stage); im2col_gemm.cu's copies A the same
+// way (load_a) and gathers B, the patch matrix, straight from the conv's
+// input.
 //
 // - Tensor cores at fp32 accuracy. Each operand element x is split into
 //   big = x rounded to tf32 and small = x - big, and every 16x8x8 step
@@ -22,13 +25,13 @@
 //   rounds to nearest: the truncation is confined to one stage's partial.
 // - A ring of kStages shared-memory stages filled with cp.async: while the
 //   warps multiply stage i, the copies of stages i+1 .. i+kStages-1 are in
-//   flight. B, the operand that streams, always takes 16-byte copies: a
-//   row that does not start on a 16-byte boundary (odd N) is copied as an
-//   aligned window one chunk wider, and the fragment reads skip its head.
-//   A takes 16-byte copies where its rows are aligned (K % 4 == 0) and
-//   4-byte copies elsewhere. Past a ragged edge the copy's source-size
-//   operand zero-fills, so no operand is ever padded or sliced in device
-//   memory.
+//   flight. In load_stage B, the operand that streams, always takes
+//   16-byte copies: a row that does not start on a 16-byte boundary (odd
+//   N) is copied as an aligned window one chunk wider, and the fragment
+//   reads skip its head. A (load_a) takes 16-byte copies where its rows
+//   are aligned (K % 4 == 0) and 4-byte copies elsewhere. Past a ragged
+//   edge the copy's source-size operand zero-fills, so no operand is ever
+//   padded or sliced in device memory.
 // - Warps tile the CTA tile in warp tiles of up to 32 x 32 (MT x NT mma
 //   tiles of 16 x 8): 1 to 16 warps a CTA, each holding 32 running sums and
 //   32 stage sums at most; A's stage rows are padded by 4 words and B's by 8
@@ -120,22 +123,11 @@ __device__ __forceinline__ int warp_col() {
   return (threadIdx.x / 32 / T::WM) * T::WTN;
 }
 
-// Issue the copies of one stage: A[m0:m0+BM, k0:k0+BK], zero past M and
-// K, and B[k0:k0+BK, n0:n0+BN].
-//
-// A row of B is copied as the BN/4 + 1 aligned 16-byte chunks from the one
-// holding B[k][n0], whatever N is: stage row r then holds B[k0+r][n0 + c]
-// at column c + (bmis + (k0 + r) * N) % 4, with bmis = (address of B / 4)
-// % 4. The first chunk may start up to 3 floats before B[k][n0], at worst
-// before the matrix, but in the same 16-byte block, so inside B's
-// allocation; those floats are never read back. Floats past row k's end
-// feed only output columns >= N, which are never stored. Chunks are
-// clipped at the matrix's end, and rows past K are zero.
+// Issue the copies of A[m0:m0+BM, k0:k0+BK] into a stage, zero past M and
+// K: 16-byte copies where a16 (K % 4 == 0, A 16-byte aligned), else 4-byte.
 template <int BM, int BN, int BK>
-__device__ __forceinline__ void load_stage(float* As, float* Bs,
-                                           const float* A, const float* B,
-                                           int M, int N, int K, int m0, int n0,
-                                           int k0, bool a16, int bmis) {
+__device__ __forceinline__ void load_a(float* As, const float* A, int M,
+                                       int K, int m0, int k0, bool a16) {
   using T = Tile<BM, BN, BK>;
   const int tid = threadIdx.x;
   if (a16) {
@@ -161,6 +153,30 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
       cp_async4(As + r * T::LDA + kc, ok ? A + (long long)m * K + k : A, ok);
     }
   }
+}
+
+// Issue the copies of one stage: A[m0:m0+BM, k0:k0+BK], zero past M and
+// K, and B[k0:k0+BK, n0:n0+BN].
+//
+// A row of B is copied as the BN/4 + 1 aligned 16-byte chunks from the one
+// holding B[k][n0], whatever N is: stage row r then holds B[k0+r][n0 + c]
+// at column c + (bmis + (k0 + r) * N) % 4, with bmis = (address of B / 4)
+// % 4. The first chunk may start up to 3 floats before B[k][n0], at worst
+// before the matrix, but in the same 16-byte block, so inside B's
+// allocation; those floats are never read back. Floats past row k's end
+// feed only output columns >= N, which are never stored. Chunks are
+// clipped at the matrix's end, and rows past K are zero. As k0 is a
+// multiple of BK, every stage row a thread reads in mma_tile (kk + t,
+// kk + t + 4, t = lane % 4) has k = t mod 4 and the same shift,
+// RowMajorStages::boff(t).
+template <int BM, int BN, int BK>
+__device__ __forceinline__ void load_stage(float* As, float* Bs,
+                                           const float* A, const float* B,
+                                           int M, int N, int K, int m0, int n0,
+                                           int k0, bool a16, int bmis) {
+  using T = Tile<BM, BN, BK>;
+  const int tid = threadIdx.x;
+  load_a<BM, BN, BK>(As, A, M, K, m0, k0, a16);
   constexpr int CH = BN / 4 + 1;
   const float* B16 = B - bmis;                      // 16-byte aligned
   const long long end = bmis + (long long)K * N;    // floats from B16
@@ -177,18 +193,38 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
   }
 }
 
-// acc += A[m0:m0+BM, kbeg:kend] @ B[kbeg:kend, n0:n0+BN]. kbeg is a
-// multiple of BK, so every stage row a thread reads (kk + t, kk + t + 4)
-// has k = t mod 4 and is shifted by the same (bmis + t * N) % 4. acc[mt][nt]
-// is the mma C fragment of mma tile (mt, nt) of this thread's warp tile: it
-// holds tile element (warp_row + 16 mt + g + 8 h, warp_col + 8 nt + 2 t + e)
-// in [2 h + e], with g = lane / 4 and t = lane % 4. `smem` holds
-// Tile::kSmemBytes, 16-byte aligned.
+// matmul's stage loader: load_stage over row-major A (M, K) and B (K, N).
 template <int BM, int BN, int BK>
+struct RowMajorStages {
+  const float* A;
+  const float* B;
+  int M, N, K, m0, n0;
+  bool a16;
+  int bmis;
+  __device__ __forceinline__ void operator()(float* As, float* Bs,
+                                             int k0) const {
+    load_stage<BM, BN, BK>(As, Bs, A, B, M, N, K, m0, n0, k0, a16, bmis);
+  }
+  __device__ __forceinline__ int boff(int t) const {
+    return (bmis + t * (N & 3)) & 3;               // see load_stage
+  }
+};
+
+// acc += A[m0:m0+BM, kbeg:kend] @ B[kbeg:kend, n0:n0+BN], kbeg a multiple
+// of BK. The loader's load(As, Bs, k0) issues the cp.async copies of the
+// stage at k0: A's BM rows of BK into As (row stride Tile::LDA), B's BK
+// rows of BN into Bs (row stride Tile::LDB), zero past the operands' ends.
+// Every B element a thread with lane % 4 == t reads sits load.boff(t)
+// floats right of its place in that layout (0 unless the loader shifts
+// rows, as load_stage does). acc[mt][nt] is the mma C fragment of mma tile
+// (mt, nt) of this thread's warp tile: it holds tile element (warp_row +
+// 16 mt + g + 8 h, warp_col + 8 nt + 2 t + e) in [2 h + e], with g =
+// lane / 4 and t = lane % 4. `smem` holds Tile::kSmemBytes, 16-byte
+// aligned.
+template <int BM, int BN, int BK, class Load>
 __device__ __forceinline__ void mma_tile(
-    const float* __restrict__ A, const float* __restrict__ B, int M, int N,
-    int K, int m0, int n0, int kbeg, int kend, bool a16, int bmis,
-    float* smem, float (&acc)[Tile<BM, BN, BK>::MT][Tile<BM, BN, BK>::NT][4]) {
+    const Load& load, int kbeg, int kend, float* smem,
+    float (&acc)[Tile<BM, BN, BK>::MT][Tile<BM, BN, BK>::NT][4]) {
   using T = Tile<BM, BN, BK>;
   constexpr int S = T::kStages;
   const int steps = (kend - kbeg + BK - 1) / BK;
@@ -196,14 +232,13 @@ __device__ __forceinline__ void mma_tile(
   for (int s = 0; s < S - 1; ++s) {      // prologue: stages 0 .. S-2
     if (s < steps) {
       float* As = smem + s * T::kStageFloats;
-      load_stage<BM, BN, BK>(As, As + BM * T::LDA, A, B, M, N, K, m0, n0,
-                             kbeg + s * BK, a16, bmis);
+      load(As, As + BM * T::LDA, kbeg + s * BK);
     }
     cp_async_commit();                   // empty groups keep the count even
   }
   const int wr = warp_row<BM, BN, BK>(), wc = warp_col<BM, BN, BK>();
   const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const int boff = (bmis + t * (N & 3)) & 3;        // see load_stage
+  const int boff = load.boff(t);
 
   for (int i = 0; i < steps; ++i) {
     cp_async_wait<S - 2>();              // this thread's copies of step i
@@ -211,8 +246,7 @@ __device__ __forceinline__ void mma_tile(
     const int j = i + S - 1;             // refill the slot step i-1 used
     if (j < steps) {
       float* As = smem + (j % S) * T::kStageFloats;
-      load_stage<BM, BN, BK>(As, As + BM * T::LDA, A, B, M, N, K, m0, n0,
-                             kbeg + j * BK, a16, bmis);
+      load(As, As + BM * T::LDA, kbeg + j * BK);
     }
     cp_async_commit();
     const float* As = smem + (i % S) * T::kStageFloats + wr * T::LDA;

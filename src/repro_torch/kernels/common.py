@@ -184,6 +184,73 @@ def check_int32(name: str, **values: int) -> None:
                              f"int32 parameter")
 
 
+# ---------------------------------------------------------------------------
+# Launch plans of the tensor-core GEMM templates (matmul, implicit-GEMM conv)
+# ---------------------------------------------------------------------------
+
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+WARPS_PER_SM = 8                # two warps on each of an SM's four schedulers
+
+
+def cta_warps(bm: int, bn: int) -> int:
+    """Warps of one CTA of csrc/mma_tf32.cuh (``Tile::kThreads / 32``): one
+    per warp tile of up to 32 x 32."""
+    return (bm // min(bm, 32)) * (bn // min(bn, 32))
+
+
+def fit_plan(M: int, N: int, K: int, batch: int,
+             ceiling: Tuple[int, int, int], tile_m: Tuple[int, ...],
+             tile_n: Tuple[int, ...]) -> Tuple[int, int, int, int]:
+    """(BM, BN, BK, split_k) for a (batch x) (M, K) @ (K, N) product on the
+    tile loop of csrc/mma_tf32.cuh, under a ``ceiling`` (BM, BK, BN) tile,
+    with BM and BN drawn from the instantiated sizes ``tile_m`` and
+    ``tile_n``. The rule:
+
+    1. BK is the ceiling's. BM is the smallest of ``tile_m`` that covers
+       min(M, ceiling BM), BN the smallest of ``tile_n`` that covers
+       min(N, ceiling BN): a tile never computes more zero rows or columns
+       than the next smaller instantiated size would.
+    2. The output tiles of all batch entries, ``tiles`` CTAs of ``cta_warps``
+       warps each, fill the card when they give every one of the ``SMS``
+       streaming multiprocessors a CTA and ``WARPS_PER_SM`` warps. Then
+       split_k = 1. Otherwise K is split ``want`` ways, the least that
+       fills the card: K's ``steps = ceil(K / BK)`` BK steps are dealt out
+       ``per = max(1, steps // want)`` to a slice, giving split_k =
+       ceil(steps / per) >= want slices, or split_k = steps (one step per
+       slice) where K is too short for that."""
+    cm, bk, cn = ceiling
+    bm = next(t for t in tile_m if t >= min(M, cm))
+    bn = next(t for t in tile_n if t >= min(N, cn))
+    tiles = -(-M // bm) * -(-N // bn) * batch
+    steps = -(-K // bk)
+    if tiles == 0 or steps <= 1:
+        return bm, bn, bk, 1
+    want = max(-(-SMS // tiles),
+               -(-SMS * WARPS_PER_SM // (tiles * cta_warps(bm, bn))))
+    if want == 1:
+        return bm, bn, bk, 1
+    per = max(1, steps // want)
+    return bm, bn, bk, -(-steps // per)
+
+
+def check_plan(name: str, K: int, bm: int, bk: int, bn: int, split_k: int,
+               tile_m: Tuple[int, ...], tile_k: Tuple[int, ...],
+               tile_n: Tuple[int, ...]) -> None:
+    """Raise unless (bm, bk, bn) is a tile the source instantiates (every BM
+    of ``tile_m`` with every BK of ``tile_k`` and every BN of ``tile_n``)
+    and each of the ``split_k`` slices of the K walk owns at least one BK
+    step (slices take ceil(steps / split_k) steps each, the last what
+    remains)."""
+    if bm not in tile_m or bk not in tile_k or bn not in tile_n:
+        raise ValueError(f"{name}: ({bm}, {bk}, {bn}) is not an instantiated "
+                         f"tile")
+    steps = -(-K // bk)
+    if split_k < 1 or (split_k > 1 and
+                       (split_k - 1) * -(-steps // split_k) >= steps):
+        raise ValueError(f"{name}: split_k={split_k} leaves a slice without "
+                         f"a step of {bk} (K={K})")
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

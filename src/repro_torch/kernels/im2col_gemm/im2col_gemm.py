@@ -1,13 +1,19 @@
 """Implicit-GEMM valid convolution with a fused bias -> residual -> ReLU
-epilogue: the port of the Pallas kernels
-``repro.kernels.im2col_gemm.im2col_gemm.conv_im2col_batch`` and
-``conv_im2col`` (one image).
+epilogue, on the tensor cores at fp32 accuracy (3xTF32): the port of the
+Pallas kernels ``repro.kernels.im2col_gemm.im2col_gemm.conv_im2col_batch``
+and ``conv_im2col`` (one image).
 
 ``conv_im2col_batch`` and ``conv_im2col`` launch ``csrc/im2col_gemm.cu`` for
-CUDA tensors — each CTA stages its slice of the patch matrix in shared
+CUDA tensors — each CTA gathers its slice of the patch matrix into shared
 memory straight from ``x``, so the patch matrix never exists in device
 memory — and compute ``conv_im2col_batch_plain`` / ``conv_im2col_plain``
-(explicit patch matrix + matmul) for CPU tensors.
+(explicit patch matrix + matmul) for CPU tensors. The caller names the
+launch plan: a CTA tile ``(bm, bk, bn)`` that the source instantiates
+(``TILE_M`` x ``TILE_K`` x ``TILE_N``) and ``split_k``, the number of slices
+the C*f*f reduction is cut into (``ops.cta_plan`` chooses both per shape).
+With ``split_k > 1`` each slice writes its partial sum to a workspace
+allocated here, and a second kernel adds the slices in a fixed order and
+applies the epilogue once; the launch still counts once.
 """
 from __future__ import annotations
 
@@ -16,8 +22,24 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import (bind, check_launch, count_launch,
-                                        epilogue, on_cpu, ptr, stream_of)
+from repro_torch.kernels.common import (bind, check_int32, check_launch,
+                                        check_plan, count_launch, epilogue,
+                                        on_cpu, ptr, stream_of)
+
+# CTA tile sizes csrc/im2col_gemm.cu instantiates (RT_FOR_EACH_CONV_TILE):
+# every BM of TILE_M with every BN of TILE_N and every BK of TILE_K
+TILE_M = (16, 32, 64, 128)
+TILE_N = (8, 32, 64)
+TILE_K = (16,)
+
+
+def _check_sizes(name: str, N: int, C: int, H: int, W: int, K: int, f: int,
+                 stride: int, oh: int, ow: int) -> None:
+    """Every size the kernel takes as a C ``int``, and the element counts
+    its 32-bit offsets span (x, w, the output and its N*oh*ow pixels)."""
+    check_int32(name, N=N, C=C, H=H, W=W, K=K, f=f, stride=stride, oh=oh,
+                ow=ow, pixels=N * oh * ow, out=N * K * oh * ow,
+                x=N * C * H * W, w=K * C * f * f)
 
 
 def conv_im2col_batch_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
@@ -33,37 +55,58 @@ def conv_im2col_batch_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *
     return epilogue(y, bias, residual, relu, channel_axis=1)
 
 
-def conv_im2col_batch(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
-                      bm: int = 128, bk: int = 16, bn: int = 64,
-                      bias: Optional[torch.Tensor] = None,
-                      residual: Optional[torch.Tensor] = None,
-                      relu: bool = False) -> torch.Tensor:
-    """x (N, C, H, W), w (K, C, f, f) -> (N, K, oh, ow), valid padding.
-    ``bias`` is (K,), ``residual`` is (N, K, oh, ow). The CTA tile covers
-    ``bm`` output channels by ``bn`` output pixels (batch folded in), with a
-    reduction depth of ``bk`` patch rows."""
-    N, C, H, W = x.shape
+def _conv(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
+          plan: tuple, bias: Optional[torch.Tensor],
+          residual: Optional[torch.Tensor], relu: bool,
+          plain) -> torch.Tensor:
+    """The body both wrappers share. ``x`` is (N, C, H, W), or (C, H, W) for
+    one image, whose output and ``residual`` then drop the N axis too; the
+    one image runs the single-image entry point, and ``plain`` is the
+    wrapper's plain version."""
+    one = x.dim() == 3
+    N, C, H, W = (1, *x.shape) if one else x.shape
     K, C2, f, f2 = w.shape
     if C != C2 or f != f2 or f > min(H, W):
-        raise ValueError(f"conv_im2col_batch: x {tuple(x.shape)} w {tuple(w.shape)}")
+        raise ValueError(f"{name}: x {tuple(x.shape)} w {tuple(w.shape)}")
     oh, ow = (H - f) // stride + 1, (W - f) // stride + 1
+    shape = (K, oh, ow) if one else (N, K, oh, ow)
     if bias is not None and tuple(bias.shape) != (K,):
-        raise ValueError(f"conv_im2col_batch: bias {tuple(bias.shape)} != ({K},)")
-    if residual is not None and tuple(residual.shape) != (N, K, oh, ow):
-        raise ValueError(f"conv_im2col_batch: residual {tuple(residual.shape)} "
-                         f"!= {(N, K, oh, ow)}")
-    if on_cpu("conv_im2col_batch", x, w, bias, residual):
-        return conv_im2col_batch_plain(x, w, stride, bias=bias,
-                                       residual=residual, relu=relu)
-    out = torch.empty((N, K, oh, ow), dtype=torch.float32, device=x.device)
-    fn = bind("im2col_gemm", "rt_conv_im2col_batch_f32", 5, 13)
-    check_launch("conv_im2col_batch", fn(
-        ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(out), N, C, H, W, K, f,
-        stride, oh, ow, int(relu), bm, bn, bk, stream_of(x)))
-    count_launch("conv_im2col_batch", (N, C, H, W, K, f, stride, bm, bk, bn,
-                                       bias is not None, residual is not None,
-                                       bool(relu)))
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} != ({K},)")
+    if residual is not None and tuple(residual.shape) != shape:
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} != {shape}")
+    bm, bk, bn, split_k = plan
+    check_plan(name, C * f * f, bm, bk, bn, split_k, TILE_M, TILE_K, TILE_N)
+    _check_sizes(name, N, C, H, W, K, f, stride, oh, ow)
+    if on_cpu(name, x, w, bias, residual):
+        return plain(x, w, stride, bias=bias, residual=residual, relu=relu)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    ws = (torch.empty((split_k, *shape), dtype=torch.float32, device=x.device)
+          if split_k > 1 else None)
+    sizes = (C, H, W, K, f, stride) if one else (N, C, H, W, K, f, stride)
+    fn = bind("im2col_gemm", "rt_conv_im2col_f32" if one
+              else "rt_conv_im2col_batch_f32", 6, len(sizes) + 7)
+    check_launch(name, fn(ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(out),
+                          ptr(ws), *sizes, oh, ow, int(relu), bm, bn, bk,
+                          split_k, stream_of(x)))
+    count_launch(name, (*sizes, bm, bk, bn, split_k, bias is not None,
+                        residual is not None, bool(relu)))
     return out
+
+
+def conv_im2col_batch(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
+                      bm: int = 128, bk: int = 16, bn: int = 64,
+                      split_k: int = 1, bias: Optional[torch.Tensor] = None,
+                      residual: Optional[torch.Tensor] = None,
+                      relu: bool = False) -> torch.Tensor:
+    """x (N, C, H, W), w (K, C, f, f) -> (N, K, oh, ow), valid padding, the
+    epilogue applied once to the full sum. ``bias`` is (K,), ``residual`` is
+    (N, K, oh, ow). The CTA tile covers ``bm`` output channels by ``bn``
+    output pixels (batch folded in), with a reduction depth of ``bk`` patch
+    rows; ``split_k`` slices of the C*f*f reduction run side by side."""
+    if x.dim() != 4:
+        raise ValueError(f"conv_im2col_batch: x {tuple(x.shape)} is not 4-D")
+    return _conv("conv_im2col_batch", x, w, stride, (bm, bk, bn, split_k),
+                 bias, residual, relu, conv_im2col_batch_plain)
 
 
 def conv_im2col_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
@@ -81,34 +124,17 @@ def conv_im2col_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
 
 
 def conv_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
-                bm: int = 128, bk: int = 16, bn: int = 64,
+                bm: int = 128, bk: int = 16, bn: int = 64, split_k: int = 1,
                 bias: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None,
                 relu: bool = False) -> torch.Tensor:
-    """x (C, H, W), w (K, C, f, f) -> (K, oh, ow), valid padding. ``bias`` is
-    (K,), ``residual`` is (K, oh, ow), read in place (the TPU kernel
-    transposes it to (oh, K, ow) for its row grid). The CTA tile covers
-    ``bm`` output channels by ``bn`` output pixels with a reduction depth of
-    ``bk`` patch rows."""
-    C, H, W = x.shape
-    K, C2, f, f2 = w.shape
-    if C != C2 or f != f2 or f > min(H, W):
-        raise ValueError(f"conv_im2col: x {tuple(x.shape)} w {tuple(w.shape)}")
-    oh, ow = (H - f) // stride + 1, (W - f) // stride + 1
-    if bias is not None and tuple(bias.shape) != (K,):
-        raise ValueError(f"conv_im2col: bias {tuple(bias.shape)} != ({K},)")
-    if residual is not None and tuple(residual.shape) != (K, oh, ow):
-        raise ValueError(f"conv_im2col: residual {tuple(residual.shape)} "
-                         f"!= {(K, oh, ow)}")
-    if on_cpu("conv_im2col", x, w, bias, residual):
-        return conv_im2col_plain(x, w, stride, bias=bias, residual=residual,
-                                 relu=relu)
-    out = torch.empty((K, oh, ow), dtype=torch.float32, device=x.device)
-    fn = bind("im2col_gemm", "rt_conv_im2col_f32", 5, 12)
-    check_launch("conv_im2col", fn(
-        ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(out), C, H, W, K, f,
-        stride, oh, ow, int(relu), bm, bn, bk, stream_of(x)))
-    count_launch("conv_im2col", (C, H, W, K, f, stride, bm, bk, bn,
-                                 bias is not None, residual is not None,
-                                 bool(relu)))
-    return out
+    """x (C, H, W), w (K, C, f, f) -> (K, oh, ow), valid padding, the
+    epilogue applied once to the full sum. ``bias`` is (K,), ``residual`` is
+    (K, oh, ow), read in place (the TPU kernel transposes it to (oh, K, ow)
+    for its row grid). The CTA tile covers ``bm`` output channels by ``bn``
+    output pixels with a reduction depth of ``bk`` patch rows; ``split_k``
+    slices of the C*f*f reduction run side by side."""
+    if x.dim() != 3:
+        raise ValueError(f"conv_im2col: x {tuple(x.shape)} is not 3-D")
+    return _conv("conv_im2col", x, w, stride, (bm, bk, bn, split_k), bias,
+                 residual, relu, conv_im2col_plain)

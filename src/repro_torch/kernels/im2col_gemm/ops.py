@@ -1,27 +1,36 @@
 """Variant registry for the implicit-GEMM conv kernels (``conv_im2col_op``
-on one image, ``conv_im2col_batch_op`` on a batch), and the map from each
-``conv-bk*`` variant onto a Hopper CTA tile, the same for both.
+on one image, ``conv_im2col_batch_op`` on a batch), and the rule that turns
+a ``conv-bk*`` variant and a conv's shape into a launch plan for
+``csrc/im2col_gemm.cu``, the same for both.
 
-The reference's ``conv-bk*`` value is the kernel's K-block (output
-channels per program). Here it is the CTA's M tile, capped at 128 (a 256-row
-fp32 tile needs more registers than a 256-thread CTA has for its
-accumulators); every tile covers 64 output pixels with a reduction depth of
-16 patch rows:
+The reference's ``conv-bk*`` value is the kernel's K-block (output channels
+per program). Here it sets the ceiling of the CTA's M tile, capped at 128
+(``conv-bk256`` runs as its 128-row twin); every ceiling covers 64 output
+pixels with a reduction depth of 16 patch rows:
 
-    variant      TPU K-block   Hopper CTA (BM, BK, BN)
+    variant      TPU K-block   ceiling (BM, BK, BN)
     conv-bk64         64        ( 64, 16, 64)
     conv-bk128       128        (128, 16, 64)
     conv-bk256       256        (128, 16, 64)   capped
+
+``cta_plan`` fits the ceiling to each call's GEMM — M = output channels,
+N = batch * output pixels, K = C*f*f — by the matmul kernel's rule
+(``common.fit_plan``). On a shape that fills the card with ceiling tiles
+the plan is the ceiling, so the two distinct ceilings stay two distinct
+kernels.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col,
+from repro_torch.kernels.common import fit_plan
+from repro_torch.kernels.im2col_gemm.im2col_gemm import (TILE_M, TILE_N,
+                                                         conv_im2col,
                                                          conv_im2col_batch)
 
 VARIANTS: Dict[str, int] = {"conv-bk64": 64, "conv-bk128": 128, "conv-bk256": 256}
 
+# (BM, BK, BN) ceiling tile per variant — the table in the docstring
 CTA_TILES: Dict[str, Tuple[int, int, int]] = {
     "conv-bk64": (64, 16, 64),
     "conv-bk128": (128, 16, 64),
@@ -29,17 +38,45 @@ CTA_TILES: Dict[str, Tuple[int, int, int]] = {
 }
 
 
+def cta_plan(K_out: int, P: int, R: int,
+             variant: str) -> Tuple[int, int, int, int]:
+    """(BM, BN, BK, split_k) for a conv with ``K_out`` output channels,
+    ``P`` = batch * output pixels and ``R`` = C*f*f under ``variant``:
+    ``common.fit_plan`` on the variant's ceiling and the tile sizes
+    csrc/im2col_gemm.cu instantiates. BM and BN are the smallest
+    instantiated sizes covering K_out and P under the ceiling; R is split,
+    in whole BK steps, until the output tiles give every SM a CTA and 8
+    warps (or one step per slice)."""
+    return fit_plan(K_out, P, R, 1, CTA_TILES[variant], TILE_M, TILE_N)
+
+
+def _plan(n: int, x, w, stride: int,
+          variant: str) -> Tuple[int, int, int, int]:
+    """The plan of ``n`` images of x's trailing (C, H, W) shape under
+    (K, C, f, f) weights (no pixels where f exceeds the image: the wrapper
+    refuses that shape)."""
+    H, W = x.shape[-2:]
+    K, C, f, _ = w.shape
+    oh, ow = max(0, (H - f) // stride + 1), max(0, (W - f) // stride + 1)
+    return cta_plan(K, n * oh * ow, C * f * f, variant)
+
+
 def conv_im2col_op(x, w, stride: int = 1, variant: str = "conv-bk128",
                    bias=None, residual=None, relu: bool = False):
-    """One (C, H, W) image through the implicit-GEMM conv under ``variant``."""
-    bm, bk, bn = CTA_TILES[variant]
-    return conv_im2col(x, w, stride, bm=bm, bk=bk, bn=bn, bias=bias,
-                       residual=residual, relu=relu)
+    """One (C, H, W) image through the implicit-GEMM conv under
+    ``variant``'s plan for this shape, epilogue applied once to the full
+    sum."""
+    bm, bn, bk, split = _plan(1, x, w, stride, variant)
+    return conv_im2col(x, w, stride, bm=bm, bk=bk, bn=bn, split_k=split,
+                       bias=bias, residual=residual, relu=relu)
 
 
 def conv_im2col_batch_op(x, w, stride: int = 1, variant: str = "conv-bk128",
                          bias=None, residual=None, relu: bool = False):
-    """(N, C, H, W) batch through the implicit-GEMM conv under ``variant``."""
-    bm, bk, bn = CTA_TILES[variant]
-    return conv_im2col_batch(x, w, stride, bm=bm, bk=bk, bn=bn, bias=bias,
-                             residual=residual, relu=relu)
+    """(N, C, H, W) batch through the implicit-GEMM conv under ``variant``'s
+    plan for this shape, the batch folded into the pixels, epilogue applied
+    once to the full sum."""
+    bm, bn, bk, split = _plan(x.shape[0], x, w, stride, variant)
+    return conv_im2col_batch(x, w, stride, bm=bm, bk=bk, bn=bn,
+                             split_k=split, bias=bias, residual=residual,
+                             relu=relu)

@@ -19,35 +19,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (bind, check_int32, check_launch,
-                                        count_launch, epilogue, on_cpu, ptr,
-                                        stream_of)
+                                        check_plan, count_launch, epilogue,
+                                        on_cpu, ptr, stream_of)
+from repro_torch.kernels.common import cta_warps  # noqa: F401  (re-exported)
 
 # CTA tile sizes csrc/matmul.cu instantiates (RT_FOR_EACH_MMA_TILE): every
 # BM of TILE_M with every BN of TILE_N and every BK of TILE_K
 TILE_M = (16, 32, 64, 128)
 TILE_N = (8, 32, 64, 128)
 TILE_K = (16, 32)
-
-
-def cta_warps(bm: int, bn: int) -> int:
-    """Warps of one CTA (``Tile::kThreads / 32``): one per warp tile of up
-    to 32 x 32."""
-    return (bm // min(bm, 32)) * (bn // min(bn, 32))
-
-
-def check_plan(name: str, K: int, bm: int, bk: int, bn: int,
-               split_k: int) -> None:
-    """Raise unless (bm, bk, bn) is an instantiated tile and each of the
-    ``split_k`` slices of the K walk owns at least one BK step (slices take
-    ceil(steps / split_k) steps each, the last what remains)."""
-    if bm not in TILE_M or bk not in TILE_K or bn not in TILE_N:
-        raise ValueError(f"{name}: ({bm}, {bk}, {bn}) is not an instantiated "
-                         f"tile")
-    steps = -(-K // bk)
-    if split_k < 1 or (split_k > 1 and
-                       (split_k - 1) * -(-steps // split_k) >= steps):
-        raise ValueError(f"{name}: split_k={split_k} leaves a slice without "
-                         f"a step of {bk} (K={K})")
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor, *,
@@ -73,7 +53,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64, bk: int = 16,
         raise ValueError(f"matmul: bias {tuple(bias.shape)} != ({M},)")
     if residual is not None and tuple(residual.shape) != (M, N):
         raise ValueError(f"matmul: residual {tuple(residual.shape)} != ({M}, {N})")
-    check_plan("matmul", K, bm, bk, bn, split_k)
+    check_plan("matmul", K, bm, bk, bn, split_k, TILE_M, TILE_K, TILE_N)
     check_int32("matmul", M=M, N=N, K=K)
     if on_cpu("matmul", x, y, bias, residual):
         return matmul_plain(x, y, bias=bias, residual=residual, relu=relu)
@@ -125,7 +105,8 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     if residual is not None and tuple(residual.shape) != (B, M, N):
         raise ValueError(f"matmul_batch: residual {tuple(residual.shape)} "
                          f"!= {(B, M, N)}")
-    check_plan("matmul_batch", K, bm, bk, bn, split_k)
+    check_plan("matmul_batch", K, bm, bk, bn, split_k, TILE_M, TILE_K,
+               TILE_N)
     check_int32("matmul_batch", B=B, M=M, N=N, K=K)
     sx, sy = _batch_stride("matmul_batch", x), _batch_stride("matmul_batch", y)
     if on_cpu("matmul_batch", x[0], y[0], bias, residual):

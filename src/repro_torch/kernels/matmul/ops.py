@@ -30,11 +30,9 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, cta_warps,
-                                               matmul, matmul_batch)
-
-SMS = 132                       # streaming multiprocessors of an H100 SXM
-WARPS_PER_SM = 8                # two warps on each of an SM's four schedulers
+from repro_torch.kernels.common import SMS, WARPS_PER_SM, fit_plan  # noqa: F401
+from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, matmul,
+                                               matmul_batch)
 
 # (bm, bk, bn) TPU blocks, as in the reference
 VARIANTS: Dict[str, Tuple[int, int, int]] = {
@@ -64,33 +62,12 @@ CTA_TILES: Dict[str, Tuple[int, int, int]] = {
 def cta_plan(M: int, N: int, K: int, batch: int,
              variant: str) -> Tuple[int, int, int, int]:
     """(BM, BN, BK, split_k) for a (batch x) (M, K) @ (K, N) call under
-    ``variant``. The rule:
-
-    1. BK is the ceiling's. BM is the smallest of ``TILE_M`` that covers
-       min(M, ceiling BM), BN the smallest of ``TILE_N`` that covers
-       min(N, ceiling BN): a tile never computes more zero rows or columns
-       than the next smaller instantiated size would.
-    2. The output tiles of all batch entries, ``tiles`` CTAs of ``cta_warps``
-       warps each, fill the card when they give every one of the ``SMS``
-       streaming multiprocessors a CTA and ``WARPS_PER_SM`` warps. Then
-       split_k = 1. Otherwise K is split ``want`` ways, the least that
-       fills the card: K's ``steps = ceil(K / BK)`` BK steps are dealt out
-       ``per = max(1, steps // want)`` to a slice, giving split_k =
-       ceil(steps / per) >= want slices, or split_k = steps (one step per
-       slice) where K is too short for that."""
-    cm, bk, cn = CTA_TILES[variant]
-    bm = next(t for t in TILE_M if t >= min(M, cm))
-    bn = next(t for t in TILE_N if t >= min(N, cn))
-    tiles = -(-M // bm) * -(-N // bn) * batch
-    steps = -(-K // bk)
-    if tiles == 0 or steps <= 1:
-        return bm, bn, bk, 1
-    want = max(-(-SMS // tiles),
-               -(-SMS * WARPS_PER_SM // (tiles * cta_warps(bm, bn))))
-    if want == 1:
-        return bm, bn, bk, 1
-    per = max(1, steps // want)
-    return bm, bn, bk, -(-steps // per)
+    ``variant``: ``common.fit_plan`` on the variant's ceiling tile and the
+    tile sizes csrc/matmul.cu instantiates. BM and BN are the smallest
+    instantiated sizes covering M and N under the ceiling; K is split, in
+    whole BK steps, until the output tiles give every SM a CTA and 8 warps
+    (or one step per slice)."""
+    return fit_plan(M, N, K, batch, CTA_TILES[variant], TILE_M, TILE_N)
 
 
 def matmul_op(x, y, variant: str = "mm-128x128x128", bias=None,

@@ -18,11 +18,15 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import CTA_TILES as FA_TILES
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col_batch_plain,
+from repro_torch.kernels.im2col_gemm import im2col_gemm as conv_mod
+from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col,
+                                                         conv_im2col_batch,
+                                                         conv_im2col_batch_plain,
                                                          conv_im2col_plain)
 from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
 from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
                                                  conv_im2col_op)
+from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_cta_plan
 from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_M, TILE_N, matmul,
                                                matmul_batch, matmul_batch_plain,
                                                matmul_plain)
@@ -228,6 +232,129 @@ def test_gpu_conv_single_kernel_vs_plain(variant, cfg, cuda):
         got = conv_im2col_op(x, w, s, variant=variant, **ep)
         torch.testing.assert_close(got, conv_im2col_plain(x, w, s, **ep), **GEMM_TOL)
     assert common.LAUNCHES["conv_im2col"] == before + len(EPILOGUES)
+
+
+# The conv signatures of the served paths at b=8 under the kernel-mix
+# assignment, (N, C, H, K, f, s, variant): resnet18 / mix, then edge_cnn / mix
+SERVED_CONVS = [(8, 3, 224, 64, 7, 2, "conv-bk128"), (8, 64, 101, 128, 3, 2, "conv-bk128"),
+                (8, 64, 101, 128, 1, 2, "conv-bk64"), (8, 128, 44, 256, 3, 2, "conv-bk128"),
+                (8, 128, 44, 256, 1, 2, "conv-bk64"), (8, 256, 15, 512, 3, 2, "conv-bk128"),
+                (8, 256, 15, 512, 1, 2, "conv-bk64"),
+                (8, 32, 28, 16, 1, 1, "conv-bk64"), (8, 32, 26, 32, 1, 1, "conv-bk64"),
+                (8, 32, 22, 48, 3, 2, "conv-bk128"), (8, 48, 8, 64, 1, 1, "conv-bk64"),
+                (8, 128, 6, 64, 1, 1, "conv-bk64")]
+# resnet18's 20 convs on one 224x224 image (C, H, K, f, s), as phase 5 runs them
+RESNET18_CONVS = [(3, 224, 64, 7, 2), (64, 109, 64, 3, 1), (64, 107, 64, 3, 1),
+                  (64, 105, 64, 3, 1), (64, 103, 64, 3, 1), (64, 101, 128, 1, 2),
+                  (64, 101, 128, 3, 2), (128, 50, 128, 3, 1), (128, 48, 128, 3, 1),
+                  (128, 46, 128, 3, 1), (128, 44, 256, 1, 2), (128, 44, 256, 3, 2),
+                  (256, 21, 256, 3, 1), (256, 19, 256, 3, 1), (256, 17, 256, 3, 1),
+                  (256, 15, 512, 1, 2), (256, 15, 512, 3, 2), (512, 7, 512, 3, 1),
+                  (512, 5, 512, 3, 1), (512, 3, 512, 3, 1)]
+
+
+def _conv_operands(gen, N, C, H, K, f, s):
+    """x, w, bias, residual of a conv; N = 0 for one (C, H, H) image."""
+    oh = (H - f) // s + 1
+    lead = (N,) if N else ()
+    x = _cuda_rand(gen, *lead, C, H, H)
+    w = _cuda_rand(gen, K, C, f, f, scale=(C * f * f) ** -0.5)
+    return x, w, _cuda_rand(gen, K), _cuda_rand(gen, *lead, K, oh, oh)
+
+
+@pytest.mark.parametrize("sig", SERVED_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_gpu_conv_served_signatures(sig, cuda):
+    """Each served conv under its variant's plan, as served (no epilogue)
+    and with all three fused; one launch count per call."""
+    gen = torch.Generator().manual_seed(0)
+    *shape, variant = sig
+    x, w, b, r = _conv_operands(gen, *shape)
+    s = shape[-1]
+    for ep in (dict(), dict(bias=b, residual=r, relu=True)):
+        before = common.LAUNCHES["conv_im2col_batch"]
+        got = conv_im2col_batch_op(x, w, s, variant=variant, **ep)
+        assert common.LAUNCHES["conv_im2col_batch"] == before + 1
+        torch.testing.assert_close(got, conv_im2col_batch_plain(x, w, s, **ep),
+                                   **GEMM_TOL)
+
+
+@pytest.mark.parametrize("sig", RESNET18_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_gpu_conv_single_resnet18_signatures(sig, cuda):
+    """Each resnet18 conv on one image through ``conv_im2col_op`` with bias,
+    residual and ReLU fused, as phase 5 drives it, and with no epilogue."""
+    gen = torch.Generator().manual_seed(0)
+    x, w, b, r = _conv_operands(gen, 0, *sig)
+    s = sig[-1]
+    for ep in (dict(bias=b, residual=r, relu=True), dict()):
+        before = common.LAUNCHES["conv_im2col"]
+        got = conv_im2col_op(x, w, s, **ep)
+        assert common.LAUNCHES["conv_im2col"] == before + 1
+        torch.testing.assert_close(got, conv_im2col_plain(x, w, s, **ep), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("sig", [(0, 512, 7, 512, 3, 1), (0, 512, 5, 512, 3, 1),
+                                 (0, 512, 3, 512, 3, 1), (8, 256, 15, 512, 3, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gpu_conv_split_k_late_layers(sig, cuda):
+    """resnet18's late layers (R = 4,608 on one image) and its 256 -> 512
+    stride-2 conv at b=8: the plan splits C*f*f, and every epilogue —
+    residual and ReLU above all — is applied once, after the full sum."""
+    gen = torch.Generator().manual_seed(0)
+    N, C, H, K, f, s = sig
+    x, w, b, r = _conv_operands(gen, *sig)
+    oh = (H - f) // s + 1
+    assert conv_cta_plan(K, max(N, 1) * oh * oh, C * f * f, "conv-bk128")[3] > 1
+    op, plain, name = ((conv_im2col_batch_op, conv_im2col_batch_plain, "conv_im2col_batch")
+                       if N else (conv_im2col_op, conv_im2col_plain, "conv_im2col"))
+    for hb, hr, relu in EPILOGUES:
+        ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+        before = common.LAUNCHES[name]
+        got = op(x, w, s, **ep)
+        assert common.LAUNCHES[name] == before + 1
+        torch.testing.assert_close(got, plain(x, w, s, **ep), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("bm", conv_mod.TILE_M)
+@pytest.mark.parametrize("bn", conv_mod.TILE_N)
+@pytest.mark.parametrize("bk", conv_mod.TILE_K)
+def test_gpu_conv_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every tile csrc/im2col_gemm.cu instantiates, unsplit and split (three
+    ways, or two where R has two steps), batched and on one image: f in {1, 3, 7}, s in {1, 2}, R = 27 and
+    147 (4-byte copies of the weights), R % 4 == 0 (16-byte copies), output
+    channels and N*oh*ow pixels no multiple of any tile."""
+    gen = torch.Generator().manual_seed(0)
+    for sig in [(3, 3, 17, 37, 3, 1), (2, 3, 23, 70, 7, 2), (3, 20, 13, 21, 1, 1),
+                (2, 36, 15, 130, 1, 2), (2, 16, 11, 45, 3, 2)]:
+        N, C, H, K, f, s = sig
+        x, w, b, r = _conv_operands(gen, *sig)
+        for split in (1, min(3, -(-C * f * f // bk))):     # R = 20, 27: 2 steps
+            ep = dict(bias=b, residual=r, relu=True)
+            got = conv_im2col_batch(x, w, s, bm=bm, bk=bk, bn=bn, split_k=split, **ep)
+            torch.testing.assert_close(got, conv_im2col_batch_plain(x, w, s, **ep),
+                                       **GEMM_TOL)
+            ep1 = dict(bias=b, residual=r[0], relu=True)
+            got = conv_im2col(x[0], w, s, bm=bm, bk=bk, bn=bn, split_k=split, **ep1)
+            torch.testing.assert_close(got, conv_im2col_plain(x[0], w, s, **ep1),
+                                       **GEMM_TOL)
+
+
+def test_gpu_conv_deterministic(cuda):
+    """Two calls on the same inputs give bit-identical outputs, split (the
+    late layers, conv21 at b=8, a forced split) and unsplit."""
+    gen = torch.Generator().manual_seed(0)
+    x1, w1, b1, r1 = _conv_operands(gen, 0, 512, 7, 512, 3, 1)
+    xb, wb, bb, rb = _conv_operands(gen, 8, 256, 15, 512, 3, 2)
+    xs, ws, bs, rs = _conv_operands(gen, 8, 64, 30, 128, 3, 2)
+    calls = [lambda: conv_im2col_op(x1, w1, 1, bias=b1, residual=r1, relu=True),
+             lambda: conv_im2col_batch_op(xb, wb, 2, residual=rb, relu=True),
+             lambda: conv_im2col_batch(xs, ws, 2, bm=64, bk=16, bn=64, split_k=5,
+                                       bias=bs, residual=rs),
+             lambda: conv_im2col_batch_op(xs, ws, 2, bias=bs)]
+    assert conv_cta_plan(512, 25, 4608, "conv-bk128")[3] > 1
+    assert conv_cta_plan(512, 8 * 49, 2304, "conv-bk128")[3] > 1
+    for call in calls:
+        first, second = call(), call()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(WINO_MM_TILES))

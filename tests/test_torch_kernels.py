@@ -26,10 +26,12 @@ from repro.kernels.matmul.ops import matmul_op as jax_matmul_op
 from repro.kernels.winograd.ops import winograd_conv_batch as jax_wino_conv
 from repro.kernels.winograd.winograd import winograd_point_gemm_batch as jax_point_gemm
 from repro.primitives.conv import reference_conv_batch as jax_conv_ref
-from repro_torch.kernels.im2col_gemm.im2col_gemm import conv_im2col_batch
+from repro_torch.kernels.im2col_gemm import im2col_gemm as conv_mod
+from repro_torch.kernels.im2col_gemm.im2col_gemm import conv_im2col, conv_im2col_batch
 from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
 from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
 from repro_torch.kernels.im2col_gemm.ops import conv_im2col_batch_op
+from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_cta_plan
 from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_M, TILE_N, cta_warps,
                                                matmul, matmul_batch)
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
@@ -68,11 +70,14 @@ def test_variant_keys_match_reference():
     from repro.kernels.winograd.ops import VARIANTS as JAX_WINO
     assert CONV_VARIANTS == JAX_CONV and WINO_VARIANTS == JAX_WINO
     # every key maps to a tile the CUDA launchers instantiate: gemm_tile.cuh's
-    # for the conv and Winograd kernels, matmul.cu's for the matmul ceilings
+    # for the Winograd kernels, matmul.cu's and im2col_gemm.cu's for the
+    # matmul and conv ceilings
     legal = {(bm, bk, bn) for bm in (64, 128) for bk in (8, 16) for bn in (64, 128)}
     mm_legal = set(itertools.product(TILE_M, TILE_K, TILE_N))
+    conv_legal = set(itertools.product(conv_mod.TILE_M, conv_mod.TILE_K,
+                                       conv_mod.TILE_N))
     for table, keys, tiles in ((MM_TILES, MM_VARIANTS, mm_legal),
-                               (CONV_TILES, CONV_VARIANTS, legal),
+                               (CONV_TILES, CONV_VARIANTS, conv_legal),
                                (WINO_TILES, WINO_VARIANTS, legal),
                                (WINO_MM_TILES, MM_VARIANTS, legal)):
         assert set(table) == set(keys) and set(table.values()) <= tiles
@@ -279,6 +284,161 @@ def test_conv_im2col_batch_variants_epilogues(variant, bias, res, relu, rng):
     got = conv_im2col_batch_op(_t(x), _t(w), s, variant=variant, bias=_t(b),
                                residual=_t(r), relu=relu)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+
+
+def test_conv_refuses_what_the_kernel_cannot_take():
+    """A plan the kernel has not, and any size a C ``int`` or the kernel's
+    32-bit offsets cannot hold, are refused on any device (ctypes would wrap
+    2**31 + 5 silently); the meta tensors are never launched."""
+    x, w = torch.zeros(2, 3, 9, 9), torch.zeros(4, 3, 3, 3)   # R = 27: 2 steps
+    with pytest.raises(ValueError, match="instantiated"):
+        conv_im2col_batch(x, w, bm=48)
+    with pytest.raises(ValueError, match="instantiated"):
+        conv_im2col(x[0], w, bn=128)
+    with pytest.raises(ValueError, match="split_k"):
+        conv_im2col_batch(x, w, split_k=3)
+    with pytest.raises(ValueError, match="split_k"):
+        conv_im2col(x[0], w, split_k=0)
+    assert torch.equal(conv_im2col_batch(x, w, split_k=2), conv_im2col_batch(x, w))
+    meta = dict(device="meta")
+    big = 2 ** 31 + 5
+    cases = [  # (x, w, the value that overflows)
+        (torch.empty(1, 1, 1, 1, **meta), torch.empty(big, 1, 1, 1, **meta), "K="),
+        (torch.empty(1, 2, 2 ** 15, 2 ** 15, **meta), torch.empty(1, 2, 1, 1, **meta), "x="),
+        (torch.empty(2 ** 16, 1, 2 ** 8, 2 ** 8, **meta), torch.empty(1, 1, 1, 1, **meta),
+         "pixels="),
+        (torch.empty(1, 1, 2 ** 16, 2 ** 14, **meta), torch.empty(2, 1, 1, 1, **meta), "out="),
+        (torch.empty(1, 2 ** 16, 4, 4, **meta), torch.empty(2 ** 13, 2 ** 16, 2, 2, **meta),
+         "w="),
+    ]
+    for xm, wm, what in cases:
+        with pytest.raises(ValueError, match=f"{what}.*int32"):
+            conv_im2col_batch(xm, wm)
+        if xm.shape[0] == 1:
+            with pytest.raises(ValueError, match=f"{what}.*int32"):
+                conv_im2col(xm[0], wm)
+
+
+# ---------------------------------------------------------------------------
+# conv launch plans (kernels/im2col_gemm/ops.py cta_plan)
+# ---------------------------------------------------------------------------
+
+# (K_out, C, H, f, s, batch): the served resnet18 / mix and edge_cnn / mix
+# convs at b=8, resnet18's 20 convs on one image, and edge cases
+CONV_PLAN_SHAPES = (
+    [(64, 3, 224, 7, 2, 8), (128, 64, 101, 3, 2, 8), (128, 64, 101, 1, 2, 8),
+     (256, 128, 44, 3, 2, 8), (256, 128, 44, 1, 2, 8), (512, 256, 15, 3, 2, 8),
+     (512, 256, 15, 1, 2, 8), (16, 32, 28, 1, 1, 8), (32, 32, 26, 1, 1, 8),
+     (48, 32, 22, 3, 2, 8), (64, 48, 8, 1, 1, 8), (64, 128, 6, 1, 1, 8)]
+    + [(K, C, H, f, s, 1) for C, H, K, f, s in [
+        (3, 224, 64, 7, 2), (64, 109, 64, 3, 1), (64, 107, 64, 3, 1),
+        (64, 105, 64, 3, 1), (64, 103, 64, 3, 1), (64, 101, 128, 1, 2),
+        (64, 101, 128, 3, 2), (128, 50, 128, 3, 1), (128, 48, 128, 3, 1),
+        (128, 46, 128, 3, 1), (128, 44, 256, 1, 2), (128, 44, 256, 3, 2),
+        (256, 21, 256, 3, 1), (256, 19, 256, 3, 1), (256, 17, 256, 3, 1),
+        (256, 15, 512, 1, 2), (256, 15, 512, 3, 2), (512, 7, 512, 3, 1),
+        (512, 5, 512, 3, 1), (512, 3, 512, 3, 1)]]
+    + [(1, 1, 1, 1, 1, 1), (5, 3, 9, 3, 1, 2), (4096, 64, 300, 3, 1, 8)])
+
+
+def _gemm_of(K_out, C, H, f, s, batch):
+    """(M, N, K) of a conv's implicit GEMM."""
+    oh = (H - f) // s + 1
+    return K_out, batch * oh * oh, C * f * f
+
+
+@pytest.mark.parametrize("variant", sorted(CONV_VARIANTS))
+def test_conv_cta_plan_rule(variant):
+    """For every conv-bk* key, at the served and phase-5 conv shapes and
+    some edge cases: the plan is an instantiated conv tile that fits shared
+    memory; BM and BN are the smallest instantiated sizes covering the
+    output channels and pixels under the ceiling; it fills the SMs (a CTA
+    and WARPS_PER_SM warps on each) or splits C*f*f one step per slice;
+    every slice is a whole, non-empty run of BK steps; no split where the
+    grid fills."""
+    cm, ck, cn = CONV_TILES[variant]
+    for shape in CONV_PLAN_SHAPES:
+        M, N, K = _gemm_of(*shape)
+        bm, bn, bk, split = conv_cta_plan(M, N, K, variant)
+        assert bm in conv_mod.TILE_M and bn in conv_mod.TILE_N and bk == ck
+        assert bk in conv_mod.TILE_K
+        assert smem_bytes(bm, bn, bk) <= 232448
+        assert bm == min(t for t in conv_mod.TILE_M if t >= min(M, cm))
+        assert bn == min(t for t in conv_mod.TILE_N if t >= min(N, cn))
+        tiles = -(-M // bm) * -(-N // bn)
+        warps = tiles * cta_warps(bm, bn)
+        steps = -(-K // bk)
+        if (tiles >= SMS and warps >= SMS * WARPS_PER_SM) or steps <= 1:
+            assert split == 1
+        else:
+            assert (tiles * split >= SMS and warps * split >= SMS * WARPS_PER_SM
+                    or split == steps)
+        per = -(-steps // split)
+        assert split == 1 or (split - 1) * per < steps <= split * per
+
+
+def test_conv_cta_plan_keeps_variants_apart_on_large_shapes():
+    """Where ceiling tiles fill the card, the plan is the ceiling with no
+    split: conv-bk64 and conv-bk128 launch distinct kernels, conv-bk256 its
+    capped 128-row twin's."""
+    M, N, K = _gemm_of(512, 128, 58, 3, 1, 8)
+    plans = {v: conv_cta_plan(M, N, K, v) for v in CONV_VARIANTS}
+    for v, (bm, bn, bk, split) in plans.items():
+        assert (bm, bk, bn) == CONV_TILES[v] and split == 1
+    assert plans["conv-bk64"] != plans["conv-bk128"] == plans["conv-bk256"]
+
+
+@pytest.mark.parametrize("im", [3, 5, 7, 9])
+def test_conv_cta_plan_splits_the_late_layers(im):
+    """resnet18's late layers (512 -> 512, 3x3, R = 4,608) give 4 output
+    tiles of N <= 49 pixels on one image and 4-28 at b=8: R is split, in
+    whole steps, until the SMs are full."""
+    for batch in (1, 8):
+        M, N, K = _gemm_of(512, 512, im, 3, 1, batch)
+        for variant in CONV_VARIANTS:
+            bm, bn, bk, split = conv_cta_plan(M, N, K, variant)
+            tiles = -(-M // bm) * -(-N // bn)
+            assert split > 1 and tiles * split >= SMS
+            assert tiles * cta_warps(bm, bn) * split >= SMS * WARPS_PER_SM
+            assert (split - 1) * -(-(K // bk) // split) < K // bk
+
+
+def test_conv_tiles_match_the_cuda_instantiations():
+    """im2col_gemm's TILE_M x TILE_N x TILE_K is what csrc/im2col_gemm.cu
+    instantiates (RT_FOR_EACH_CONV_TILE), so no plan names a tile the
+    launcher refuses."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "im2col_gemm.cu").read_text()
+    def body(name):            # a macro's definition, continuation lines too
+        return re.search(rf"#define {name}\(.*?\)((?:.*\\\n)*.*)", src).group(1)
+    bn, bm = body("RT_CONV_BN"), body("RT_FOR_EACH_CONV_TILE")
+    pairs = re.findall(r"X\(BM, (\d+), (\d+)\)", bn)
+    assert tuple(int(n) for n, _ in pairs) == conv_mod.TILE_N
+    assert tuple(sorted({int(k) for _, k in pairs})) == conv_mod.TILE_K
+    assert tuple(int(v) for v in re.findall(r"RT_CONV_BN\(X, (\d+)\)", bm)) == conv_mod.TILE_M
+
+
+@pytest.mark.parametrize("sig", [(8, 64, 101, 101, 128, 1, 2), (2, 3, 9, 9, 4, 3, 2),
+                                 (1, 2, 10, 11, 3, 2, 3), (1, 1, 8, 8, 1, 3, 3),
+                                 (2, 3, 16, 16, 4, 7, 2), (1, 2, 7, 9, 5, 1, 1)])
+def test_conv_bound_counts_the_pixels_the_windows_read(sig):
+    """chip_smoke.py's conv bound reads each input once: of x, only the
+    pixels some window covers (a 1x1 stride-2 conv reads a quarter of x),
+    counted here by unfolding a map of pixel indices."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    work = smoke.kernel_table(torch)["conv_im2col_batch"]["work"]
+    N, C, H, W, K, f, s = sig
+    ids = torch.arange(H * W, dtype=torch.float64).reshape(1, 1, H, W)
+    read = torch.unique(torch.nn.functional.unfold(ids, f, stride=s)).numel()
+    P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
+    for hb, hr, relu in EPILOGUES:
+        flops, nbytes = work((*sig, 128, 16, 64, 1, hb, hr, relu))
+        assert flops == 2 * P * K * C * f * f + P * K * (hb + hr + relu)
+        assert nbytes == 4 * (N * C * read + K * C * f * f + P * K * (1 + hr) + K * hb)
 
 
 # ---------------------------------------------------------------------------
