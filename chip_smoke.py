@@ -5,9 +5,11 @@
 
 Drives the port's main paths through its hand-written kernels and checks
 every result: the served path — lower -> compile_plan -> OptimisedServer —
-through the three kernels a plan runs, and the ``ops`` entry points of the
-four kernels no plan reaches (batched matmul, single-image im2col conv,
-single-image Winograd, flash attention). Phases, each of which asserts:
+through the five kernels a plan runs (matmul, implicit-GEMM conv, and the
+Winograd point-GEMM with its input and inverse transforms), and the ``ops``
+entry points of the four kernels no plan reaches (batched matmul,
+single-image im2col conv, single-image Winograd point-GEMM, which runs the
+two transforms too, flash attention). Phases, each of which asserts:
 
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / nvcc
    versions, and the kernel build (one ``nvcc`` per source, in parallel,
@@ -15,10 +17,12 @@ single-image Winograd, flash attention). Phases, each of which asserts:
 2. Each kernel against its plain PyTorch version on the card: at every call
    signature the served paths give it (recorded while the server binds and
    warms its per-bucket plans), and at the largest of them under every
-   ``VARIANTS`` key and every epilogue combination. Each kernel is then
-   timed over one b=8 forward pass of every path that runs it (device
-   time, launches replayed from a CUDA graph) beside its plain version,
-   one library call computing the same function, and its bound.
+   ``VARIANTS`` key and every epilogue combination, each call also against
+   its own repeat, bit for bit (no kernel uses atomics, split plans
+   included). Each kernel is then timed over one b=8 forward pass of every
+   path that runs it (device time, launches replayed from a CUDA graph)
+   beside its plain version, one library call computing the same function
+   where there is one, and its bound.
 3. edge_cnn served in bursts of 1, 3 and 8 under (a) the PBQP-selected tile
    assignment and (b) the kernel-mix assignment.
 4. resnet18 at its published width (224x224 input, 64-512 channels) served
@@ -36,6 +40,8 @@ single-image Winograd, flash attention). Phases, each of which asserts:
    (``F.conv2d``, or attention with the full score matrix); each kernel is
    then held to its plain version at every signature the paths gave it and
    under every ``VARIANTS`` key at the largest, and timed as in phase 2.
+   The two Winograd transforms are held and timed over the served and the
+   entry paths together.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -43,7 +49,8 @@ torch, no hand-written kernel — so the oracle is independent of the kernels.
 Launch counters are zeroed just before each served path and read just after
 it. Each path's served img/s at b=8 follows, over several windows of
 back-to-back bursts so the spread shows, with the device-busy time of one
-burst under ``torch.profiler`` and the device ops that took most of it.
+burst under ``torch.profiler`` and the device ops that took most of it, by
+device event and by the CPU op that launched it.
 The last line of output is the ``{"ok": true, "device": ...}`` record.
 The script fails (non-zero exit, no result) without a CUDA device.
 """
@@ -52,6 +59,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -81,9 +89,12 @@ EDGE_CNN_PBQP = {
     15: "im2col-scan-ab-ki@mm-256x256x256", 17: "im2col-scan-ab-ki@mm-256x256x256",
 }
 
-# the three kernels a served plan runs, and the four reached only through
-# their ``ops`` entry points (phase 5)
-SERVED_KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch")
+# the five kernels a served plan runs, and the four reached only through
+# their ``ops`` entry points (phase 5); the two Winograd transforms run on
+# both, around either point-GEMM
+WINO_TRANSFORMS = ("winograd_input_transform", "winograd_inverse_transform")
+SERVED_KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
+                  *WINO_TRANSFORMS)
 ENTRY_KERNELS = ("matmul_batch", "conv_im2col", "winograd_point_gemm",
                  "flash_attention")
 
@@ -102,7 +113,8 @@ SERVE_TOL = dict(rtol=1e-3, atol=1e-3)    # fp32 sum order compounding over ~20 
 LONG_CALL_MS, LONG_CALL_BUDGET_MS = 1.0, 200.0  # time_ms: eager above this
 RATE_WINDOWS, RATE_WINDOW_S = 5, 2.0      # served img/s: windows per path, seconds each
 TOP_DEVICE_OPS = 8                        # device ops listed per profiled burst
-TOP_SIGNATURES = 4                        # costliest signatures listed per SIMT kernel pass
+TOP_SIGNATURES = 4                        # costliest signatures listed per pass of a kernel
+                                          # outside the tensor cores
 
 
 def main() -> int:
@@ -159,7 +171,7 @@ def main() -> int:
             if common.SEEN[k]:
                 per_pass[k][name] = dict(common.SEEN[k])
     report = {k: check_and_time(torch, k, seen_all[k], per_pass[k], args.reps)
-              for k in SERVED_KERNELS}
+              for k in SERVED_KERNELS if k not in WINO_TRANSFORMS}
     torch.cuda.synchronize()
 
     # -- phases 3 and 4: serve and hold every response to the oracle ------
@@ -186,23 +198,31 @@ def main() -> int:
     # -- phase 5: the entry points at full width --------------------------
     resnet18 = conv_layers(cnn_zoo.get("resnet18"))
     entry_paths = entry_point_paths("resnet18", resnet18, ATTENTION, ENTRY_BATCH)
-    entry_seen = {k: {} for k in ENTRY_KERNELS}
+    entry_seen = {k: {} for k in (*ENTRY_KERNELS, *WINO_TRANSFORMS)}
     oracle_err = {}
     for name, (kernel, drive) in entry_paths.items():
         common.reset_launches()
         oracle_err[name] = drive(torch, "cuda", np.random.default_rng(args.seed))
         torch.cuda.synchronize()
         launches[name] = dict(common.LAUNCHES)
-        entry_seen[kernel][name] = dict(common.SEEN[kernel])
-        assert launches[name][kernel] > 0, (name, launches[name])
-        assert all(n == 0 for k, n in launches[name].items() if k != kernel)
+        want = {kernel, *(WINO_TRANSFORMS if kernel == "winograd_point_gemm" else ())}
+        for k in want:
+            entry_seen[k][name] = dict(common.SEEN[k])
+            assert launches[name][k] > 0, (name, k, launches[name])
+        assert all(n == 0 for k, n in launches[name].items() if k not in want)
         print(f"entry {name}: max |out - oracle| = {oracle_err[name]:.3g}, "
-              f"{kernel} launches {launches[name][kernel]}", flush=True)
+              f"launches {({k: launches[name][k] for k in sorted(want)})}",
+              flush=True)
     for k in ENTRY_KERNELS:
         seen = set().union(*(set(c) for c in entry_seen[k].values()))
         report[k] = check_and_time(torch, k, seen, entry_seen[k], args.reps)
         report[k]["oracle_max_abs_err"] = max(
             oracle_err[p] for p in entry_seen[k])
+    # the transforms: every signature of the served and the entry paths
+    for k in WINO_TRANSFORMS:
+        seen = seen_all[k].union(*(set(c) for c in entry_seen[k].values()))
+        report[k] = check_and_time(torch, k, seen,
+                                   {**per_pass[k], **entry_seen[k]}, args.reps)
     torch.cuda.synchronize()
 
     rates = {name: images_per_s(server, nets[name], rng) for name in nets}
@@ -219,7 +239,7 @@ def main() -> int:
         print(f"served img/s {name} b=8: median {med!r} over {len(r)} windows "
               f"{[round(x, 1) for x in r]} (min {min(r)!r}, max {max(r)!r})"
               f"  ({smi})")
-        busy_ms, wall_ms, top = busy[name]
+        busy_ms, wall_ms, top, by_op = busy[name]
         burst_ms = 8e3 / med
         if busy_ms is None:
             print(f"  one profiled burst {name}: wall {wall_ms!r} ms, device "
@@ -231,12 +251,17 @@ def main() -> int:
               f"unprofiled burst ({burst_ms!r} ms)")
         for op, ms in top:
             print(f"    device {ms:.4f} ms  {op}")
+        print(f"  the same burst by launching op ({sum(ms for _, ms in by_op)!r} "
+              f"ms in the {len(by_op)} listed):")
+        for op, ms in by_op:
+            print(f"    device {ms:.4f} ms  {op}")
     rows = []
     for k, r in report.items():
         # headline times: a served kernel's path where it does the most
         # work; an entry kernel's first path (the full-width shape above)
         path, t = (next(iter(r["passes"].items())) if k in ENTRY_KERNELS else
                    max(r["passes"].items(), key=lambda pt: pt[1]["bound_ms"]))
+        timed_on = path if path in entry_paths else f"{path} b=8 forward"
         extra = ({"oracle_max_abs_err": r["oracle_max_abs_err"]}
                  if "oracle_max_abs_err" in r else {})
         rows.append({"name": k, "route": "cuda", "source": r["source"],
@@ -247,8 +272,7 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "bound_fp32_ms": t["bound_fp32_ms"],
                      "launches_per_pass": t["launches"],
-                     "timed_on": (path if k in ENTRY_KERNELS
-                                  else f"{path} b=8 forward"),
+                     "timed_on": timed_on,
                      **extra, "card": smi})
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
@@ -298,7 +322,7 @@ def routed_kernels(assignment):
         if variant.startswith("conv-bk"):
             out.add("conv_im2col_batch")
         elif variant.startswith("wino-") or resolve(col).family == "wino3":
-            out.add("winograd_point_gemm_batch")
+            out |= {"winograd_point_gemm_batch", *WINO_TRANSFORMS}
         else:
             out.add("matmul")
     return out
@@ -373,7 +397,43 @@ def device_busy(server, opt, rng):
     for e in evs:
         by_op[e.name[:90]] = by_op.get(e.name[:90], 0.0) + e.time_range.elapsed_us() * 1e-3
     ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
-    return (busy_us * 1e-3 if evs else None), wall_ms, ranked
+    return ((busy_us * 1e-3 if evs else None), wall_ms, ranked,
+            by_launching_op(prof, evs))
+
+
+def by_launching_op(prof, evs):
+    """Device ms of one profiled run by the CPU op that launched each of
+    its device events ``evs``, the ``TOP_DEVICE_OPS`` largest: (outermost
+    op > op that launched it: device event name, ms). The profiler attaches
+    each kernel and copy to the innermost op whose launch it correlates
+    with; the outermost is that op's top ancestor, the call the Python code
+    made (``aten::einsum`` for the GEMV an einsum runs). Device time that
+    no torch op launched — the hand-written kernels, launched through
+    ``ctypes`` — is listed under "no torch op"."""
+    from torch.autograd import DeviceType
+    by_op, seen, attributed = {}, set(), {}
+    for e in prof.events():
+        # the profiler can attach one launch's device events to two CPU
+        # events of the same correlation id (a copy to its op and to the
+        # tracer's own buffer request): count them once
+        if e.device_type != DeviceType.CPU or not e.kernels or e.id in seen:
+            continue
+        seen.add(e.id)
+        top = e
+        while top.cpu_parent is not None and not top.cpu_parent.is_user_annotation:
+            top = top.cpu_parent
+        where = e.name if top is e else f"{top.name} > {e.name}"
+        for k in e.kernels:
+            key = f"{where}: {k.name[:60]}"
+            by_op[key] = by_op.get(key, 0.0) + k.duration * 1e-3
+            attributed[k.name] = attributed.get(k.name, 0.0) + k.duration * 1e-3
+    total = {}
+    for e in evs:
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
+    for name, ms in total.items():
+        if ms - attributed.get(name, 0.0) > 1e-6:
+            by_op[f"no torch op: {name[:60]}"] = ms - attributed.get(name, 0.0)
+    return sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
 
 
 def kernel_mix_assignment(spec):
@@ -574,12 +634,15 @@ def kernel_table(torch):
     from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
     from repro_torch.kernels.matmul.ops import cta_plan
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
-    from repro_torch.kernels.winograd.ops import MM_CTA_TILES as WINO_MM_TILES
+    from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
+    from repro_torch.kernels.winograd.ops import cta_plan as wino_plan
     from repro_torch.kernels.winograd.ref import point_gemm_ref
     from repro_torch.kernels.winograd.winograd import (
+        tiles_of, winograd_input_transform, winograd_input_transform_plain,
+        winograd_inverse_transform, winograd_inverse_transform_plain,
         winograd_point_gemm, winograd_point_gemm_batch,
         winograd_point_gemm_batch_plain, winograd_point_gemm_plain)
+    from repro_torch.primitives.conv import _WINO_SETS
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda") * scale
@@ -631,10 +694,18 @@ def kernel_table(torch):
                 4 * (N * C * rows * cols + K * C * f * f + P * K * (1 + hr)
                      + K * hb))
 
+    def wino_plans(K, C, T, batch):
+        """(bm, bk, bn, split_k) of every wino-* and mm-* plan at one
+        point-GEMM shape, ``batch`` = images x points."""
+        return [(bm, bk, bn, split) for bm, bn, bk, split in
+                (wino_plan(K, T, C, batch, v)
+                 for v in (*WINO_VARIANTS, *MM_VARIANTS))]
+
     def wino_ops(sig):
-        N, P, K, C, T, bm, bk, bn = sig
+        N, P, K, C, T, bm, bk, bn, split = sig
         u, v = rnd(P, K, C, scale=C ** -0.5), rnd(N, P, C, T)
-        return (lambda: winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn),
+        return (lambda: winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn,
+                                                  split_k=split),
                 lambda: winograd_point_gemm_batch_plain(u, v),
                 lambda: point_gemm_ref(u, v))
 
@@ -672,11 +743,50 @@ def kernel_table(torch):
                 lambda: conv_ref(x[None], w, s))
 
     def wino1_ops(sig):
-        P, K, C, T, bm, bk, bn = sig
+        P, K, C, T, bm, bk, bn, split = sig
         u, v = rnd(P, K, C, scale=C ** -0.5), rnd(P, C, T)
-        return (lambda: winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn),
+        return (lambda: winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn,
+                                            split_k=split),
                 lambda: winograd_point_gemm_plain(u, v),
                 lambda: point_gemm_ref(u, v))
+
+    def nnz(m, which):
+        """Nonzero entries of F(mxm, 3x3)'s A^T (0) or B^T (2): the products
+        a transform kernel computes per row or column it transforms."""
+        return int(np.count_nonzero(_WINO_SETS[(m, 3)][which]))
+
+    def win_ops(sig):
+        N, C, H, W, m = sig
+        x = rnd(N, C, H, W)
+        return (lambda: winograd_input_transform(x, m),
+                lambda: winograd_input_transform_plain(x, m), None)
+
+    def win_work(sig):
+        """B^T d B per (image, channel, tile): n columns then n rows, each a
+        row of B^T's nonzeros; x read once, V written once."""
+        N, C, H, W, m = sig
+        n, T = m + 2, math.prod(tiles_of(H - 2, W - 2, m))
+        return (N * C * T * 4 * n * nnz(m, 2),
+                4 * (N * C * H * W + N * n * n * C * T))
+
+    def wout_ops(sig):
+        N, K, oh, ow, m, hb, hr, relu = sig
+        M = rnd(N, (m + 2) ** 2, K, math.prod(tiles_of(oh, ow, m)))
+        ep = dict(bias=rnd(K) if hb else None,
+                  residual=rnd(N, K, oh, ow) if hr else None, relu=relu)
+        return (lambda: winograd_inverse_transform(M, m, oh, ow, **ep),
+                lambda: winograd_inverse_transform_plain(M, m, oh, ow, **ep),
+                None)
+
+    def wout_work(sig):
+        """A^T M A per (image, channel, tile): n columns, then m rows, each a
+        row of A^T's nonzeros, and the epilogue; M read once, y written
+        once."""
+        N, K, oh, ow, m, hb, hr, relu = sig
+        n, T = m + 2, math.prod(tiles_of(oh, ow, m))
+        return (N * K * T * 2 * (n + m) * nnz(m, 0)
+                + N * K * oh * ow * (hb + hr + relu),
+                4 * (N * n * n * K * T + N * K * oh * ow * (1 + hr) + K * hb))
 
     def fa_ops(sig):
         bh, sq, sk, d, causal, bq, bkv, scale = sig
@@ -711,9 +821,19 @@ def kernel_table(torch):
         "winograd_point_gemm_batch": dict(
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/winograd.py:77",
-            ops=wino_ops, work=wino_work,
-            sweep=lambda s: [(*s[:5], *t) for t in
-                             list(WINO_TILES.values()) + list(WINO_MM_TILES.values())]),
+            ops=wino_ops, work=wino_work, flops_s=TF32_FLOPS / 3,
+            sweep=lambda s: [(*s[:5], *p) for p in
+                             wino_plans(*s[2:5], s[0] * s[1])]),
+        "winograd_input_transform": dict(
+            source="src/repro_torch/csrc/winograd.cu",
+            replaces="src/repro/kernels/winograd/ops.py:97",
+            ops=win_ops, work=win_work,
+            sweep=lambda s: [(*s[:4], m) for m in (2, 4)]),
+        "winograd_inverse_transform": dict(
+            source="src/repro_torch/csrc/winograd.cu",
+            replaces="src/repro/kernels/winograd/ops.py:106",
+            ops=wout_ops, work=wout_work,
+            sweep=lambda s: [(*s[:4], m, *e) for m in (2, 4) for e in eps]),
         "matmul_batch": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:87",
@@ -731,8 +851,8 @@ def kernel_table(torch):
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/winograd.py:36",
             ops=wino1_ops, work=lambda s: wino_work((1, *s)),
-            sweep=lambda s: [(*s[:4], *t) for t in
-                             list(WINO_TILES.values()) + list(WINO_MM_TILES.values())]),
+            flops_s=TF32_FLOPS / 3,
+            sweep=lambda s: [(*s[:4], *p) for p in wino_plans(*s[1:4], s[0])]),
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",
@@ -787,16 +907,24 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ms(v) -> str:
+    """A time for the report: ``none`` where no library call computes the
+    same function."""
+    return "none" if v is None else f"{v:.4f}"
+
+
 def check_and_time(torch, name, seen, passes, reps):
     """Hold ``name`` to its plain version at every signature in ``seen`` and
-    across the tile/epilogue sweep at the largest of them; then, for each
+    across the tile/epilogue sweep at the largest of them, and each call to
+    its own repeat, bit for bit (split plans included); then, for each
     path in ``passes`` ({path: {signature: launches}} of one b=8 forward),
-    time that pass's launches — kernel, plain version, library call and
-    bound, each summed over the pass. The bound takes the operations at the
-    peak rate of the kind the kernel runs (``flops_s``: 3xTF32 on the tensor
-    cores, else fp32 outside them) and, as ``bound_fp32_ms``, at the fp32
-    rate (the same for a SIMT kernel); a tensor-core kernel's pass lists
-    every signature with both."""
+    time that pass's launches — kernel, plain version, library call (None
+    where no single PyTorch call computes the function) and bound, each
+    summed over the pass. The bound takes the operations at the peak rate
+    of the kind the kernel runs (``flops_s``: 3xTF32 on the tensor cores,
+    else fp32 outside them) and, as ``bound_fp32_ms``, at the fp32 rate (the
+    same for a kernel outside the tensor cores); a tensor-core kernel's pass
+    lists every signature with both."""
     from repro_torch.kernels import common
     spec = kernel_table(torch)[name]
     flops_s = spec.get("flops_s", FP32_FLOPS)
@@ -810,6 +938,8 @@ def check_and_time(torch, name, seen, passes, reps):
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), (name, sig)
         torch.testing.assert_close(got, want, **KERNEL_TOL)
+        # no atomics anywhere, split or not: a repeat is bit for bit
+        assert torch.equal(kern(), got), (name, sig, "not deterministic")
         worst = max(worst, float((got - want).abs().max()))
     out = {}
     for path, counts in passes.items():
@@ -821,10 +951,13 @@ def check_and_time(torch, name, seen, passes, reps):
             kern, plain, lib = spec["ops"](sig)
             ms = n * time_ms(torch, kern, reps)
             plain_ms = n * time_ms(torch, plain, reps)
-            lib_ms = n * time_ms(torch, lib, reps)
+            lib_ms = None if lib is None else n * time_ms(torch, lib, reps)
             t["ms"] += ms
             t["plain_ms"] += plain_ms
-            t["library_ms"] += lib_ms
+            if lib_ms is None:
+                t["library_ms"] = None
+            else:
+                t["library_ms"] += lib_ms
             flops, nbytes = spec["work"](sig)
             bound = n * max(flops / flops_s, nbytes / HBM_BYTES_S) * 1e3
             bound32 = n * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
@@ -839,7 +972,7 @@ def check_and_time(torch, name, seen, passes, reps):
         fp32 = f", fp32 bound {t['bound_fp32_ms']:.4f}" if tc else ""
         print(f"{name}: one pass of {path}: {t['launches']} launches, "
               f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
-              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+              f"{_ms(t['library_ms'])}, bound {t['bound_ms']:.4f} by "
               f"{t['bound_by']}{fp32})", flush=True)
         assert t["ms"] >= t["bound_ms"], (name, path, "faster than its bound")
         listed = sorted(per_sig, key=lambda r: r[0], reverse=True)
@@ -847,7 +980,7 @@ def check_and_time(torch, name, seen, passes, reps):
                 listed if tc else listed[:TOP_SIGNATURES]):
             fp32 = f", fp32 bound {bound32:.4f}" if tc else ""
             print(f"    {ms:.4f} ms (plain {plain_ms:.4f}, library "
-                  f"{lib_ms:.4f}, bound {bound:.4f}{fp32}) x{n} at {sig}")
+                  f"{_ms(lib_ms)}, bound {bound:.4f}{fp32}) x{n} at {sig}")
     common.reset_launches()          # the launches above were not the main path
     print(f"{name}: {len(seen)} main-path signatures + sweep hold to plain, "
           f"max |err| {worst:.3g}", flush=True)

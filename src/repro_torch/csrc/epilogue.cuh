@@ -1,9 +1,10 @@
 // The fused epilogue and the deterministic split-K reduction shared by the
-// tensor-core kernels (matmul.cu, im2col_gemm.cu).
+// tensor-core kernels (matmul.cu, im2col_gemm.cu, winograd.cu).
 //
-// Both write an output laid out as (batch, M, N) row-major per batch entry:
-// matmul's (Bn, M, N), and the conv's (N images, K channels, oh * ow
-// pixels). A split call stores each K slice's raw partial sum to a
+// Each writes an output laid out as (batch, M, N) row-major per batch
+// entry: matmul's (Bn, M, N), the conv's (N images, K channels, oh * ow
+// pixels), the Winograd point-GEMM's (N images * P points, K, T tiles). A
+// split call stores each K slice's raw partial sum to a
 // workspace (split, batch, M, N); splitk_reduce then adds the slices in
 // split order and applies the epilogue once, to the full sum. No atomics:
 // two calls on the same inputs give bit-identical outputs.

@@ -29,7 +29,7 @@
 // (a ragged last block) get p = 0 explicitly, and queries past Sq are never
 // stored: shapes need not divide the tile.
 //
-// Thread layout, as in gemm_tile.cuh: thread (ty, tx) of a 16 x 16 grid owns
+// Thread layout: thread (ty, tx) of a 16 x 16 grid owns
 // rows ty + 16 i of the tile and key columns (or head-dim columns of the
 // output) tx + 16 j. Shared memory rows are padded by one word so that the
 // transposing K store and the row reads hit distinct banks. The tile needs

@@ -1,6 +1,6 @@
 // fp32 GEMM tile loop on Hopper's tensor cores at fp32 accuracy (3xTF32),
-// fed by a cp.async ring. Used by matmul.cu and im2col_gemm.cu; the SIMT
-// loop of the Winograd kernels stays in gemm_tile.cuh.
+// fed by a cp.async ring. Used by matmul.cu, im2col_gemm.cu and the
+// Winograd point-GEMM of winograd.cu.
 //
 // One CTA computes a BM x BN tile of C[m, n] = sum_k A[m, k] * B[k, n] over
 // a K range [kbeg, kend). The caller's stage loader fills the shared-memory

@@ -35,9 +35,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-# one launch counter per hand-written kernel: the three a served plan runs,
-# then the four reached through their ``ops`` entry points only
+# one launch counter per hand-written kernel: the five a served plan runs
+# (the Winograd point-GEMM with its input and inverse transforms, which the
+# single-image Winograd entry point runs too), then the four reached through
+# their ``ops`` entry points only
 KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
+           "winograd_input_transform", "winograd_inverse_transform",
            "matmul_batch", "conv_im2col", "winograd_point_gemm",
            "flash_attention")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,104 +1,78 @@
-"""Full Winograd conv: torch transforms around the hand-written point-GEMM
-(the compute stage), generic over F(mxm, 3x3) via the transform sets in
-``primitives.conv``. The port of ``repro.kernels.winograd.ops``: the batched
+"""Full Winograd conv, F(mxm, 3x3) with m = 2 or 4: the port of
+``repro.kernels.winograd.ops``. Three hand-written kernels run it — the
+input transform, the point-GEMM and the inverse transform, all in
+``csrc/winograd.cu`` — around the weight transform U = G w G^T, which stays
+a torch einsum (it touches only the weights). The batched
 ``winograd_conv_batch`` / ``winograd_conv_batch_op`` run the batched
-point-GEMM kernel, the single-image ``winograd_conv`` / ``winograd_conv_op``
-the single-image one; both take the same CTA tile per variant.
+point-GEMM, the single-image ``winograd_conv`` / ``winograd_conv_op`` the
+single-image one; both run the same transform kernels. As in the
+reference, the bias / residual / ReLU epilogue follows the inverse
+transform (here inside its kernel, before the single store): it cannot move
+into the point-GEMM, whose output lives in the transform domain.
 
-As in the reference, the input, weight and inverse transforms are plain
-tensor code (einsums, in float32) and only the point-GEMM is a kernel; the
-bias / residual / ReLU epilogue runs right after the inverse transform —
-it cannot move into the point-GEMM, whose output lives in the transform
-domain.
+Launch plans. ``wino-*`` keeps the reference's (bk, bt) TPU blocks (K by T,
+channel block 128); its ceiling tile halves each, capped at 128, with a
+channel depth of 16. ``mm-*`` on a Winograd base tiles the point-GEMM as
+(K, C, T) under the matmul kernel's own ceiling (``kernels/matmul/ops.py``
+``CTA_TILES``):
 
-Tile map. ``wino-*`` keeps the reference's (bk, bt) TPU blocks (K by T,
-channel block 128); a Hopper CTA tile halves each, capped at 128, with a
-channel depth of 8. ``mm-*`` on a Winograd base tiles the point-GEMM as
-(K, C, T) by the same rule — halve the M and N blocks, capped at 128, and a
-channel depth of ``bk / 16`` — kept here in ``MM_CTA_TILES`` (the matmul
-kernel's own plan rule, ``kernels/matmul/ops.py``, does not move these):
+    variant           TPU block         ceiling (BM, BK, BN)
+    wino-128x128      (128, 128)        ( 64, 16,  64)
+    wino-256x128      (256, 128)        (128, 16,  64)
+    wino-128x256      (128, 256)        ( 64, 16, 128)
+    mm-*              (bm, bk, bn)      matmul's ceiling
 
-    variant           TPU block         Hopper CTA (BM, BK, BN)
-    wino-128x128      (128, 128)        ( 64, 8,  64)
-    wino-256x128      (256, 128)        (128, 8,  64)
-    wino-128x256      (128, 256)        ( 64, 8, 128)
-    mm-128x128x128    (128, 128, 128)   ( 64, 8,  64)
-    mm-256x128x128    (256, 128, 128)   (128, 8,  64)
-    mm-128x128x256    (128, 128, 256)   ( 64, 8, 128)
-    mm-256x128x256    (256, 128, 256)   (128, 8, 128)
-    mm-512x128x128    (512, 128, 128)   (128, 8,  64)
-    mm-128x256x128    (128, 256, 128)   ( 64, 16, 64)
-    mm-256x256x256    (256, 256, 256)   (128, 16, 128)
-    mm-512x256x256    (512, 256, 256)   (128, 16, 128)
+``cta_plan`` fits the ceiling to each call's K x C by C x T point-GEMMs by
+the matmul kernel's rule (``common.fit_plan``), with the N images times P
+points as the batch.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.common import epilogue
-from repro_torch.kernels.winograd.winograd import (winograd_point_gemm,
-                                                   winograd_point_gemm_batch)
-from repro_torch.primitives.conv import _WINO_SETS
+from repro_torch.kernels.common import fit_plan
+from repro_torch.kernels.matmul.ops import CTA_TILES as MM_CTA_TILES
+from repro_torch.kernels.winograd.winograd import (
+    TILE_M, TILE_N, transform_matrices, winograd_input_transform,
+    winograd_inverse_transform, winograd_point_gemm, winograd_point_gemm_batch)
 
 VARIANTS: Dict[str, Tuple[int, int]] = {
     "wino-128x128": (128, 128), "wino-256x128": (256, 128),
     "wino-128x256": (128, 256)}
 
+# (BM, BK, BN) ceiling tile per wino-* variant — the table in the docstring
 CTA_TILES: Dict[str, Tuple[int, int, int]] = {
-    "wino-128x128": (64, 8, 64),
-    "wino-256x128": (128, 8, 64),
-    "wino-128x256": (64, 8, 128),
-}
-
-# (BM, BK, BN) point-GEMM tile of each ``mm-*`` variant on a Winograd base
-MM_CTA_TILES: Dict[str, Tuple[int, int, int]] = {
-    "mm-128x128x128": (64, 8, 64),
-    "mm-256x128x128": (128, 8, 64),
-    "mm-128x128x256": (64, 8, 128),
-    "mm-256x128x256": (128, 8, 128),
-    "mm-512x128x128": (128, 8, 64),
-    "mm-128x256x128": (64, 16, 64),
-    "mm-256x256x256": (128, 16, 128),
-    "mm-512x256x256": (128, 16, 128),
+    "wino-128x128": (64, 16, 64),
+    "wino-256x128": (128, 16, 64),
+    "wino-128x256": (64, 16, 128),
 }
 
 
-def cta_tile(variant: str) -> Tuple[int, int, int]:
-    """(BM, BK, BN) point-GEMM tile of a ``wino-*`` or ``mm-*`` variant."""
+def ceiling(variant: str) -> Tuple[int, int, int]:
+    """(BM, BK, BN) ceiling tile of a ``wino-*`` or ``mm-*`` variant."""
     return CTA_TILES[variant] if variant in CTA_TILES else MM_CTA_TILES[variant]
 
 
-def _input_transforms(x: torch.Tensor, w: torch.Tensor, m: int):
-    """V (N, n², C, T) of a (N, C, H, W) batch and the shared U (n², K, C)
-    of F(mxm, 3x3), with the tile grid (th, tw) and the matrix A^T."""
-    AT, G, BT = (torch.as_tensor(a, dtype=torch.float32, device=x.device)
-                 for a in _WINO_SETS[(m, 3)])
-    N, C, H, W = x.shape
-    K = w.shape[0]
-    n = m + 2
-    th, tw = -(-(H - 2) // m), -(-(W - 2) // m)
-    ph, pw = (th - 1) * m + n, (tw - 1) * m + n
-    xp = F.pad(x, (0, pw - W, 0, ph - H))
-    rows = [torch.stack([xp[:, :, a:a + (th - 1) * m + 1:m, b:b + (tw - 1) * m + 1:m]
-                         for b in range(n)], -1) for a in range(n)]
-    tiles = torch.stack(rows, -2)                              # (N, C, th, tw, n, n)
-    V = torch.einsum("ap,ncijpq,qb->nabcij", BT, tiles.float(), BT.T)
-    V = V.reshape(N, n * n, C, th * tw)                        # (N, n², C, T)
-    U = torch.einsum("ar,kcrs,sb->abkc", G, w.float(), G.T)
-    return V.contiguous(), U.reshape(n * n, K, C).contiguous(), (th, tw), AT
+def cta_plan(K: int, T: int, C: int, batch: int,
+             variant: str) -> Tuple[int, int, int, int]:
+    """(BM, BN, BK, split_k) for ``batch`` = N images x P points
+    point-GEMMs (K, C) @ (C, T) under ``variant``: ``common.fit_plan`` on
+    the variant's ceiling and the tile sizes csrc/winograd.cu instantiates.
+    BM and BN are the smallest instantiated sizes covering K and T under the
+    ceiling; C is split, in whole BK steps, until the output tiles give
+    every SM a CTA and 8 warps (or one step per slice)."""
+    return fit_plan(K, T, C, batch, ceiling(variant), TILE_M, TILE_N)
 
 
-def _inverse_transform(M: torch.Tensor, AT: torch.Tensor, th: int, tw: int,
-                       oh: int, ow: int) -> torch.Tensor:
-    """(N, n², K, T) point-GEMM output -> (N, K, oh, ow)."""
-    N, _, K, _ = M.shape
-    n, m = AT.shape[1], AT.shape[0]
-    M = M.reshape(N, n, n, K, th, tw)
-    Y = torch.einsum("ap,npqkij,qm->nkiajm", AT, M, AT.T)      # (N, K, th, m, tw, m)
-    return Y.reshape(N, K, th * m, tw * m)[:, :, :oh, :ow]
+def _weight_transform(w: torch.Tensor, m: int) -> torch.Tensor:
+    """w (K, C, 3, 3) -> U (n², K, C) = G w G^T, float32."""
+    w = w.float()
+    G = transform_matrices(m, w.dtype, w.device)[1]
+    K, C = w.shape[:2]
+    U = torch.einsum("ar,kcrs,sb->abkc", G, w, G.T)
+    return U.reshape((m + 2) ** 2, K, C).contiguous()
 
 
 def winograd_conv_batch(x: torch.Tensor, w: torch.Tensor, *, m: int = 2,
@@ -106,11 +80,14 @@ def winograd_conv_batch(x: torch.Tensor, w: torch.Tensor, *, m: int = 2,
                         residual=None, relu: bool = False) -> torch.Tensor:
     """x (N, C, H, W), w (K, C, 3, 3) -> (N, K, H-2, W-2), stride 1,
     F(mxm, 3x3). U is transformed once and shared; only V carries the batch."""
-    V, U, (th, tw), AT = _input_transforms(x, w, m)
-    bm, bk, bn = cta_tile(variant)
-    M = winograd_point_gemm_batch(U, V, bm=bm, bk=bk, bn=bn)   # (N, n², K, T)
-    y = _inverse_transform(M, AT, th, tw, x.shape[2] - 2, x.shape[3] - 2)
-    y = epilogue(y, bias, residual, relu, channel_axis=1)
+    N, C, H, W = x.shape
+    K, oh, ow = w.shape[0], H - 2, W - 2
+    V = winograd_input_transform(x.float().contiguous(), m)   # (N, n², C, T)
+    U = _weight_transform(w, m)
+    bm, bn, bk, split = cta_plan(K, V.shape[-1], C, N * U.shape[0], variant)
+    M = winograd_point_gemm_batch(U, V, bm=bm, bk=bk, bn=bn, split_k=split)
+    y = winograd_inverse_transform(M, m, oh, ow, bias=bias, residual=residual,
+                                   relu=relu)
     return y.to(x.dtype)
 
 
@@ -120,11 +97,15 @@ def winograd_conv(x: torch.Tensor, w: torch.Tensor, *, m: int = 2,
     """x (C, H, W), w (K, C, 3, 3) -> (K, H-2, W-2), stride 1, F(mxm, 3x3),
     through the single-image point-GEMM kernel. ``bias`` is (K,),
     ``residual`` is (K, H-2, W-2)."""
-    V, U, (th, tw), AT = _input_transforms(x[None], w, m)
-    bm, bk, bn = cta_tile(variant)
-    M = winograd_point_gemm(U, V[0], bm=bm, bk=bk, bn=bn)      # (n², K, T)
-    y = _inverse_transform(M[None], AT, th, tw, x.shape[1] - 2, x.shape[2] - 2)[0]
-    y = epilogue(y, bias, residual, relu, channel_axis=0)
+    C, H, W = x.shape
+    K, oh, ow = w.shape[0], H - 2, W - 2
+    V = winograd_input_transform(x.float().contiguous()[None], m)[0]
+    U = _weight_transform(w, m)
+    bm, bn, bk, split = cta_plan(K, V.shape[-1], C, U.shape[0], variant)
+    M = winograd_point_gemm(U, V, bm=bm, bk=bk, bn=bn, split_k=split)
+    y = winograd_inverse_transform(
+        M[None], m, oh, ow, bias=bias,
+        residual=None if residual is None else residual[None], relu=relu)[0]
     return y.to(x.dtype)
 
 

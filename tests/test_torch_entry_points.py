@@ -195,6 +195,32 @@ def test_winograd_conv_m4_with_epilogue(variant, rng):
     np.testing.assert_allclose(gotb.numpy(), np.asarray(wantb), **WINO_TOL)
 
 
+@pytest.mark.parametrize("m,H,W", [(2, 7, 11), (4, 11, 13)])
+@pytest.mark.parametrize("variant,bias,res,relu", [
+    (v, *e) for v, e in zip(itertools.cycle(sorted(JAX_WINO_VARIANTS)
+                                            + ["mm-256x256x256"]), EPILOGUES)])
+def test_winograd_conv_epilogues_c70_odd_t(m, H, W, variant, bias, res, relu, rng):
+    """Batched and single-image Winograd convs, every bias / residual / ReLU
+    combination, against the reference's ``winograd_conv_batch`` /
+    ``winograd_conv``: C = 70 (no multiple of 4 or of a channel step) and an
+    odd, ragged tile count (T = 15 at F(2x2), 9 at F(4x4))."""
+    N, C, K = 2, 70, 12
+    x, w = _np(rng, N, C, H, W), _np(rng, K, C, 3, 3, scale=(C * 9) ** -0.5)
+    b = _np(rng, K) if bias else None
+    r = _np(rng, N, K, H - 2, W - 2) if res else None
+    wantb = jax_wino_conv_batch(jnp.asarray(x), jnp.asarray(w), m=m, bias=_j(b),
+                                residual=_j(r), relu=relu, interpret=True)
+    gotb = winograd_conv_batch(_t(x), _t(w), m=m, variant=variant, bias=_t(b),
+                               residual=_t(r), relu=relu)
+    np.testing.assert_allclose(gotb.numpy(), np.asarray(wantb), **WINO_TOL)
+    r1 = None if r is None else r[0]
+    want1 = jax_wino_conv(jnp.asarray(x[0]), jnp.asarray(w), m=m, bias=_j(b),
+                          residual=_j(r1), relu=relu, interpret=True)
+    got1 = winograd_conv(_t(x[0]), _t(w), m=m, variant=variant, bias=_t(b),
+                         residual=_t(r1), relu=relu)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), **WINO_TOL)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention_op (reference: kernels/flash_attention/flash_attention.py:62,
 # ops.py:23)

@@ -32,11 +32,14 @@ from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_M, TILE_N, matmul,
                                                matmul_plain)
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
 from repro_torch.kernels.matmul.ops import cta_plan, matmul_batch_op, matmul_op
+from repro_torch.kernels.winograd import winograd as wino_mod
 from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
-from repro_torch.kernels.winograd.ops import MM_CTA_TILES as WINO_MM_TILES
-from repro_torch.kernels.winograd.ops import winograd_conv
+from repro_torch.kernels.winograd.ops import cta_plan as wino_cta_plan
+from repro_torch.kernels.winograd.ops import winograd_conv, winograd_conv_batch
 from repro_torch.kernels.winograd.ref import conv3x3_ref
 from repro_torch.kernels.winograd.winograd import (
+    winograd_input_transform, winograd_input_transform_plain,
+    winograd_inverse_transform, winograd_inverse_transform_plain,
     winograd_point_gemm, winograd_point_gemm_batch,
     winograd_point_gemm_batch_plain, winograd_point_gemm_plain)
 
@@ -89,16 +92,18 @@ def test_gpu_conv_kernel_vs_plain(variant, cfg, cuda):
         torch.testing.assert_close(got, want, **GEMM_TOL)
 
 
-@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(WINO_MM_TILES))
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(MM_TILES))
 def test_gpu_point_gemm_kernel_vs_plain(variant, cuda):
-    from repro_torch.kernels.winograd.ops import cta_tile
+    """Each variant's plan at two ragged shapes (K, C, T no multiple of any
+    tile; C = 70 takes 4-byte copies of U), and the same tile split."""
     gen = torch.Generator().manual_seed(0)
-    bm, bk, bn = cta_tile(variant)
     for (N, P, K, C, T) in [(2, 16, 60, 48, 75), (3, 36, 130, 70, 9)]:
         u, v = _cuda_rand(gen, P, K, C, scale=C ** -0.5), _cuda_rand(gen, N, P, C, T)
-        got = winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn)
-        torch.testing.assert_close(got, winograd_point_gemm_batch_plain(u, v),
-                                   **GEMM_TOL)
+        bm, bn, bk, split = wino_cta_plan(K, T, C, N * P, variant)
+        for sk in {split, 2}:
+            got = winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn, split_k=sk)
+            torch.testing.assert_close(got, winograd_point_gemm_batch_plain(u, v),
+                                       **GEMM_TOL)
 
 
 @pytest.mark.parametrize("variant", sorted(MM_TILES))
@@ -357,25 +362,176 @@ def test_gpu_conv_deterministic(cuda):
         assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(WINO_MM_TILES))
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + sorted(MM_TILES))
 def test_gpu_point_gemm_single_kernel_vs_plain(variant, cuda):
-    from repro_torch.kernels.winograd.ops import cta_tile
     gen = torch.Generator().manual_seed(0)
-    bm, bk, bn = cta_tile(variant)
     for (P, K, C, T) in [(16, 60, 48, 75), (36, 130, 70, 9)]:
         u, v = _cuda_rand(gen, P, K, C, scale=C ** -0.5), _cuda_rand(gen, P, C, T)
-        got = winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn)
-        torch.testing.assert_close(got, winograd_point_gemm_plain(u, v), **GEMM_TOL)
+        bm, bn, bk, split = wino_cta_plan(K, T, C, P, variant)
+        for sk in {split, 2}:
+            got = winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn, split_k=sk)
+            torch.testing.assert_close(got, winograd_point_gemm_plain(u, v),
+                                       **GEMM_TOL)
+
+
+# Every conv the kernel-mix assignment routes through Winograd, (C, H, K, m,
+# variant), H the actual input size: resnet18's 13 3x3 stride-1 convs, then
+# edge_cnn's 9
+WINO_CONVS = [(64, 109, 64, 4, "mm-128x128x128"), (64, 107, 64, 2, "wino-128x128"),
+              (64, 105, 64, 2, "wino-128x128"), (64, 103, 64, 2, "wino-128x128"),
+              (128, 50, 128, 2, "wino-128x128"), (128, 48, 128, 2, "wino-128x128"),
+              (128, 46, 128, 2, "wino-128x128"), (256, 21, 256, 2, "wino-128x128"),
+              (256, 19, 256, 2, "wino-128x128"), (256, 17, 256, 2, "wino-128x128"),
+              (512, 7, 512, 2, "wino-128x128"), (512, 5, 512, 2, "wino-128x128"),
+              (512, 3, 512, 2, "wino-128x128"),
+              (3, 32, 16, 4, "mm-128x128x128"), (16, 30, 32, 2, "wino-128x128"),
+              (32, 28, 16, 2, "wino-128x128"), (32, 26, 32, 2, "wino-128x128"),
+              (32, 24, 32, 2, "wino-128x128"), (48, 10, 48, 2, "wino-128x128"),
+              (48, 8, 64, 2, "wino-128x128"), (128, 6, 64, 2, "wino-128x128"),
+              (64, 4, 96, 2, "wino-128x128")]
+
+
+@pytest.mark.parametrize("sig", WINO_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_gpu_point_gemm_served_signatures(sig, cuda):
+    """Each Winograd conv's point-GEMM under its variant's plan, at b=8
+    (batched, as served) and on one image (single, as the entry point runs
+    it); one launch count per call."""
+    gen = torch.Generator().manual_seed(0)
+    C, H, K, m, variant = sig
+    P, T = (m + 2) ** 2, wino_mod.tiles_of(H - 2, H - 2, m)[0] ** 2
+    u = _cuda_rand(gen, P, K, C, scale=C ** -0.5)
+    v = _cuda_rand(gen, 8, P, C, T)
+    bm, bn, bk, split = wino_cta_plan(K, T, C, 8 * P, variant)
+    before = common.LAUNCHES["winograd_point_gemm_batch"]
+    got = winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn, split_k=split)
+    assert common.LAUNCHES["winograd_point_gemm_batch"] == before + 1
+    torch.testing.assert_close(got, winograd_point_gemm_batch_plain(u, v), **GEMM_TOL)
+    bm, bn, bk, split = wino_cta_plan(K, T, C, P, variant)
+    got = winograd_point_gemm(u, v[0], bm=bm, bk=bk, bn=bn, split_k=split)
+    torch.testing.assert_close(got, winograd_point_gemm_plain(u, v[0]), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("bm", wino_mod.TILE_M)
+@pytest.mark.parametrize("bn", wino_mod.TILE_N)
+@pytest.mark.parametrize("bk", wino_mod.TILE_K)
+def test_gpu_point_gemm_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every tile csrc/winograd.cu instantiates, unsplit and split, batched
+    and on one image: T = 1 with a ragged C (the last layers), odd T with C
+    = 70 and C = 3 (4-byte copies of U), and K, C, T % 4 == 0."""
+    gen = torch.Generator().manual_seed(0)
+    for N, P, K, C, T in [(3, 16, 37, 70, 1), (2, 36, 21, 3, 25), (2, 16, 130, 72, 45),
+                          (2, 16, 64, 96, 128)]:
+        u, v = _cuda_rand(gen, P, K, C, scale=C ** -0.5), _cuda_rand(gen, N, P, C, T)
+        for split in (1, min(3, -(-C // bk))):
+            got = winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn, split_k=split)
+            torch.testing.assert_close(got, winograd_point_gemm_batch_plain(u, v),
+                                       **GEMM_TOL)
+            got = winograd_point_gemm(u, v[1], bm=bm, bk=bk, bn=bn, split_k=split)
+            torch.testing.assert_close(got, winograd_point_gemm_plain(u, v[1]),
+                                       **GEMM_TOL)
+
+
+def test_gpu_point_gemm_deterministic(cuda):
+    """Two calls on the same inputs give bit-identical outputs, split (the
+    512-channel layers on one image, a forced split) and unsplit."""
+    gen = torch.Generator().manual_seed(0)
+    u = _cuda_rand(gen, 16, 512, 512, scale=512 ** -0.5)
+    v1, vb = _cuda_rand(gen, 16, 512, 1), _cuda_rand(gen, 8, 16, 512, 9)
+    assert wino_cta_plan(512, 1, 512, 16, "wino-128x128")[3] > 1
+    calls = [lambda: winograd_point_gemm(u, v1, bm=64, bk=16, bn=8, split_k=6),
+             lambda: winograd_point_gemm_batch(u, vb, bm=64, bk=16, bn=32, split_k=5),
+             lambda: winograd_point_gemm_batch(u, vb, bm=128, bk=32, bn=32)]
+    for call in calls:
+        first, second = call(), call()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 5, 9, 12), (3, 70, 13, 8), (1, 4, 3, 3),
+                                   (8, 64, 109, 109)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gpu_winograd_transforms_vs_plain(m, shape, cuda):
+    """Both transform kernels against their plain versions: ragged bottom and
+    right edges (H - 2, W - 2 no multiple of m), a single tile, resnet18's
+    first stage at b=8; the inverse under every epilogue combination. The
+    operands are scaled so that the outputs are unit-scale, as the GEMM
+    tests scale theirs: a transform multiplies an element's variance by up
+    to the largest squared row norm of its matrix, squared (B^T: 2 at
+    F(2x2), 42 at F(4x4); A^T: 3 and 131)."""
+    from repro_torch.primitives.conv import _WINO_SETS
+    AT, _, BT = _WINO_SETS[(m, 3)]
+    gain = lambda a: float((a ** 2).sum(1).max())     # noqa: E731
+    gen = torch.Generator().manual_seed(0)
+    N, C, H, W = shape
+    x = _cuda_rand(gen, N, C, H, W, scale=1 / gain(BT))
+    before = common.LAUNCHES["winograd_input_transform"]
+    V = winograd_input_transform(x, m)
+    assert common.LAUNCHES["winograd_input_transform"] == before + 1
+    torch.testing.assert_close(V, winograd_input_transform_plain(x, m), **GEMM_TOL)
+    oh, ow = H - 2, W - 2
+    K = min(C, 32)
+    M = _cuda_rand(gen, N, (m + 2) ** 2, K, V.shape[3], scale=1 / gain(AT))
+    b, r = _cuda_rand(gen, K), _cuda_rand(gen, N, K, oh, ow)
+    for hb, hr, relu in EPILOGUES:
+        ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+        before = common.LAUNCHES["winograd_inverse_transform"]
+        got = winograd_inverse_transform(M, m, oh, ow, **ep)
+        assert common.LAUNCHES["winograd_inverse_transform"] == before + 1
+        torch.testing.assert_close(got, winograd_inverse_transform_plain(M, m, oh, ow, **ep),
+                                   **GEMM_TOL)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_gpu_winograd_transforms_as_exact_as_plain(m, cuda):
+    """At unit-scale inputs, where F(4x4)'s large matrix entries amplify the
+    rounding of any sum order: each transform kernel is no further from the
+    float64 result than twice its plain version's distance from it."""
+    gen = torch.Generator().manual_seed(0)
+    x = _cuda_rand(gen, 4, 16, 37, 29)
+    oh, ow = 35, 27
+    M = _cuda_rand(gen, 4, (m + 2) ** 2, 16, -(-oh // m) * -(-ow // m))
+    pairs = [(winograd_input_transform(x, m), winograd_input_transform_plain(x, m),
+              winograd_input_transform_plain(x.double(), m)),
+             (winograd_inverse_transform(M, m, oh, ow),
+              winograd_inverse_transform_plain(M, m, oh, ow),
+              winograd_inverse_transform_plain(M.double(), m, oh, ow))]
+    for got, plain, exact in pairs:
+        err = (got.double() - exact).abs().max().item()
+        assert err <= 2 * (plain.double() - exact).abs().max().item() + 1e-6
+
+
+WINO_COUNTERS = ("winograd_input_transform", "winograd_inverse_transform")
 
 
 @pytest.mark.parametrize("m", [2, 4])
 def test_gpu_winograd_conv_single_vs_conv(m, cuda):
+    """The single-image Winograd conv against ``F.conv2d`` (TF32 off), with
+    each of its three kernels launched once."""
     gen = torch.Generator().manual_seed(0)
     x, w = _cuda_rand(gen, 16, 30, 31), _cuda_rand(gen, 24, 16, 3, 3, scale=(16 * 9) ** -0.5)
-    before = common.LAUNCHES["winograd_point_gemm"]
+    names = ("winograd_point_gemm", *WINO_COUNTERS)
+    before = {k: common.LAUNCHES[k] for k in names}
     got = winograd_conv(x, w, m=m, variant="wino-128x128")
-    assert common.LAUNCHES["winograd_point_gemm"] == before + 1
+    assert all(common.LAUNCHES[k] == before[k] + 1 for k in names)
     torch.testing.assert_close(got, conv3x3_ref(x, w), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("variant", sorted(WINO_TILES) + ["mm-256x256x256"])
+def test_gpu_winograd_conv_batch_vs_conv(m, variant, cuda):
+    """The batched Winograd conv with bias, residual and ReLU against
+    ``F.conv2d`` and the same epilogue (TF32 off), C = 70 and a ragged tile
+    grid, with each of its three kernels launched once."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(0)
+    x, w = _cuda_rand(gen, 3, 70, 17, 23), _cuda_rand(gen, 40, 70, 3, 3, scale=(70 * 9) ** -0.5)
+    b, r = _cuda_rand(gen, 40), _cuda_rand(gen, 3, 40, 15, 21)
+    names = ("winograd_point_gemm_batch", *WINO_COUNTERS)
+    before = {k: common.LAUNCHES[k] for k in names}
+    got = winograd_conv_batch(x, w, m=m, variant=variant, bias=b, residual=r, relu=True)
+    assert all(common.LAUNCHES[k] == before[k] + 1 for k in names)
+    want = torch.relu(F.conv2d(x, w) + b[None, :, None, None] + r)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -1,4 +1,5 @@
-"""The port's three kernels against the reference's Pallas kernels.
+"""The port's three served GEMM kernels against the reference's Pallas kernels,
+and its Winograd transforms against B^T d B and A^T M A of each tile.
 
 On the CPU each wrapper computes its plain PyTorch version (its tensors lie
 on the CPU), so these tests hold the plain versions — and the wrappers'
@@ -40,8 +41,12 @@ from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
 from repro_torch.kernels.winograd.ops import CTA_TILES as WINO_TILES
 from repro_torch.kernels.winograd.ops import MM_CTA_TILES as WINO_MM_TILES
 from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
+from repro_torch.kernels.winograd import winograd as wino_mod
+from repro_torch.kernels.winograd.ops import cta_plan as wino_cta_plan
 from repro_torch.kernels.winograd.ops import winograd_conv_batch
-from repro_torch.kernels.winograd.winograd import winograd_point_gemm_batch
+from repro_torch.kernels.winograd.winograd import (
+    winograd_input_transform, winograd_inverse_transform, winograd_point_gemm,
+    winograd_point_gemm_batch)
 
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)
 WINO_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -69,10 +74,10 @@ def test_variant_keys_match_reference():
     from repro.kernels.im2col_gemm.ops import VARIANTS as JAX_CONV
     from repro.kernels.winograd.ops import VARIANTS as JAX_WINO
     assert CONV_VARIANTS == JAX_CONV and WINO_VARIANTS == JAX_WINO
-    # every key maps to a tile the CUDA launchers instantiate: gemm_tile.cuh's
-    # for the Winograd kernels, matmul.cu's and im2col_gemm.cu's for the
-    # matmul and conv ceilings
-    legal = {(bm, bk, bn) for bm in (64, 128) for bk in (8, 16) for bn in (64, 128)}
+    # every key's ceiling is a tile its CUDA launcher instantiates:
+    # matmul.cu's, im2col_gemm.cu's and winograd.cu's
+    legal = set(itertools.product(wino_mod.TILE_M, wino_mod.TILE_K,
+                                  wino_mod.TILE_N))
     mm_legal = set(itertools.product(TILE_M, TILE_K, TILE_N))
     conv_legal = set(itertools.product(conv_mod.TILE_M, conv_mod.TILE_K,
                                        conv_mod.TILE_N))
@@ -240,15 +245,15 @@ def test_matmul_tiles_match_the_cuda_instantiations():
 
 
 def test_winograd_mm_tiles_pinned():
-    """The Winograd point-GEMM's mm-* tiles are its own (BM, BK, BN) rows,
-    independent of the matmul kernel's plan rule."""
-    assert WINO_MM_TILES == {
-        "mm-128x128x128": (64, 8, 64), "mm-256x128x128": (128, 8, 64),
-        "mm-128x128x256": (64, 8, 128), "mm-256x128x256": (128, 8, 128),
-        "mm-512x128x128": (128, 8, 64), "mm-128x256x128": (64, 16, 64),
-        "mm-256x256x256": (128, 16, 128), "mm-512x256x256": (128, 16, 128)}
-    from repro_torch.kernels.winograd.ops import cta_tile
-    assert all(cta_tile(v) == WINO_MM_TILES[v] for v in MM_VARIANTS)
+    """mm-* on a Winograd base takes the matmul kernel's ceilings: one table,
+    ``kernels/matmul/ops.CTA_TILES``, for both templates; wino-* keep their
+    own three ceilings (the TPU (bk, bt) blocks halved, channel depth 16)."""
+    from repro_torch.kernels.winograd.ops import ceiling
+    assert WINO_MM_TILES is MM_TILES
+    assert all(ceiling(v) == MM_TILES[v] for v in MM_VARIANTS)
+    assert WINO_TILES == {"wino-128x128": (64, 16, 64), "wino-256x128": (128, 16, 64),
+                          "wino-128x256": (64, 16, 128)}
+    assert all(ceiling(v) == WINO_TILES[v] for v in WINO_VARIANTS)
 
 
 # ---------------------------------------------------------------------------
@@ -468,3 +473,184 @@ def test_winograd_conv_batch(m, variant, rng):
     plain = np.maximum(np.asarray(jax_conv_ref(jnp.asarray(x), jnp.asarray(w), 1))
                        + b[:, None, None] + r, 0.0)
     np.testing.assert_allclose(got.numpy(), plain, **WINO_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Winograd launch plans (kernels/winograd/ops.py cta_plan) and transforms
+# ---------------------------------------------------------------------------
+
+def _winograd_signatures(net):
+    """(name, C, H, K, m, variant) of every conv the kernel-mix assignment
+    routes through a Winograd column on ``net``, H the actual input size."""
+    import importlib.util
+    from repro_torch.models import cnn_zoo
+    from repro_torch.models.cnn_zoo import ConvLayer
+    from repro_torch.primitives.conv import REGISTRY, split_tile
+    from repro_torch.primitives.plan import producers, spatial_sizes, topo_order
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    zoo = cnn_zoo.get(net)
+    asg = smoke.kernel_mix_assignment(zoo)
+    size, prods = spatial_sizes(zoo), producers(zoo)
+    out = []
+    for i in topo_order(zoo):
+        node = zoo.nodes[i]
+        if not isinstance(node, ConvLayer):
+            continue
+        base, variant = split_tile(asg[i])
+        if REGISTRY[base].family != "wino3":
+            continue
+        H = size[prods[i][0]] if prods[i] else node.im
+        out.append((node.name, node.c, H, node.k,
+                    int(REGISTRY[base].traits["tile_m"]), variant))
+    return out
+
+
+@pytest.mark.parametrize("net", ["resnet18", "edge_cnn"])
+def test_winograd_cta_plan_rule(net):
+    """At every Winograd signature of the net's kernel-mix path, served at
+    b=8 and on one image, under its own variant and every other key: the
+    plan is an instantiated tile, ``check_plan`` accepts its split, BM and
+    BN are the smallest instantiated sizes covering K and T under the
+    ceiling, and K, T, C do not fit a C int only if refused."""
+    from repro_torch.kernels.common import check_plan
+    from repro_torch.kernels.winograd.ops import ceiling
+    sigs = _winograd_signatures(net)
+    assert {m for *_, m, _ in sigs} == {2, 4}
+    assert net != "resnet18" or len(sigs) == 13
+    for _, C, H, K, m, variant in sigs:
+        th = -(-(H - 2) // m)
+        for batch in (8, 1):
+            for v in sorted({variant} | set(WINO_VARIANTS) | set(MM_VARIANTS)):
+                bm, bn, bk, split = wino_cta_plan(K, th * th, C, batch * (m + 2) ** 2, v)
+                cm, ck, cn = ceiling(v)
+                assert bk == ck and bk in wino_mod.TILE_K
+                assert bm == min(t for t in wino_mod.TILE_M if t >= min(K, cm))
+                assert bn == min(t for t in wino_mod.TILE_N if t >= min(th * th, cn))
+                check_plan("winograd_point_gemm_batch", C, bm, bk, bn, split,
+                           wino_mod.TILE_M, wino_mod.TILE_K, wino_mod.TILE_N)
+                assert smem_bytes(bm, bn, bk) <= 232448
+
+
+def test_winograd_cta_plan_is_the_ceiling_where_the_card_fills():
+    """On a shape whose ceiling tiles fill the card (resnet18's stage-1
+    layer at b=8, F(2x2): 16 points x 8 images of 64 x 2,809) the plan is
+    the ceiling with no split; the 512-channel layers at T = 1 (BN = 8) and
+    edge_cnn's last layer on one image split C."""
+    from repro_torch.kernels.winograd.ops import ceiling
+    for v in sorted(set(WINO_VARIANTS) | set(MM_VARIANTS)):
+        bm, bn, bk, split = wino_cta_plan(512, 2809, 512, 8 * 16, v)
+        assert (bm, bk, bn) == ceiling(v) and split == 1
+    assert wino_cta_plan(64, 2809, 64, 8 * 16, "wino-128x128") == (64, 64, 16, 1)
+    assert wino_cta_plan(512, 1, 512, 16, "wino-128x128") == (64, 8, 16, 6)
+    assert wino_cta_plan(96, 1, 64, 16, "wino-128x128") == (64, 8, 16, 4)
+
+
+def test_winograd_tiles_match_the_cuda_instantiations():
+    """winograd's TILE_M x TILE_N x TILE_K is what csrc/winograd.cu
+    instantiates (RT_FOR_EACH_WINO_TILE), no more tiles than matmul.cu."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "winograd.cu").read_text()
+    def body(name):            # a macro's definition, continuation lines too
+        return re.search(rf"#define {name}\(.*?\)((?:.*\\\n)*.*)", src).group(1)
+    bn, bm, bk = body("RT_WINO_BN"), body("RT_WINO_BM"), body("RT_FOR_EACH_WINO_TILE")
+    assert tuple(int(v) for v in re.findall(r"X\(BM, (\d+), BK\)", bn)) == wino_mod.TILE_N
+    assert tuple(int(v) for v in re.findall(r"RT_WINO_BN\(X, (\d+), BK\)", bm)) == wino_mod.TILE_M
+    assert tuple(int(v) for v in re.findall(r"RT_WINO_BM\(X, (\d+)\)", bk)) == wino_mod.TILE_K
+    n_tiles = len(wino_mod.TILE_M) * len(wino_mod.TILE_N) * len(wino_mod.TILE_K)
+    assert n_tiles <= len(TILE_M) * len(TILE_N) * len(TILE_K)
+
+
+def _wino_np(m):
+    """(A^T, B^T) of F(mxm, 3x3) as float64 numpy arrays."""
+    from repro.primitives.conv import _WINO_SETS as JAX_SETS
+    AT, _, BT = JAX_SETS[(m, 3)]
+    return np.asarray(AT, np.float64), np.asarray(BT, np.float64)
+
+
+@pytest.mark.parametrize("m,H,W", [(2, 9, 12), (2, 3, 3), (4, 11, 14), (4, 7, 6)])
+def test_winograd_input_transform_per_tile(m, H, W, rng):
+    """The plain input transform against B^T d B of each n x n window d at
+    stride m, in numpy float64, x zero past its ragged bottom and right
+    edges (the reference's pad)."""
+    AT, BT = _wino_np(m)
+    n = m + 2
+    N, C = 2, 3
+    x = _np(rng, N, C, H, W)
+    th, tw = -(-(H - 2) // m), -(-(W - 2) // m)
+    xp = np.zeros((N, C, (th - 1) * m + n, (tw - 1) * m + n))
+    xp[:, :, :H, :W] = x
+    got = winograd_input_transform(_t(x), m).numpy()
+    assert got.shape == (N, n * n, C, th * tw)
+    for i, j in itertools.product(range(th), range(tw)):
+        d = xp[:, :, i * m:i * m + n, j * m:j * m + n]
+        want = np.einsum("ap,ncpq,bq->ncab", BT, d, BT).reshape(N, C, n * n)
+        np.testing.assert_allclose(got[:, :, :, i * tw + j], want.transpose(0, 2, 1),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,oh,ow", [(2, 7, 10), (2, 1, 1), (4, 9, 12), (4, 5, 4)])
+@pytest.mark.parametrize("bias,res,relu", [(False, False, False), (True, True, True)])
+def test_winograd_inverse_transform_per_tile(m, oh, ow, bias, res, relu, rng):
+    """The plain inverse transform against A^T M A of each tile in numpy
+    float64, cropped at a ragged oh x ow, then bias -> residual -> ReLU."""
+    AT, _ = _wino_np(m)
+    n = m + 2
+    N, K = 2, 3
+    th, tw = -(-oh // m), -(-ow // m)
+    M = _np(rng, N, n * n, K, th * tw)
+    b = _np(rng, K) if bias else None
+    r = _np(rng, N, K, oh, ow) if res else None
+    got = winograd_inverse_transform(_t(M), m, oh, ow, bias=_t(b), residual=_t(r),
+                                     relu=relu).numpy()
+    full = np.zeros((N, K, th * m, tw * m))
+    for i, j in itertools.product(range(th), range(tw)):
+        blk = M[:, :, :, i * tw + j].reshape(N, n, n, K).astype(np.float64)
+        full[:, :, i * m:(i + 1) * m, j * m:(j + 1) * m] = np.einsum(
+            "ap,npqk,bq->nkab", AT, blk, AT)
+    want = full[:, :, :oh, :ow]
+    if bias:
+        want = want + b[:, None, None]
+    if res:
+        want = want + r
+    if relu:
+        want = np.maximum(want, 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_winograd_kernels_refuse_what_they_cannot_take():
+    """A plan the point-GEMM has not, an F(mxm) without a kernel, shapes
+    that do not match, and sizes past a C int are refused on any device."""
+    u, v = torch.zeros(16, 5, 40), torch.zeros(2, 16, 40, 7)
+    with pytest.raises(ValueError, match="instantiated"):
+        winograd_point_gemm_batch(u, v, bm=48)
+    with pytest.raises(ValueError, match="instantiated"):
+        winograd_point_gemm(u, v[0], bk=8)
+    with pytest.raises(ValueError, match="split_k"):
+        winograd_point_gemm_batch(u, v, split_k=4)          # 3 steps of 16
+    with pytest.raises(ValueError):
+        winograd_point_gemm_batch(u, v[0])
+    assert torch.equal(winograd_point_gemm_batch(u, v, split_k=3),
+                       winograd_point_gemm_batch(u, v))
+    x = torch.zeros(1, 2, 9, 9)
+    with pytest.raises(ValueError, match="F\\(3x3"):
+        winograd_input_transform(x, 3)
+    with pytest.raises(ValueError, match="smaller"):
+        winograd_input_transform(torch.zeros(1, 2, 2, 9), 2)
+    M = winograd_input_transform(x, 2)                      # (1, 16, 2, 16)
+    with pytest.raises(ValueError, match="not F"):
+        winograd_inverse_transform(M, 2, 10, 10)
+    with pytest.raises(ValueError, match="residual"):
+        winograd_inverse_transform(M, 2, 7, 7, residual=torch.zeros(1, 2, 7, 8))
+    meta = dict(device="meta")
+    big = 2 ** 31 + 5
+    with pytest.raises(ValueError, match="int32"):
+        winograd_point_gemm_batch(torch.empty(16, big, 1, **meta),
+                                  torch.empty(1, 16, 1, 1, **meta))
+    with pytest.raises(ValueError, match="threads=.*int32"):
+        winograd_input_transform(torch.empty(2 ** 12, 2 ** 12, 34, 34, **meta), 2)
+    with pytest.raises(ValueError, match="out=.*int32"):
+        winograd_inverse_transform(torch.empty(2 ** 10, 16, 2 ** 10, 1024, **meta),
+                                   2, 64, 64)
