@@ -39,7 +39,11 @@ two transforms too, flash attention). Phases, each of which asserts:
    head dim 64), causal. Each output is held to a kernel-free oracle
    (``F.conv2d``, or attention with the full score matrix); each kernel is
    then held to its plain version at every signature the paths gave it and
-   under every ``VARIANTS`` key at the largest, and timed as in phase 2.
+   under every ``VARIANTS`` key at the largest (flash attention: under
+   every instantiated tile, causal and not), and timed as in phase 2.
+   Flash attention is also timed under every tile on each of its paths,
+   and one head of its largest signature is held to a float64 result: the
+   kernel no further from it than twice the plain version.
    The two Winograd transforms are held and timed over the served and the
    entry paths together.
 
@@ -262,8 +266,8 @@ def main() -> int:
         path, t = (next(iter(r["passes"].items())) if k in ENTRY_KERNELS else
                    max(r["passes"].items(), key=lambda pt: pt[1]["bound_ms"]))
         timed_on = path if path in entry_paths else f"{path} b=8 forward"
-        extra = ({"oracle_max_abs_err": r["oracle_max_abs_err"]}
-                 if "oracle_max_abs_err" in r else {})
+        extra = {key: r[key] for key in ("oracle_max_abs_err", "float64_err",
+                                         "plain_float64_err") if key in r}
         rows.append({"name": k, "route": "cuda", "source": r["source"],
                      "replaces": r["replaces"],
                      "launches": sum(launches[p][k] for p in launches),
@@ -619,8 +623,7 @@ def kernel_table(torch):
     """Per kernel: source, replaced TPU kernel, the wrapper / plain / library
     callables over one signature's operands, and the signature's work."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_plain)
-    from repro_torch.kernels.flash_attention.ops import CTA_TILES as FA_TILES
+        TILES as FA_TILES, flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.im2col_gemm.im2col_gemm import (
         conv_im2col, conv_im2col_batch, conv_im2col_batch_plain,
@@ -796,6 +799,17 @@ def kernel_table(torch):
                 lambda: flash_attention_plain(q, k, v, causal=causal, scale=scale),
                 lambda: attention_ref(q, k, v, causal=causal, scale=scale))
 
+    def fa_exact(sig):
+        """One head of ``sig``: the kernel's and the plain version's largest
+        distance from the float64 result."""
+        _, sq, sk, d, causal, bq, bkv, scale = sig
+        q, k, v = rnd(1, sq, d), rnd(1, sk, d), rnd(1, sk, d)
+        exact = flash_attention_plain(q.double(), k.double(), v.double(),
+                                      causal=causal, scale=scale)
+        got = flash_attention(q, k, v, causal=causal, scale=scale, bq=bq, bkv=bkv)
+        plain = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return tuple(float((x.double() - exact).abs().max()) for x in (got, plain))
+
     def fa_work(sig):
         """Q K^T and P V over the (query, key) pairs the causal mask keeps,
         the work these inputs need (masked pairs need none)."""
@@ -856,9 +870,12 @@ def kernel_table(torch):
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",
-            ops=fa_ops, work=fa_work,
+            ops=fa_ops, work=fa_work, flops_s=TF32_FLOPS / 3,
             sweep=lambda s: [(*s[:4], c, *t, s[7]) for c in (True, False)
-                             for t in FA_TILES.values()]),
+                             for t in FA_TILES],
+            tiles=lambda s: {f"{bq}x{bkv}": (*s[:5], bq, bkv, s[7])
+                             for bq, bkv in FA_TILES},
+            exact=fa_exact),
     }
 
 
@@ -981,11 +998,28 @@ def check_and_time(torch, name, seen, passes, reps):
             fp32 = f", fp32 bound {bound32:.4f}" if tc else ""
             print(f"    {ms:.4f} ms (plain {plain_ms:.4f}, library "
                   f"{_ms(lib_ms)}, bound {bound:.4f}{fp32}) x{n} at {sig}")
+        if "tiles" in spec:          # every instantiated tile on this pass
+            times = {}
+            for sig, n in counts.items():
+                for tile, tsig in spec["tiles"](sig).items():
+                    times[tile] = times.get(tile, 0.0) + n * time_ms(
+                        torch, spec["ops"](tsig)[0], reps)
+            print(f"{name}: one pass of {path} per tile: " + ", ".join(
+                f"{tile} {ms:.4f}" for tile, ms in times.items()) + " ms",
+                  flush=True)
+    extra = {}
+    if "exact" in spec:              # distance from a float64 result
+        got_err, plain_err = spec["exact"](largest)
+        print(f"{name}: one head at {largest}: max |kernel - float64| "
+              f"{got_err:.3g}, max |plain - float64| {plain_err:.3g} "
+              f"({got_err / plain_err:.2f}x)", flush=True)
+        assert got_err <= 2 * plain_err, (name, got_err, plain_err)
+        extra = {"float64_err": got_err, "plain_float64_err": plain_err}
     common.reset_launches()          # the launches above were not the main path
     print(f"{name}: {len(seen)} main-path signatures + sweep hold to plain, "
           f"max |err| {worst:.3g}", flush=True)
     return {"source": spec["source"], "replaces": spec["replaces"],
-            "max_abs_err": worst, "passes": out}
+            "max_abs_err": worst, "passes": out, **extra}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 // Flash attention, fp32: O = softmax(scale * Q K^T [causal mask]) V over
-// (BH, S, d) tensors, one online-softmax pass over the keys per query block.
+// (BH, S, d) tensors, one online-softmax pass over the keys per query block,
+// both products on the tensor cores at fp32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention/flash_attention.py:62, body
@@ -11,63 +12,127 @@
 // KV step.
 //
 // On the H100 the blocks run in parallel, so the sequential KV axis becomes
-// a loop inside the CTA: one CTA of 256 threads per (bh, Q block), m, l and
-// the accumulator in registers for the whole loop, and a causal loop that
-// stops at the diagonal (the TPU kernel's `qi*bq + bq - 1 >= ki*bkv`) instead
-// of visiting the blocks past it. Per KV block the CTA
-//   1. stages K transposed in shared memory and computes the BQ x BKV score
-//      tile S = (scale Q) K^T, Q having been staged, pre-scaled, once;
-//   2. masks it (causal: query position >= key position, top-left aligned
-//      when Sq != Sk, as in the reference), takes the row max across the 16
-//      threads that share a row (warp shuffles), and rescales l and the
-//      accumulator by exp(m_old - m_new);
-//   3. writes P = exp(S - m_new) to shared memory, stages V in the buffer K
-//      used, and accumulates P V.
-// A masked score is NEG_INF, not -inf, so exp(NEG_INF - m) is exactly 0 once
-// m is finite; a row's first visited block always holds its key 0, so a row
-// that is fully masked inside a later block adds exactly 0. Keys past Sk
-// (a ragged last block) get p = 0 explicitly, and queries past Sq are never
-// stored: shapes need not divide the tile.
+// a loop inside the CTA: one CTA per (bh, Q block), the heaviest causal Q
+// blocks scheduled first, and a causal loop that stops at the diagonal (the
+// TPU kernel's `qi*bq + bq - 1 >= ki*bkv`) instead of visiting the blocks
+// past it. The work is split as in FlashAttention-2:
 //
-// Thread layout: thread (ty, tx) of a 16 x 16 grid owns
-// rows ty + 16 i of the tile and key columns (or head-dim columns of the
-// output) tx + 16 j. Shared memory rows are padded by one word so that the
-// transposing K store and the row reads hit distinct banks. The tile needs
-// (BQ (d+1) + max(d (BKV+1), BKV d) + BQ (BKV+1)) * 4 bytes of dynamic shared
-// memory: 83 KB at (64, 64, d=128), 198 KB at (128, 128, 128), under the
-// 227 KB a block may take.
+// - Each warp owns 16 query rows (one m16 tile): BQ = 64 takes 4 warps,
+//   BQ = 128 takes 8. Its scores S = (scale log2e Q) K^T for a block of BKV
+//   keys, and then P = exp2(S - m), stay in the mma accumulator registers;
+//   a row's max and sum reduce within the 4 lanes (a quad) that hold it, and
+//   the sum only once, at the end (each lane keeps a partial l).
+// - Q K^T and P V run on mma.sync.m16n8k8.tf32 with mma_tf32.cuh's 3xTF32
+//   split (split_tf32, then small*big + big*small + big*big). The tensor
+//   cores' sums round toward zero, so no accumulator runs long: each 16-wide
+//   slice of d in Q K^T is summed from zero in a fresh fragment and added to
+//   S with an fp32 add (one fragment over all of d = 128 drifted past twice
+//   the plain version's distance from a float64 result at S = 4,096), and
+//   each KV block's P V (four 8-wide d columns at a time) is summed from
+//   zero and folded into the running output by one fp32 fma,
+//   acc * corr + part, which rounds to nearest.
+// - P needs no move from the C-fragment layout to the A-fragment layout of
+//   the P V mma: the 8 keys of a k-step are taken in the order 0 2 4 6 1 3
+//   5 7, so A's columns t and t + 4 are keys 2t and 2t + 1, which are the
+//   two columns the lane already holds (c0, c1 of row g; c2, c3 of row
+//   g + 8). V's fragment is read in the same key order: rows 2t and 2t + 1.
+// - Q is staged once by cp.async, then multiplied by scale * log2e (so the
+//   softmax takes exp2) and split once in shared memory, big in place and
+//   small beside it, where every KV block reads both. K and V are split in
+//   registers as their fragments are read. They stream through two
+//   shared-memory stages, one for K and one for V, filled by 16-byte
+//   cp.async copies: V of block j is copied while the warps compute
+//   Q K_j^T and its softmax, and K of block j + 1 while they compute P V_j.
+//   Two barriers per block; past a ragged Sq or Sk the copies zero-fill
+//   (the copy's source-size operand), so nothing is padded in device memory.
+// - Rows of Q, K and V in shared memory are padded to d + 4 words: the Q
+//   and K fragment reads (row g, column t) and the V reads (rows 2t and
+//   2t + 1, column g) of a warp hit 32 distinct banks.
+// - A warp whose 16 rows see no key of a block (past the causal diagonal, or
+//   past Sq) skips that block's products; only a block that crosses the
+//   diagonal or Sk is masked element by element.
 //
-// Bound: fp32 FMA outside the tensor cores (67 TFLOP/s at 700 W): a causal
-// pass over S keys does about 2 S^2 d FLOPs per head against 16 S d bytes of
-// q, k, v and o. This first version is plain shared-memory tiling with
-// scalar FMAs: no tensor cores (wgmma), no TMA / cp.async double buffering,
-// no split of the KV loop across CTAs. Those are later work.
+// A masked score is NEG_INF, not -inf, so exp2(NEG_INF - m) is exactly 0
+// once m is finite; a row's first block always holds its key 0, so m is
+// finite from then on. Keys past Sk are masked and their V rows are zero;
+// queries past Sq are never stored. No atomics and no split of the KV loop:
+// a call repeats bit for bit.
+//
+// The tile needs (2 BQ + 2 BKV) (d + 4) * 4 bytes of dynamic shared memory:
+// 101,376 B at (64, 32, d=128), so two 4-warp CTAs share an SM (the launch
+// bound lets each take 255 registers); 168,960 B at (128, 32, 128).
+// ops.cta_tile takes BKV = 32 at d = 128, where the O accumulator takes 64
+// registers a thread: S and its partial then fit beside it.
+//
+// Bound: a causal pass over S keys does about 2 S^2 d FLOPs per head
+// against 16 S d bytes of q, k, v and o: tensor-core bound, at the 3xTF32
+// rate (494.7 / 3 TFLOP/s at 700 W).
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float NEG_INF = -1e30f;   // the reference's mask value, not -inf
+using rt::tc::ceil_div;
+using rt::tc::cp_async16;
+using rt::tc::cp_async_commit;
+using rt::tc::cp_async_wait;
+using rt::tc::mma_tf32;
+using rt::tc::split_tf32;
 
-__host__ __device__ constexpr int smem_floats(int BQ, int BKV, int D) {
-  return BQ * (D + 1) + (D * (BKV + 1) > BKV * D ? D * (BKV + 1) : BKV * D) +
-         BQ * (BKV + 1);
+constexpr float NEG_INF = -1e30f;   // the reference's mask value, not -inf
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int BQ, int BKV, int D>
+struct FaTile {
+  static constexpr int kWarps = BQ / 16;        // 16 query rows a warp
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int LD = D + 4;              // stage row stride, floats
+  static constexpr int kSChunk = 16;            // d per fresh Q K^T partial
+  static constexpr int kSmemBytes = (2 * BQ + 2 * BKV) * LD * 4;
+  static_assert(BQ % 16 == 0 && BKV % 8 == 0 && D % 32 == 0, "mma granularity");
+  static_assert(kSmemBytes <= 232448, "tile exceeds the 227 KB a block may use");
+};
+
+// 2^x on the special-function unit; a result below 2^-126 flushes to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issue the 16-byte copies of rows [r0, r0 + ROWS) of a row-major (S, D)
+// matrix into a stage of row stride D + 4, zero past row S.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int S) {
+  constexpr int CH = D / 4;
+#pragma unroll
+  for (int i = 0; i < ceil_div(ROWS * CH, THREADS); ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    if (c >= ROWS * CH) break;
+    const int r = c / CH, j = (c % CH) * 4;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * (D + 4) + j, ok ? src + (long long)(r0 + r) * D + j : src,
+               ok ? 16 : 0);
+  }
 }
 
 template <int BQ, int BKV, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(FaTile<BQ, BKV, D>::kThreads, BQ == 64 ? 2 : 1)
 flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
              const float* __restrict__ V, float* __restrict__ O, int Sq,
-             int Sk, float scale, int causal) {
-  constexpr int TM = BQ / 16, TN = BKV / 16, TD = D / 16;
-  constexpr int QLD = D + 1, KLD = BKV + 1, PLD = BKV + 1;
-  constexpr int KV_FLOATS = D * KLD > BKV * D ? D * KLD : BKV * D;
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [BQ][QLD]   Q rows, pre-scaled
-  float* KVs = Qs + BQ * QLD;         // [D][KLD] K transposed, then [BKV][D] V
-  float* Ps = KVs + KV_FLOATS;        // [BQ][PLD]   probabilities
+             int Sk, float qscale, int causal) {
+  using T = FaTile<BQ, BKV, D>;
+  // G: output columns of 8 whose P V partials are summed at a time
+  constexpr int LD = T::LD, NS = BKV / 8, ND = D / 8, G = 4, SC = T::kSChunk;
+  extern __shared__ __align__(16) float smem[];
+  float* Qb = smem;                   // [BQ][LD]  Q rows: copied, then big
+  float* Qs = Qb + BQ * LD;           // [BQ][LD]  their small halves
+  float* Ks = Qs + BQ * LD;           // [BKV][LD] K rows of the current block
+  float* Vs = Ks + BKV * LD;          // [BKV][LD] V rows of the current block
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   // the heaviest causal Q blocks (the last ones) are scheduled first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const long long bh = blockIdx.y;
@@ -75,112 +140,195 @@ flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   O += bh * Sq * D;
   K += bh * Sk * D;
   V += bh * Sk * D;
-
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D, q = q0 + r;
-    Qs[r * QLD + d] = q < Sq ? Q[(long long)q * D + d] * scale : 0.f;
-  }
-
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = threadIdx.x / 32 * 16;           // warp's first tile row
+  const int row0 = q0 + wr + g, row1 = row0 + 8;  // this lane's two rows
 
   // keys at or past kv_end are masked for every query row of this block
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int blocks = (kv_end + BKV - 1) / BKV;
 
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();          // Q is staged; the last P V read KVs and Ps
-    for (int idx = tid; idx < BKV * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D, k = k0 + c;
-      KVs[d * KLD + c] = k < Sk ? K[(long long)k * D + d] : 0.f;
-    }
-    __syncthreads();
+  load_rows<BQ, D, T::kThreads>(Qb, Q, q0, Sq);
+  load_rows<BKV, D, T::kThreads>(Ks, K, 0, Sk);
+  cp_async_commit();
 
-    float s[TM][TN];
+  float acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[TM], b[TN];
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  // Q, once: each thread scales and splits the chunks it copied, big in
+  // place and small beside; the loop's first barrier shows them to all
+  cp_async_wait<0>();
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Qs[(ty + 16 * i) * QLD + d];
+  for (int i = 0; i < ceil_div(BQ * D / 4, T::kThreads); ++i) {
+    const int c = threadIdx.x + i * T::kThreads;
+    if (c >= BQ * D / 4) break;
+    const int at = c / (D / 4) * LD + c % (D / 4) * 4;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = KVs[d * KLD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c >= Sk || (causal && r < c)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const float p = c < Sk ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();          // every score is read: KVs may take V
-    for (int idx = tid; idx < BKV * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D, k = k0 + c;
-      KVs[c * D + d] = k < Sk ? V[(long long)k * D + d] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float a[TM], b[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Ps[(ty + 16 * i) * PLD + c];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) b[j] = KVs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TD; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      uint32_t big, small;
+      split_tf32(Qb[at + e] * qscale, big, small);
+      Qb[at + e] = __uint_as_float(big);
+      Qs[at + e] = __uint_as_float(small);
     }
   }
 
+  for (int j = 0; j < blocks; ++j) {
+    const int k0 = j * BKV;
+    cp_async_wait<0>();       // this thread's copies of K_j (and Q)
+    __syncthreads();          // everyone's; every warp is done with V_{j-1}
+    load_rows<BKV, D, T::kThreads>(Vs, V, k0, Sk);
+    cp_async_commit();        // V_j in flight during Q K_j^T
+
+    // does any of this warp's rows see a key of this block?
+    const bool live = q0 + wr < Sq && (!causal || k0 <= q0 + wr + 15);
+    float s[NS][4];
+    float corr0 = 1.f, corr1 = 1.f;
+    if (live) {
+      // S = (qscale Q) K_j^T, 3xTF32, each SC-wide slice of d summed from
+      // zero in a fresh fragment and added to S with an fp32 add
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+      for (int c0 = 0; c0 < D; c0 += SC) {
+        float part[NS][4];
 #pragma unroll
-    for (int j = 0; j < TD; ++j)
-      O[(long long)r * D + tx + 16 * j] = acc[i][j] / den;
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int kk = c0; kk < c0 + SC; kk += 8) {
+          const int qa = (wr + g) * LD + kk + t;
+          const uint32_t qb[4] = {
+              __float_as_uint(Qb[qa]), __float_as_uint(Qb[qa + 8 * LD]),
+              __float_as_uint(Qb[qa + 4]), __float_as_uint(Qb[qa + 8 * LD + 4])};
+          const uint32_t qs[4] = {
+              __float_as_uint(Qs[qa]), __float_as_uint(Qs[qa + 8 * LD]),
+              __float_as_uint(Qs[qa + 4]), __float_as_uint(Qs[qa + 8 * LD + 4])};
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            const float* kp = Ks + (n * 8 + g) * LD + kk + t;
+            uint32_t kb[2], ks[2];
+            split_tf32(kp[0], kb[0], ks[0]);
+            split_tf32(kp[4], kb[1], ks[1]);
+            mma_tf32(part[n], qs, kb);
+            mma_tf32(part[n], qb, ks);
+            mma_tf32(part[n], qb, kb);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = c0 == 0 ? part[n][e] : s[n][e] + part[n][e];
+      }
+      // mask only a block that crosses the causal diagonal or Sk
+      if (k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0 + wr)) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = k0 + n * 8 + 2 * t + (e & 1);
+            if (c >= Sk || (causal && c > (e < 2 ? row0 : row1)))
+              s[n][e] = NEG_INF;
+          }
+      }
+      // online softmax in the log2 domain; a row's 4 lanes form a quad
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      corr0 = exp2_approx(m0 - mn0);
+      corr1 = exp2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = exp2_approx(s[n][0] - mn0);
+        s[n][1] = exp2_approx(s[n][1] - mn0);
+        s[n][2] = exp2_approx(s[n][2] - mn1);
+        s[n][3] = exp2_approx(s[n][3] - mn1);
+        sum0 += s[n][0] + s[n][1];
+        sum1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * corr0 + sum0;   // this lane's columns; the quad sums at the end
+      l1 = l1 * corr1 + sum1;
+    }
+
+    cp_async_wait<0>();       // this thread's copies of V_j
+    __syncthreads();          // everyone's; every warp is done with K_j
+    if (j + 1 < blocks) load_rows<BKV, D, T::kThreads>(Ks, K, k0 + BKV, Sk);
+    cp_async_commit();        // K_{j+1} in flight during P V_j
+
+    if (live) {
+      // P as the A operand, keys in the order 0 2 4 6 1 3 5 7 of each k-step
+      uint32_t pb[NS][4], ps[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        split_tf32(s[n][0], pb[n][0], ps[n][0]);
+        split_tf32(s[n][2], pb[n][1], ps[n][1]);
+        split_tf32(s[n][1], pb[n][2], ps[n][2]);
+        split_tf32(s[n][3], pb[n][3], ps[n][3]);
+      }
+      // acc = acc * corr + P V_j, G output columns of 8 at a time, each
+      // block's products summed from zero
+#pragma unroll
+      for (int n0 = 0; n0 < ND; n0 += G) {
+        float part[G][4];
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk) {
+          const float* vp = Vs + (kk * 8 + 2 * t) * LD + n0 * 8 + g;
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            uint32_t vb[2], vs[2];
+            split_tf32(vp[i * 8], vb[0], vs[0]);
+            split_tf32(vp[LD + i * 8], vb[1], vs[1]);
+            mma_tf32(part[i], ps[kk], vb);
+            mma_tf32(part[i], pb[kk], vs);
+            mma_tf32(part[i], pb[kk], vb);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          acc[n0 + i][0] = fmaf(acc[n0 + i][0], corr0, part[i][0]);
+          acc[n0 + i][1] = fmaf(acc[n0 + i][1], corr0, part[i][1]);
+          acc[n0 + i][2] = fmaf(acc[n0 + i][2], corr1, part[i][2]);
+          acc[n0 + i][3] = fmaf(acc[n0 + i][3], corr1, part[i][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();         // only an empty group remains
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(O + (long long)row0 * D + c) =
+          make_float2(acc[n][0] / den0, acc[n][1] / den0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(O + (long long)row1 * D + c) =
+          make_float2(acc[n][2] / den1, acc[n][3] / den1);
   }
 }
 
@@ -188,28 +336,28 @@ template <int BQ, int BKV, int D>
 int launch_tile(const float* q, const float* k, const float* v, float* o,
                 int BH, int Sq, int Sk, float scale, int causal,
                 cudaStream_t stream) {
-  constexpr int bytes = smem_floats(BQ, BKV, D) * (int)sizeof(float);
-  static_assert(bytes <= 232448, "tile exceeds the 227 KB a block may use");
+  using T = FaTile<BQ, BKV, D>;
   // raise the dynamic shared memory cap above 48 KB once per instantiation,
   // at its first launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<BQ, BKV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      T::kSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_kernel<BQ, BKV, D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, Sq, Sk, scale, causal);
+  flash_kernel<BQ, BKV, D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      q, k, v, o, Sq, Sk, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Every (BQ, BKV) CTA tile ops.CTA_TILES names, at head dims 32, 64, 128.
-#define RT_FOR_EACH_FA_TILE(X, D) X(64, 64, D) X(64, 128, D) X(128, 64, D) X(128, 128, D)
+// Every (BQ, BKV) CTA tile the wrapper's TILES names, at head dims 32, 64, 128.
+#define RT_FOR_EACH_FA_TILE(X, D) X(64, 32, D) X(64, 64, D) X(128, 32, D) X(128, 64, D)
 
-// q (BH, Sq, d), k and v (BH, Sk, d) -> o (BH, Sq, d), fp32 contiguous; q is
-// multiplied by `scale` before Q K^T. Returns cudaGetLastError() after the
-// launch; an unknown tile or head dim returns cudaErrorInvalidValue.
+// q (BH, Sq, d), k and v (BH, Sk, d) -> o (BH, Sq, d), fp32 contiguous and
+// 16-byte aligned; q is multiplied by `scale` before Q K^T. Returns
+// cudaGetLastError() after the launch; an unknown tile or head dim returns
+// cudaErrorInvalidValue.
 extern "C" int rt_flash_attention_f32(const float* q, const float* k,
                                       const float* v, float* o, int BH, int Sq,
                                       int Sk, int d, int causal, int bq,

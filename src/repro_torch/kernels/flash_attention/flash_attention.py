@@ -3,11 +3,12 @@ Pallas kernel ``repro.kernels.flash_attention.flash_attention.flash_attention``.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors —
 one CTA per (bh, query block) walks the key blocks up to the causal
-diagonal with an online softmax, its running max, sum and output
-accumulator in fp32 registers — and computes ``flash_attention_plain`` (the
-full score matrix, masked, softmax, times V) for CPU tensors. The CTA tile
-``(bq, bkv)`` is a Hopper tile from ``ops.CTA_TILES``, not the TPU block;
-the kernel masks ragged edges, so the sequence lengths need not divide it.
+diagonal with an online softmax, Q K^T and P V on the tensor cores at fp32
+accuracy (3xTF32), scores, running max, sum and output accumulator in fp32
+registers — and computes ``flash_attention_plain`` (the full score matrix,
+masked, softmax, times V) for CPU tensors. The CTA tile ``(bq, bkv)`` is one
+of the Hopper tiles in ``TILES``, not the TPU block; the kernel masks ragged
+edges, so the sequence lengths need not divide it.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ from repro_torch.kernels.common import (bind, check_launch, count_launch,
 
 NEG_INF = -1e30                      # the reference's mask value
 HEAD_DIMS = (32, 64, 128)            # head dims the CUDA kernel instantiates
+# (BQ, BKV) CTA tiles the CUDA kernel instantiates: BQ / 16 warps of 16 query
+# rows each, BKV keys per step of the KV loop
+TILES = ((64, 32), (64, 64), (128, 32), (128, 64))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,7 +48,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH, Sq, d), k and v (BH, Sk, d) -> (BH, Sq, d) fp32, heads folded
     into the batch dim (GQA callers repeat the KV heads first). ``scale``
     defaults to 1/sqrt(d). The CTA tile covers ``bq`` queries by ``bkv``
-    keys; the kernel takes d in ``HEAD_DIMS``."""
+    keys, one of ``TILES``; the kernel takes d in ``HEAD_DIMS`` and
+    operands that start on a 16-byte boundary (its copies are 16 bytes)."""
     bh, sq, d = q.shape
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -55,6 +60,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: no kernel for head dim {d} "
                          f"(instantiated: {HEAD_DIMS})")
+    if (bq, bkv) not in TILES:
+        raise ValueError(f"flash_attention: ({bq}, {bkv}) is not an "
+                         f"instantiated tile {TILES}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: operands must start on a 16-byte "
+                         "boundary")
     sk = k.shape[1]
     out = torch.empty_like(q)
     fn = bind("flash_attention", "rt_flash_attention_f32", 4, 7, 1)

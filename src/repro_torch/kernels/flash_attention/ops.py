@@ -6,17 +6,26 @@ legal Hopper CTA tile.
 blocks are sized for many megabytes of VMEM: fp32 ``fa-128x128`` at d = 128
 needs 64 KB each for Q, K and V plus 64 KB for the score tile, over the
 227 KB of shared memory an H100 block may take, and ``fa-512x256`` is far
-past it. ``CTA_TILES`` maps each key with one rule — halve each block, cap
-at 128 — onto a (BQ, BKV) tile of ``csrc/flash_attention.cu`` (256
-threads). Its dynamic shared memory is (BQ (d+1) + max(d (BKV+1), BKV d) +
-BQ (BKV+1)) * 4 bytes, given here at the largest head dim, d = 128:
+past it. ``cta_tile(variant, d)`` maps each key and head dim by one rule
+onto a (BQ, BKV) tile of ``csrc/flash_attention.cu`` (BQ / 16 warps):
 
-    variant      TPU (bq, bkv)   Hopper CTA (BQ, BKV)   shared memory, d=128
-    fa-128x128   (128, 128)      ( 64,  64)              82,944 B
-    fa-128x256   (128, 256)      ( 64, 128)             132,096 B
-    fa-256x128   (256, 128)      (128,  64)             132,608 B
-    fa-256x256   (256, 256)      (128, 128)             198,144 B
-    fa-512x256   (512, 256)      (128, 128)  capped     198,144 B
+- BQ is half the TPU query block, capped at 128;
+- BKV is 4,096 / d keys, capped at 64: the KV step holds at most 4,096
+  elements of K and of V. It is set by the head dim, not by the TPU KV
+  block, because on the card the scores of a step live in registers
+  beside the d-wide output accumulator: at d = 128, BKV = 64 leaves too
+  few registers and runs slower than BKV = 32 (``chip_smoke.py`` times
+  every tile at each attention path; PERF.md).
+
+Dynamic shared memory: (2 BQ + 2 BKV) (d + 4) * 4 bytes (Q's two tf32
+halves, a K stage and a V stage, rows padded to d + 4 floats):
+
+    variant      TPU (bq, bkv)   d = 32, 64        d = 128           shared memory, d=64 / 128
+    fa-128x128   (128, 128)      ( 64, 64)         ( 64, 32)          69,632 / 101,376 B
+    fa-128x256   (128, 256)      ( 64, 64)         ( 64, 32)          69,632 / 101,376 B
+    fa-256x128   (256, 128)      (128, 64)         (128, 32)         104,448 / 168,960 B
+    fa-256x256   (256, 256)      (128, 64)         (128, 32)         104,448 / 168,960 B
+    fa-512x256   (512, 256)      (128, 64) capped  (128, 32) capped  104,448 / 168,960 B
 
 As in the reference, the TPU block is first clamped to the sequence
 (``bq = min(bq, Sq)``, ``bkv = min(bkv, Sk)``) and must then divide it; the
@@ -39,21 +48,21 @@ VARIANTS: Dict[str, Tuple[int, int]] = {
     "fa-512x256": (512, 256),
 }
 
-# (BQ, BKV) Hopper CTA tile per variant — the table in the docstring
-CTA_TILES: Dict[str, Tuple[int, int]] = {
-    "fa-128x128": (64, 64),
-    "fa-128x256": (64, 128),
-    "fa-256x128": (128, 64),
-    "fa-256x256": (128, 128),
-    "fa-512x256": (128, 128),
-}
+KV_STEP_ELEMS = 4096        # K elements of one KV step, BKV * d, at most
+
+
+def cta_tile(variant: str, d: int) -> Tuple[int, int]:
+    """(BQ, BKV) Hopper CTA tile of ``variant`` at head dim ``d``: the rule
+    in the docstring."""
+    bq, _ = VARIANTS[variant]
+    return min(bq // 2, 128), min(64, KV_STEP_ELEMS // d)
 
 
 def flash_attention_op(q, k, v, causal: bool = True,
                        variant: str = "fa-128x128") -> torch.Tensor:
     """q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), GQA layout -> (B, Sq, H, hd).
     KV heads are repeated to the full H and the heads folded into the batch
-    dim for the kernel, under ``variant``'s CTA tile."""
+    dim for the kernel, under ``variant``'s CTA tile at this head dim."""
     B, Sq, Hq, d = q.shape
     Hkv = k.shape[2]
     if Hq != Hkv:
@@ -71,6 +80,6 @@ def flash_attention_op(q, k, v, causal: bool = True,
     if Sq % bq or Sk % bkv:
         raise ValueError(f"flash_attention_op: pad sequence to block multiples "
                          f"(Sq {Sq}, Sk {Sk}, {variant} blocks {bq}x{bkv})")
-    cq, ckv = CTA_TILES[variant]
+    cq, ckv = cta_tile(variant, d)
     out = flash_attention(qf, kf, vf, causal=causal, bq=cq, bkv=ckv)
     return out.reshape(B, Hq, Sq, d).transpose(1, 2)

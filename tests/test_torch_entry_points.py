@@ -33,8 +33,9 @@ from repro.kernels.winograd.ops import winograd_conv_batch_op as jax_wino_batch_
 from repro.kernels.winograd.ops import winograd_conv_op as jax_wino_op
 from repro.kernels.winograd.ref import conv3x3_ref as jax_conv3x3_ref
 from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention.flash_attention import TILES as FA_KERNEL_TILE_LIST
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import CTA_TILES as FA_TILES
+from repro_torch.kernels.flash_attention.ops import cta_tile as fa_cta_tile
 from repro_torch.kernels.flash_attention.ops import VARIANTS as FA_VARIANTS
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
@@ -49,15 +50,16 @@ from repro_torch.kernels.winograd.ref import conv3x3_ref
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)
 WINO_TOL = dict(rtol=1e-3, atol=1e-3)
 EPILOGUES = list(itertools.product((False, True), repeat=3))   # bias, res, relu
-# (BQ, BKV) tiles csrc/flash_attention.cu instantiates
-FA_KERNEL_TILES = {(64, 64), (64, 128), (128, 64), (128, 128)}
+# (BQ, BKV) tiles csrc/flash_attention.cu instantiates (RT_FOR_EACH_FA_TILE)
+FA_KERNEL_TILES = {(64, 32), (64, 64), (128, 32), (128, 64)}
 SMEM_PER_BLOCK = 232448                                          # 227 KB
 
 
 def smem_bytes(bq, bkv, d):
-    """Dynamic shared memory of one CTA of ``csrc/flash_attention.cu``: Q
-    (bq, d+1), the K^T / V buffer, P (bq, bkv+1), in fp32."""
-    return 4 * (bq * (d + 1) + max(d * (bkv + 1), bkv * d) + bq * (bkv + 1))
+    """Dynamic shared memory of one CTA of ``csrc/flash_attention.cu``: Q's
+    big and small tf32 halves (bq rows each), one K and one V stage (bkv
+    rows each), rows padded to d + 4 floats, in fp32."""
+    return 4 * (2 * bq + 2 * bkv) * (d + 4)
 
 
 def _np(rng, *shape, scale=1.0):
@@ -228,14 +230,25 @@ def test_winograd_conv_epilogues_c70_odd_t(m, H, W, variant, bias, res, relu, rn
 
 def test_fa_variants_and_tile_map():
     """The reference's five fa-* keys; each maps by the documented rule
-    (halve each block, cap 128) onto a tile the CUDA source instantiates
-    and that fits one block's shared memory at every head dim."""
-    assert FA_VARIANTS == JAX_FA_VARIANTS and set(FA_TILES) == set(FA_VARIANTS)
+    (BQ = half the TPU query block, capped at 128; BKV = 4,096 / d keys,
+    capped at 64) onto a tile the CUDA source instantiates and that fits one
+    block's shared memory at every head dim."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    macro = next(l for l in src.splitlines() if l.startswith("#define RT_FOR_EACH_FA_TILE"))
+    assert {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+), D\)", macro)} == FA_KERNEL_TILES
+    assert set(FA_KERNEL_TILE_LIST) == FA_KERNEL_TILES
+    assert FA_VARIANTS == JAX_FA_VARIANTS
+    mapped = set()
     for key, (bq, bkv) in FA_VARIANTS.items():
-        assert FA_TILES[key] == (min(bq // 2, 128), min(bkv // 2, 128))
-        assert FA_TILES[key] in FA_KERNEL_TILES
         for d in (32, 64, 128):
-            assert smem_bytes(*FA_TILES[key], d) <= SMEM_PER_BLOCK
+            tile = fa_cta_tile(key, d)
+            assert tile == (min(bq // 2, 128), min(64, 4096 // d))
+            assert tile in FA_KERNEL_TILES
+            assert smem_bytes(*tile, d) <= SMEM_PER_BLOCK
+            mapped.add(tile)
+    assert mapped == FA_KERNEL_TILES      # every instantiated tile is reached
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -370,3 +383,20 @@ def test_entry_point_phase_matches_reference(monkeypatch):
     assert seen == {"matmul_batch_op": 4, "conv_im2col_op": 4,
                     "winograd_conv_op": 2, "winograd_conv": 2,
                     "flash_attention_op": 2}
+
+
+def test_flash_attention_bound_at_the_3xtf32_rate():
+    """chip_smoke.py bounds the flash-attention kernel at the 3xTF32 rate
+    (it runs on the tensor cores) and prints the fp32-rate bound beside it:
+    for chatglm3_6b causal at S = 4,096 (32 heads, d = 128, the pairs the
+    mask keeps) 0.834 and 2.052 ms."""
+    smoke = _load_chip_smoke()
+    spec = smoke.kernel_table(torch)["flash_attention"]
+    assert spec["flops_s"] == smoke.TF32_FLOPS / 3
+    cfg = smoke.ATTENTION["chatglm3_6b_causal"]
+    sig = (cfg["heads"], cfg["seq"], cfg["seq"], cfg["head_dim"], True,
+           *fa_cta_tile("fa-128x128", cfg["head_dim"]), cfg["head_dim"] ** -0.5)
+    flops, nbytes = spec["work"](sig)
+    bound = max(flops / spec["flops_s"], nbytes / smoke.HBM_BYTES_S) * 1e3
+    bound32 = max(flops / smoke.FP32_FLOPS, nbytes / smoke.HBM_BYTES_S) * 1e3
+    assert round(bound, 3) == 0.834 and round(bound32, 3) == 2.052

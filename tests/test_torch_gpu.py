@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention.flash_attention import TILES as FA_KERNEL_TILES
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_plain)
-from repro_torch.kernels.flash_attention.ops import CTA_TILES as FA_TILES
+from repro_torch.kernels.flash_attention.ops import VARIANTS as FA_VARIANTS
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.im2col_gemm import im2col_gemm as conv_mod
 from repro_torch.kernels.im2col_gemm.im2col_gemm import (conv_im2col,
@@ -535,7 +536,7 @@ def test_gpu_winograd_conv_batch_vs_conv(m, variant, cuda):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("tile", sorted(set(FA_TILES.values())))
+@pytest.mark.parametrize("tile", FA_KERNEL_TILES)
 def test_gpu_flash_attention_kernel_vs_plain(tile, d, cuda):
     """Every CTA tile at every head dim: causal and not, a ragged sequence
     (not a multiple of any tile), and Sq != Sk both ways."""
@@ -549,7 +550,60 @@ def test_gpu_flash_attention_kernel_vs_plain(tile, d, cuda):
             torch.testing.assert_close(got, want, **GEMM_TOL)
 
 
-@pytest.mark.parametrize("variant", sorted(FA_TILES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tile", FA_KERNEL_TILES)
+def test_gpu_flash_attention_large_scores(tile, causal, cuda):
+    """Scores of large magnitude, where the running max moves by many units
+    from one KV block to the next and every block rescales the output:
+    inputs x4 at the default scale, and unit inputs at scale = 1."""
+    gen = torch.Generator().manual_seed(1)
+    bq, bkv = tile
+    q, k, v = (_cuda_rand(gen, 2, 300, 64) for _ in range(3))
+    for scale, x in ((None, 4.0), (1.0, 1.0)):
+        got = flash_attention(q * x, k * x, v, causal=causal, scale=scale,
+                              bq=bq, bkv=bkv)
+        want = flash_attention_plain(q * x, k * x, v, causal=causal, scale=scale)
+        torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_attention_as_exact_as_plain(causal, cuda):
+    """One head at S = 4,096, d = 128, where P V sums over every key: the
+    kernel is no further from the float64 result than twice its plain
+    version's distance from it (no drift from the tensor cores' truncating
+    adds over the long reduction)."""
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (_cuda_rand(gen, 1, 4096, 128) for _ in range(3))
+    exact = flash_attention_plain(q.double(), k.double(), v.double(), causal=causal)
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    for bq, bkv in FA_KERNEL_TILES:
+        got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+        err = (got.double() - exact).abs().max().item()
+        assert err <= 2 * (plain.double() - exact).abs().max().item() + 1e-7
+
+
+@pytest.mark.parametrize("tile", FA_KERNEL_TILES)
+def test_gpu_flash_attention_repeats_bit_for_bit(tile, cuda):
+    """No atomics and no split of the KV loop: a call repeats exactly."""
+    gen = torch.Generator().manual_seed(3)
+    bq, bkv = tile
+    q, k, v = (_cuda_rand(gen, 4, 1000, 128) for _ in range(3))
+    for causal in (True, False):
+        first = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+        assert torch.equal(flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv),
+                           first)
+
+
+def test_gpu_flash_attention_refuses_a_misaligned_operand(cuda):
+    """The kernel's copies are 16 bytes: an operand that starts elsewhere is
+    refused, not read out of line."""
+    q = torch.zeros(2 * 64 * 32 + 1, device="cuda")[1:].view(2, 64, 32)
+    k = torch.zeros(2, 64, 32, device="cuda")
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("variant", sorted(FA_VARIANTS))
 def test_gpu_flash_attention_op_gqa(variant, cuda):
     gen = torch.Generator().manual_seed(0)
     q = _cuda_rand(gen, 2, 256, 8, 64)
