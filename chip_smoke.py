@@ -46,6 +46,20 @@ two transforms too, flash attention). Phases, each of which asserts:
    kernel no further from it than twice the plain version.
    The two Winograd transforms are held and timed over the served and the
    entry paths together.
+6. The selection path, on a copy of ``artifacts/`` in a temporary
+   directory (``optimise`` stores selections; the repository is never
+   written): (a) the committed arm perf models (NN2 primitive model, linear
+   DLT model) warm-loaded onto the card and onto the CPU, their predictions
+   over the arm 60-triplet pool (1,014 x 49) and the DLT pool (161 x 6) held
+   to each other at rtol=2e-5, and one forward of each timed on the card;
+   (b) ``optimise("edge_cnn", "arm", executable=True)`` warm for models and
+   selection, with the committed assignment, then a cold selection for every
+   ``cnn_zoo.EXECUTABLE_NETS`` net on the card and on the CPU, required
+   equal; (c) the selected edge_cnn (bursts of 1, 3, 8) and resnet18 (224x224,
+   bursts of 8) plans registered in the phase-2 server and held to the
+   oracle, launching no hand-written kernel (the committed models price the
+   49 base primitives, which run plain torch); (d) ``reoptimise`` in factor
+   mode twice from one fresh sample, deterministic and equal to the CPU's.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -55,6 +69,7 @@ it. Each path's served img/s at b=8 follows, over several windows of
 back-to-back bursts so the spread shows, with the device-busy time of one
 burst under ``torch.profiler`` and the device ops that took most of it, by
 device event and by the CPU op that launched it.
+The selected paths of phase 6 are timed the same way.
 The last line of output is the ``{"ok": true, "device": ...}`` record.
 The script fails (non-zero exit, no result) without a CUDA device.
 """
@@ -63,9 +78,12 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import dataclasses
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from importlib import metadata
 from pathlib import Path
@@ -111,9 +129,17 @@ ATTENTION = {
 }
 ENTRY_BATCH = 8                           # matmul_batch_op: images per call
 
+# Phase 6: the committed arm model pair (artifacts/models/*/manifest.json) and
+# the edge_cnn selection stored under it, read as data
+ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
+EDGE_CNN_SELECTION = ARTIFACTS / "selections" / "cd7c5dc68f699685" / "data.json"
+OPTIMISE_ARGS = dict(max_triplets=60, max_iters=2000, executable=True)
+SELECT_BURSTS = {"edge_cnn": (1, 3, 8), "resnet18": (8,)}
+
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # fp32, unit-scale operands: sum order only
 ORACLE_TOL = dict(rtol=1e-3, atol=1e-3)   # against F.conv2d / Winograd vs direct conv
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)    # fp32 sum order compounding over ~20 layers
+PRED_TOL = dict(rtol=2e-5, atol=0.0)      # perf-model forward, card vs CPU, plain fp32
 LONG_CALL_MS, LONG_CALL_BUDGET_MS = 1.0, 200.0  # time_ms: eager above this
 RATE_WINDOWS, RATE_WINDOW_S = 5, 2.0      # served img/s: windows per path, seconds each
 TOP_DEVICE_OPS = 8                        # device ops listed per profiled burst
@@ -229,6 +255,10 @@ def main() -> int:
                                    {**per_pass[k], **entry_seen[k]}, args.reps)
     torch.cuda.synchronize()
 
+    # -- phase 6: the selection path, served -------------------------------
+    selection = selection_phase(torch, server, nets, weights, launches,
+                                serve_err, args.seed, rng, smi)
+
     rates = {name: images_per_s(server, nets[name], rng) for name in nets}
     busy = {name: device_busy(server, nets[name], rng) for name in nets}
 
@@ -279,6 +309,7 @@ def main() -> int:
                      "timed_on": timed_on,
                      **extra, "card": smi})
     print(json.dumps({"kernels": rows}))
+    print("selection: " + json.dumps(selection))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -471,6 +502,152 @@ def kernel_mix_assignment(spec):
         else:
             asg[i] = "im2col-copy-ab-ki@conv-bk128"
     return asg
+
+
+# ---------------------------------------------------------------------------
+# The selection path (phase 6)
+# ---------------------------------------------------------------------------
+
+def selection_phase(torch, server, nets, weights, launches, serve_err, seed,
+                    rng, smi) -> dict:
+    """Phase 6 on copies of ``artifacts/`` in a temporary directory: (a)
+    predictions card vs CPU, (b) warm and cold selections card vs CPU, (c)
+    the selected plans served from ``server`` (added to ``nets``,
+    ``weights``, ``launches`` and ``serve_err``), (d) factor
+    ``reoptimise``. Returns the numbers for the report."""
+    from repro_torch.kernels import common
+    from repro_torch.models import cnn_zoo
+    from repro_torch.primitives.executor import make_weights
+    from repro_torch.service import ArtifactStore, optimise, reoptimise
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as td:
+        stores = {}
+        for name, parts in (("warm", ("models", "selections")),
+                            ("cold_cuda", ("models",)), ("cold_cpu", ("models",))):
+            for part in parts:
+                shutil.copytree(ARTIFACTS / part, Path(td) / name / part)
+            stores[name] = str(Path(td) / name)
+
+        # (b) warm: the committed models and edge_cnn selection, card and CPU
+        opt = {dev: optimise("edge_cnn", "arm", store=ArtifactStore(
+                   stores["warm"], device=dev), **OPTIMISE_ARGS)
+               for dev in ("cuda", "cpu")}
+        committed = json.loads(EDGE_CNN_SELECTION.read_text())["assignment"]
+        for dev, o in opt.items():
+            assert o.warm_models and o.warm_selection, (dev, "not warm")
+            assert {str(k): v for k, v in o.assignment.items()} == committed, dev
+        models = {dev: o.models for dev, o in opt.items()}
+        assert all(t.is_cuda for layer in models["cuda"].prim.params
+                   for t in layer.values())
+        out["models"] = models["cuda"].fingerprint()
+        print(f"select: optimise(edge_cnn, arm) warm for models and selection "
+              f"in {opt['cuda'].seconds * 1e3:.1f} ms, models "
+              f"{out['models']}, the committed assignment", flush=True)
+
+        # (a) predictions over the arm pools, card vs CPU, and one forward
+        out["predict"] = predictions_card_vs_cpu(torch, models, smi)
+
+        # (b) cold selections for every executable net, card vs CPU
+        out["nets"] = {}
+        cold = {}
+        for net in cnn_zoo.EXECUTABLE_NETS:
+            got, want = (optimise(net, "arm", store=ArtifactStore(
+                             stores[f"cold_{dev}"], device=dev), **OPTIMISE_ARGS)
+                         for dev in ("cuda", "cpu"))
+            assert got.warm_models and not got.warm_selection, net
+            assert got.assignment == want.assignment, (net, "card != CPU")
+            assert abs(got.predicted_cost_s - want.predicted_cost_s) <= \
+                1e-5 * want.predicted_cost_s, net
+            sel = got.selection
+            out["nets"][net] = {"estimate_ms": sel.estimate_seconds * 1e3,
+                                "solver_ms": sel.solver_seconds * 1e3,
+                                "optimal": sel.optimal,
+                                "predicted_cost_ms": sel.solver_cost * 1e3}
+            print(f"select {net}: estimate {sel.estimate_seconds * 1e3!r} ms, "
+                  f"solver {sel.solver_seconds * 1e3!r} ms, optimal "
+                  f"{sel.optimal}, predicted {sel.solver_cost * 1e3:.4f} ms/img "
+                  f"(cold, card = CPU)  ({smi})", flush=True)
+            cold[net] = got
+        assert {str(k): v for k, v in cold["edge_cnn"].assignment.items()} == committed
+
+        # (c) the selected plans, served from the phase-2 server
+        for net, sizes in SELECT_BURSTS.items():
+            sel_opt = dataclasses.replace(opt["cuda"] if net == "edge_cnn"
+                                          else cold[net], net=f"{net}_select")
+            assert not routed_kernels(sel_opt.assignment), sel_opt.assignment
+            weights[sel_opt.net] = make_weights(sel_opt.spec, seed, device="cuda")
+            server.register(sel_opt, weights=weights[sel_opt.net])
+            nets[sel_opt.net] = sel_opt
+            reqs = [images(rng, sel_opt.spec, b) for b in sizes]
+            common.reset_launches()
+            outs = [server.serve(sel_opt.net, list(r)) for r in reqs]
+            torch.cuda.synchronize()
+            launches[sel_opt.net] = dict(common.LAUNCHES)
+            assert not any(launches[sel_opt.net].values()), launches[sel_opt.net]
+            serve_err[sel_opt.net] = check_responses(sel_opt, weights[sel_opt.net],
+                                                     reqs, outs)
+            print(f"served {sel_opt.net}: bursts {sizes}, max |served - oracle| "
+                  f"= {serve_err[sel_opt.net]:.3g}, no kernel launched", flush=True)
+
+        # (d) factor reoptimise from one fresh sample: twice on the card, once
+        # on the CPU
+        sample = opt["cuda"].platform.measure_sample(16)
+        again = [reoptimise(opt["cuda"], sample=sample, mode="factor")
+                 for _ in range(2)]
+        host = reoptimise(opt["cpu"], sample=sample, mode="factor")
+        assert again[0].models.fingerprint() == again[1].models.fingerprint()
+        assert again[0].assignment == again[1].assignment == host.assignment
+        changed = sum(again[0].assignment[i] != a
+                      for i, a in opt["cuda"].assignment.items())
+        out["reoptimise"] = {"models": again[0].models.fingerprint(),
+                             "changed_nodes": changed,
+                             "predicted_cost_ms": again[0].predicted_cost_s * 1e3}
+        print(f"select: reoptimise(factor, 16-row sample) twice on the card: "
+              f"models {out['reoptimise']['models']} both times, the same "
+              f"assignment as the CPU's ({changed} nodes changed)", flush=True)
+    return out
+
+
+def predictions_card_vs_cpu(torch, models, smi) -> dict:
+    """The card's predictions against the CPU's over the arm 60-triplet
+    primitive pool and the DLT pool (NaN pattern equal, rtol ``PRED_TOL``),
+    and each model's forward on the card: device ms between CUDA events
+    (the MLP on the pool's normalised features, mean of 20) and host ms of
+    one whole ``predict`` (normalise, upload, forward, download)."""
+    from repro_torch.core.perfmodel import mlp_apply, plain_fp32
+    from repro_torch.profiler.dataset import (simulate_dlt_dataset,
+                                              simulate_primitive_dataset)
+    pools = {"prim": simulate_primitive_dataset("arm", max_triplets=60).feats,
+             "dlt": simulate_dlt_dataset("arm").feats}
+    out = {}
+    for role, feats in pools.items():
+        card, host = (getattr(models[d], role) for d in ("cuda", "cpu"))
+        got, want = card.predict(feats), host.predict(feats)
+        assert np.array_equal(np.isnan(got), np.isnan(want)), role
+        np.testing.assert_allclose(got, want, **PRED_TOL)
+        fin = np.isfinite(want)
+        rel = float(np.max(np.abs(got[fin] - want[fin]) / want[fin]))
+        xt = torch.from_numpy(card.in_norm.transform(feats)).cuda()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad(), plain_fp32():
+            mlp_apply(card.params, xt)
+            start.record()
+            for _ in range(20):
+                mlp_apply(card.params, xt)
+            end.record()
+            end.synchronize()
+        t0 = time.perf_counter()
+        card.predict(feats)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out[role] = {"shape": list(got.shape), "max_rel_err": rel,
+                     "forward_ms": start.elapsed_time(end) / 20,
+                     "predict_ms": host_ms}
+        print(f"select: {role} model ({card.kind}) on {got.shape[0]}x"
+              f"{got.shape[1]}: card vs CPU max rel err {rel:.3g}; forward "
+              f"{out[role]['forward_ms']!r} ms on the card, whole predict "
+              f"{host_ms!r} ms  ({smi})", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ weights). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every hand-written kernel's wrapper takes the
 kernel's plain PyTorch version.
 
-Scope so far: lower an assigned CNN, compile it
-into a batched plan and serve it, with the three Pallas kernels on that
-path (``matmul``, ``conv_im2col_batch``, ``winograd_point_gemm_batch``)
-ported to hand-written CUDA in ``csrc/``.
+Scope so far: select a CNN's primitives from committed performance models
+(``service.pipeline.optimise``: inference on the device, PBQP on the host),
+lower the assignment, compile it into a batched plan and serve it. Every
+Pallas kernel of the reference is ported to hand-written CUDA in ``csrc/``;
+training the performance models is not ported yet.
 """

@@ -22,7 +22,8 @@ kernels, through ``primitives.variants``.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
+import hashlib
+from functools import lru_cache, partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -542,6 +543,84 @@ def tile_columns(bases: Sequence[str], variants: Sequence[str]) -> List[str]:
     pairs the lowering can actually execute."""
     return [f"{b}{TILE_SEP}{v}" for b in bases for v in variants
             if variant_compatible(b, v)]
+
+
+def family_of(name: str) -> str:
+    return resolve(name).family
+
+
+# ---------------------------------------------------------------------------
+# Compiled per-column trait arrays (batched estimation), as the reference's
+# ---------------------------------------------------------------------------
+
+# transpose-variant codes shared with the simulators: index into this tuple
+T_VARIANTS: Tuple[Optional[str], ...] = (None, "atb", "abt", "atbt")
+
+
+def name_hash64(s: str) -> int:
+    """Stable 64-bit key for a registry/DLT name (noise stream seeding)."""
+    return int.from_bytes(hashlib.sha256(s.encode()).digest()[:8], "big")
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnTraits:
+    """Registry traits of a column list, pre-compiled into numpy arrays so the
+    simulator time models can broadcast over (configs × columns) at once."""
+    names: Tuple[str, ...]
+    fam: np.ndarray            # (P,) int8 index into FAMILIES
+    vec: np.ndarray            # (P,) float64 SIMD lanes, 0.0 = unspecified
+    t_idx: np.ndarray          # (P,) int8 index into T_VARIANTS
+    scan: np.ndarray           # (P,) bool, trav == "scan"
+    order_ki: np.ndarray       # (P,) bool, order == "ki"
+    tile_m: np.ndarray         # (P,) int64 Winograd output tile, 0 = n/a
+    tile_n: np.ndarray         # (P,) int64 Winograd input tile, 0 = n/a
+    oned: np.ndarray           # (P,) bool, 1-D Winograd
+    variant_as: np.ndarray     # (P,) bool, kn2 "-as" stacked accumulation
+    in_layout: np.ndarray      # (P,) int8 index into layouts.LAYOUTS
+    out_layout: np.ndarray     # (P,) int8 index into layouts.LAYOUTS
+    key: np.ndarray            # (P,) uint64 per-column noise-stream key
+    epilogue: np.ndarray       # (P,) bool, fused elementwise epilogue support
+
+    def applicable_mask(self, k: np.ndarray, c: np.ndarray, im: np.ndarray,
+                        s: np.ndarray, f: np.ndarray) -> np.ndarray:
+        """(L, P) bool mask mirroring ``Primitive.applicable`` — vectorised
+        over (L,) config component arrays and the compiled columns."""
+        k, c, im, s, f = (np.asarray(a).reshape(-1, 1) for a in (k, c, im, s, f))
+        fam = self.fam[None, :]
+        wino = (fam == FAMILIES.index("wino3")) | (fam == FAMILIES.index("wino5"))
+        wino_f = np.where(self.fam == FAMILIES.index("wino5"), 5, 3)[None, :]
+        return ((f <= im)
+                & np.where(wino, (f == wino_f) & (s == 1)
+                           & (im >= self.tile_n[None, :]), True)
+                & np.where(fam == FAMILIES.index("c1x1"), f == 1, True)
+                & np.where(fam == FAMILIES.index("kn2"), s == 1, True))
+
+
+@lru_cache(maxsize=256)
+def compile_traits(names: Tuple[str, ...]) -> ColumnTraits:
+    # tile columns ("prim@tile") compile to their BASE primitive's traits —
+    # layouts/applicability are tile-invariant — but keep a per-column noise
+    # key from the full name so every tile gets its own deterministic stream
+    prims = [resolve(n) for n in names]
+    t = [p.traits for p in prims]
+    return ColumnTraits(
+        names=tuple(names),
+        fam=np.array([FAMILIES.index(p.family) for p in prims], np.int8),
+        vec=np.array([float(x.get("vec", 0) or 0) for x in t], np.float64),
+        t_idx=np.array([T_VARIANTS.index(x.get("t")) for x in t], np.int8),
+        scan=np.array([x.get("trav") == "scan" for x in t], bool),
+        order_ki=np.array([x.get("order") == "ki" for x in t], bool),
+        tile_m=np.array([int(x.get("tile_m", 0)) for x in t], np.int64),
+        # same defaults as Primitive.applicable: wino3 -> 4, wino5 -> 6
+        tile_n=np.array([int(x.get("tile_n", {"wino3": 4, "wino5": 6}.get(p.family, 0)))
+                         for p, x in zip(prims, t)], np.int64),
+        oned=np.array([bool(x.get("oned", False)) for x in t], bool),
+        variant_as=np.array([str(x.get("variant", "")).startswith("as") for x in t], bool),
+        in_layout=np.array([L.LAYOUTS.index(p.in_layout) for p in prims], np.int8),
+        out_layout=np.array([L.LAYOUTS.index(p.out_layout) for p in prims], np.int8),
+        key=np.array([name_hash64(n) for n in names], np.uint64),
+        epilogue=np.array([bool(x.get("epilogue", False)) for x in t], bool),
+    )
 
 
 def run_primitive(name: str, x_chw: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:

@@ -10,7 +10,8 @@ consumers that need contiguous memory copy explicitly.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import itertools
+from typing import List, Tuple
 
 import torch
 
@@ -72,3 +73,12 @@ def transform(x: torch.Tensor, src: str, dst: str) -> torch.Tensor:
     if src == dst:
         return x
     return apply_perm(x, perm(src, dst))
+
+
+def dlt_pairs() -> List[Tuple[str, str]]:
+    """All 9 ordered layout pairs, identity included (paper profiles all 9)."""
+    return list(itertools.product(LAYOUTS, LAYOUTS))
+
+
+def dlt_name(src: str, dst: str) -> str:
+    return f"{src}->{dst}"

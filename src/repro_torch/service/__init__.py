@@ -1,0 +1,29 @@
+"""Service layer of the port: platform abstraction, artifact store, the
+profile → model → select pipeline and the pump-mode serving core.
+
+    from repro_torch.service import ArtifactStore, OptimisedServer, optimise
+
+    store = ArtifactStore("artifacts-copy")          # models load onto cuda
+    opt = optimise("edge_cnn", "arm", store=store, max_triplets=60,
+                   max_iters=2000, executable=True)
+    server = OptimisedServer(max_batch=8)
+    server.register(opt)
+"""
+from repro_torch.service.artifacts import ArtifactStore, digest
+from repro_torch.service.pipeline import (OptimisedNetwork, optimise,
+                                          reoptimise, safe_assignment)
+from repro_torch.service.platforms import (Platform, PlatformModels,
+                                           SimulatedPlatform, get_platform)
+from repro_torch.service.serving.server import OptimisedServer
+from repro_torch.service.store_backends import (BackendError, LocalDirBackend,
+                                                ObjectStoreBackend,
+                                                ScriptedFaults, StoreBackend,
+                                                get_backend)
+
+__all__ = [
+    "ArtifactStore", "BackendError", "LocalDirBackend", "ObjectStoreBackend",
+    "OptimisedNetwork", "OptimisedServer", "Platform", "PlatformModels",
+    "ScriptedFaults", "SimulatedPlatform", "StoreBackend", "digest",
+    "get_backend", "get_platform", "optimise", "reoptimise",
+    "safe_assignment",
+]

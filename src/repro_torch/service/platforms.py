@@ -1,0 +1,537 @@
+"""Platform abstraction — service layer L1 (DESIGN.md §7.1).
+
+The paper's promise is that porting a CNN to a *new* computing system costs
+seconds: profile a small sample, transfer the performance model (§4.4),
+re-solve the PBQP. Before this layer, every example and benchmark hand-wired
+``simulate_*_dataset`` → ``fit_perf_model`` → provider → ``select``; this
+module makes "a platform" a first-class object with exactly three verbs:
+
+  * ``profile(configs)`` / ``profile_dlt(pairs)`` — the expensive truth
+    source (analytic simulator or a measured device, same matrix contract);
+  * ``cost_provider()`` — ground-truth costs for selection/scoring;
+  * ``calibrate(base_model, budget)`` — the §4.4 transfer path: profile a
+    ``budget``-sized sample, factor-correct or fine-tune ``base_model``,
+    return models ready for a ``ModelProvider``.
+
+``pretrain()`` covers the native path (train from this platform's full
+dataset). Both consult an ``ArtifactStore`` when given one, so repeat runs
+warm-start in milliseconds instead of retraining (Table 4, operational).
+
+The port of ``repro.service.platforms``. The simulated platforms (intel,
+amd, arm) are ported in full, with the reference's model and selection
+addresses, so a store the reference filled warm-starts the port. What
+trains refuses until the training slice brings torch training: a
+``pretrain`` that misses the store, and ``calibrate`` in ``finetune`` or
+``scratch`` mode (``auto`` resolves to ``finetune`` on a sample of 24 rows
+or more). ``calibrate(mode="factor")`` works in full. The host-CPU and
+Pallas platforms are not ported: the port's measured platform is the GPU.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.perfmodel import (FactorCorrectedModel, PerfModel,
+                                        factor_correct, fit_perf_model)
+from repro_torch.core.selection import (CostProvider, ModelProvider,
+                                        SimulatedProvider)
+from repro_torch.primitives.conv import PRIMITIVE_NAMES
+from repro_torch.profiler import pools
+from repro_torch.profiler.dataset import (PerfDataset, merge_served,
+                                          simulate_dlt_dataset,
+                                          simulate_primitive_dataset)
+from repro_torch.profiler.simulators import (PLATFORMS, dlt_time_batch,
+                                             primitive_time_batch)
+
+
+# ---------------------------------------------------------------------------
+# Model bundle
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PlatformModels:
+    """A (primitive, DLT) performance-model pair bound to a platform —
+    everything selection needs, plus provenance for artifact keying."""
+
+    prim: PerfModel
+    dlt: PerfModel
+    platform: str                 # fingerprint of the platform they model
+    mode: str                     # "native" | "factor" | "finetune"
+    budget: Optional[float] = None   # calibration sample budget (None = full)
+    warm: bool = False            # True = loaded from the artifact store
+    seconds: float = 0.0          # wall time of pretrain()/calibrate()
+    # how the calibration sample was composed when served observations were
+    # reused (DESIGN.md §8.5): served vs freshly-profiled row counts etc.
+    sample_info: Optional[Dict] = None
+
+    def provider(self, columns: Optional[Sequence[str]] = None) -> ModelProvider:
+        return ModelProvider(self.prim, self.dlt, columns=columns)
+
+    def fingerprint(self) -> str:
+        return f"{self.prim.fingerprint()}-{self.dlt.fingerprint()}"
+
+
+# ---------------------------------------------------------------------------
+# Platform interface
+# ---------------------------------------------------------------------------
+
+class Platform(abc.ABC):
+    """One optimisation target: profile it (dearly), provide ground-truth
+    costs, and calibrate a transferred performance model onto it."""
+
+    name: str
+
+    # -- profiling ---------------------------------------------------------
+    @property
+    @abc.abstractmethod
+    def columns(self) -> List[str]:
+        """Primitive columns this platform can profile."""
+
+    @abc.abstractmethod
+    def profile(self, configs: np.ndarray) -> np.ndarray:
+        """(L, 5) configs -> (L, P) runtimes (NaN = inapplicable)."""
+
+    @abc.abstractmethod
+    def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
+        """(M, 2) (c, im) pairs -> (M, 6) non-identity DLT runtimes."""
+
+    @abc.abstractmethod
+    def primitive_dataset(self) -> PerfDataset:
+        """Full profiled primitive dataset (cached per instance)."""
+
+    @abc.abstractmethod
+    def dlt_dataset(self) -> PerfDataset:
+        """Full profiled DLT dataset (cached per instance)."""
+
+    # -- selection ---------------------------------------------------------
+    @abc.abstractmethod
+    def cost_provider(self) -> CostProvider:
+        """Ground-truth cost provider (plays 'profiled on the device')."""
+
+    @abc.abstractmethod
+    def fingerprint(self) -> str:
+        """Stable identity for artifact keys (config, not measurements)."""
+
+    def pool_fingerprint(self) -> str:
+        """Drift-invariant hardware identity for fleet calibration pooling
+        (DESIGN.md §14.3). ``fingerprint()`` may deliberately move when the
+        platform drifts (so post-drift calibration artifacts do not collide
+        with pre-drift addresses); the pool key must NOT move, or a drifted
+        host would publish evidence its healthy peers never find. Platforms
+        whose fingerprint encodes drift state override this to return the
+        stable part."""
+        return self.fingerprint()
+
+    def base_column(self, column: str) -> str:
+        """Map one of this platform's columns onto the base-registry
+        primitive a foreign base model would know it as. Identity for plain
+        platforms; tile-column platforms strip the tile suffix so a wide
+        base model expands onto their (primitive, tile) columns
+        (``PerfModel.subset_columns(base_of=...)``)."""
+        return column
+
+    # -- model path (shared) ----------------------------------------------
+    def _model_fields(self, role: str, kind: str, **extra) -> dict:
+        # ``backend`` (the platform's short name) is part of every model
+        # address: two backends optimising the same network must never
+        # collide on an artifact even if their fingerprints ever coincide
+        ds = self.primitive_dataset() if role == "prim" else self.dlt_dataset()
+        return {"platform": self.fingerprint(), "backend": self.name,
+                "columns": list(ds.columns),
+                "dataset": ds.fingerprint(), "model_kind": kind,
+                "role": role, **extra}
+
+    def pretrain_prim(self, kind: str = "nn2", *, store=None, seed: int = 0,
+                      max_iters: int = 4000,
+                      patience: int = 250) -> "Tuple[PerfModel, bool]":
+        """Native primitive model: (model, warm). This is THE artifact
+        address for a natively trained primitive model on this platform —
+        benchmarks and ``pretrain`` route through it, so the same logical
+        model is stored exactly once (ROADMAP "one keying scheme")."""
+
+        def train() -> PerfModel:
+            tr, va, _ = self.primitive_dataset().split()
+            return fit_perf_model(kind, tr.feats, tr.times, va.feats, va.times,
+                                  columns=self.primitive_dataset().columns,
+                                  seed=seed, max_iters=max_iters,
+                                  patience=patience)
+
+        return _get_or_train(
+            store, self._model_fields("prim", kind, seed=seed,
+                                      max_iters=max_iters, patience=patience,
+                                      mode="native"),
+            train)
+
+    def pretrain_dlt(self, kind: str = "lin", *, store=None, seed: int = 0,
+                     max_iters: int = 1500) -> "Tuple[PerfModel, bool]":
+        """Native DLT model: (model, warm) — same single-address contract as
+        ``pretrain_prim``."""
+        return self._native_dlt(kind, seed, max_iters, store)
+
+    def pretrain(self, kind: str = "nn2", *, store=None, seed: int = 0,
+                 max_iters: int = 4000, patience: int = 250,
+                 dlt_kind: str = "lin", dlt_max_iters: int = 1500) -> PlatformModels:
+        """Native path: train (or warm-load) performance models from this
+        platform's full profiled dataset."""
+        t0 = time.perf_counter()
+        prim, prim_warm = self.pretrain_prim(kind, store=store, seed=seed,
+                                             max_iters=max_iters,
+                                             patience=patience)
+        dlt, dlt_warm = self.pretrain_dlt(dlt_kind, store=store, seed=seed,
+                                          max_iters=dlt_max_iters)
+        return PlatformModels(prim, dlt, self.fingerprint(), "native",
+                              warm=prim_warm and dlt_warm,
+                              seconds=time.perf_counter() - t0)
+
+    def calibrate(self, base: Union[PerfModel, PlatformModels],
+                  budget: float = 0.01, *, mode: str = "auto", store=None,
+                  sample=None, served=None, pooled=None, sample_n: int = 16,
+                  seed: int = 0, max_iters: int = 2000,
+                  patience: int = 150, dlt_kind: str = "lin",
+                  dlt_max_iters: int = 1500) -> PlatformModels:
+        """Transfer path (§4.4): profile a ``budget`` sample of this platform
+        (fraction if < 1, row count if >= 1), then correct ``base`` onto it.
+
+        ``mode``: "factor" multiplies per-primitive geometric-mean ratios
+        (cheapest), "finetune" continues training at 10x-lowered LR, "auto"
+        picks finetune when the sample is big enough to not overfit, and
+        "scratch" ignores ``base`` and trains on the sample alone (the
+        paper's transfer-study control).
+
+        ``sample``: a caller-supplied ``PerfDataset`` of fresh measurements
+        — the serving drift loop calibrates from what it just observed (see
+        ``measure_sample``) instead of re-profiling the platform's cached
+        pool, so a drifted platform is corrected from *post-drift* truth.
+        ``budget`` is ignored when a sample is given.
+
+        ``served``: attributed served-traffic observations
+        (``observations_to_dataset``) — composed into the calibration sample
+        via ``compose_sample`` (fresh profiling only for the ≤ ``sample_n``
+        configs the serving buffer misses; ZERO profiling at full coverage).
+        Served rows only measure assigned primitives, so "auto" resolves to
+        factor correction with the pooled factor extended to unmeasured
+        columns (``factor_correct(fill_missing=True)``).
+
+        ``pooled``: fleet evidence — other hosts' published served-traffic
+        datasets for this platform fingerprint
+        (``ArtifactStore.pooled_drift``, DESIGN.md §14.3). Merged with
+        ``served`` via ``merge_served`` before composition, so a host that
+        observed nothing itself still calibrates from what the fleet saw.
+        Deterministic: the merged sample's fingerprint keys the artifact,
+        so two hosts pooling identical evidence warm-load byte-identical
+        corrected models.
+        """
+        t0 = time.perf_counter()
+        sample_info = None
+        pooled = [d for d in (pooled or []) if d is not None and d.n]
+        if pooled:
+            if sample is not None:
+                raise ValueError("pass either sample= or pooled=, not both")
+            merged = merge_served([served, *pooled] if served is not None
+                                  else pooled)
+            pool_info = {"pooled_sources": len(pooled),
+                         "pooled_rows": int(sum(d.n for d in pooled))}
+            served = merged
+        else:
+            pool_info = None
+        if served is not None:
+            if sample is not None:
+                raise ValueError("pass either sample= or served=, not both")
+            sample, sample_info = self.compose_sample(served, n=sample_n,
+                                                      seed=seed)
+            if pool_info:
+                sample_info.update(pool_info)
+            if mode == "auto":
+                # finetune on rows that are NaN outside the assigned columns
+                # would re-initialise every unmeasured head; the factor path
+                # with fill_missing is the estimator that matches the data
+                mode = "factor"
+        base_prim = base.prim if isinstance(base, PlatformModels) else base
+        # a wide base (e.g. the 49-column simulator model) transfers onto a
+        # platform that profiles fewer primitives by slicing its output head
+        # to this platform's columns — positions must match the sample matrix
+        target_cols = (list(sample.columns) if sample is not None
+                       else list(self.primitive_dataset().columns))
+        if list(base_prim.columns) != target_cols:
+            # base_of lets a plain-primitive base model expand onto this
+            # platform's tile columns (each tile head starts as its base
+            # primitive's head; calibration then differentiates the tiles)
+            base_prim = base_prim.subset_columns(target_cols,
+                                                 base_of=self.base_column)
+        if sample is None:
+            tr, va, _ = self.primitive_dataset().split()
+            frac = budget if budget < 1 else min(1.0, budget / max(tr.n, 1))
+            sample = tr.subsample(frac, seed=seed)
+            va_feats, va_times = va.feats, va.times
+        else:
+            # fresh-measurement path: the sample doubles as the early-stop
+            # set (re-profiling a validation pool would defeat its cheapness)
+            budget = None
+            va_feats, va_times = sample.feats, sample.times
+        if mode == "auto":
+            mode = "finetune" if sample.n >= 24 else "factor"
+        if mode not in ("factor", "finetune", "scratch"):
+            raise ValueError(f"unknown calibration mode {mode!r}")
+
+        fill = sample_info is not None
+
+        def train_prim() -> PerfModel:
+            if mode == "factor":
+                return factor_correct(base_prim, sample.feats, sample.times,
+                                      fill_missing=fill)
+            # fine-tuning continues gradient training, so a factor-corrected
+            # base unwraps to the underlying trained network
+            ft_base = (base_prim.base if isinstance(base_prim, FactorCorrectedModel)
+                       else base_prim)
+            return fit_perf_model(ft_base.kind, sample.feats, sample.times,
+                                  va_feats, va_times,
+                                  columns=target_cols,
+                                  seed=seed,
+                                  base=None if mode == "scratch" else ft_base,
+                                  max_iters=max_iters, patience=patience)
+
+        extra = dict(seed=seed, mode=mode, budget=budget,
+                     sample=sample.fingerprint(), fill=fill,
+                     base=None if mode == "scratch" else base_prim.fingerprint(),
+                     max_iters=max_iters, patience=patience)
+        if budget is None:
+            # caller-supplied sample: key off the sample itself — touching
+            # primitive_dataset() here would re-profile the platform pool
+            fields = {"platform": self.fingerprint(), "backend": self.name,
+                      "columns": target_cols,
+                      "dataset": sample.fingerprint(),
+                      "model_kind": base_prim.kind, "role": "prim", **extra}
+        else:
+            fields = self._model_fields("prim", base_prim.kind, **extra)
+        prim, prim_warm = _get_or_train(store, fields, train_prim)
+        # the DLT model is 2-feature/6-column — native training is cheap, so
+        # it is not worth transferring; it is also independent of the
+        # calibration sample, hence trained at a fixed seed and memoised
+        dlt, dlt_warm = self._native_dlt(dlt_kind, 0, dlt_max_iters, store)
+        return PlatformModels(prim, dlt, self.fingerprint(), mode,
+                              budget=budget, warm=prim_warm and dlt_warm,
+                              seconds=time.perf_counter() - t0,
+                              sample_info=sample_info)
+
+    def _sample_pool(self) -> Sequence:
+        """Configs ``measure_sample`` may draw from — the platform's own
+        profiling pool, so drift samples stay in-distribution for the model
+        being corrected."""
+        return pools.config_pool()
+
+    def measure_sample(self, n: int = 16, seed: int = 0,
+                       exclude: Optional[Sequence[Tuple]] = None) -> PerfDataset:
+        """Freshly profile ``n`` layer configs drawn from this platform's
+        pool — bypasses every dataset cache, so the measurements reflect the
+        platform *as it is now*. This is the drift-recalibration input:
+        cheap (n ≈ 16 ≈ the paper's 1% budget) and honest about drift.
+
+        ``exclude``: config tuples to skip — the served-observation top-up
+        path profiles only configs the serving buffer does NOT already
+        cover. When fewer than ``n`` configs remain, all of them are taken.
+        """
+        cfgs = np.array(self._sample_pool(), np.int64)
+        if exclude:
+            skip = {tuple(map(int, c)) for c in exclude}
+            keep = [i for i in range(len(cfgs))
+                    if tuple(map(int, cfgs[i])) not in skip]
+            cfgs = cfgs[keep]
+            if not len(cfgs):
+                raise ValueError("measure_sample: every pool config excluded")
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(len(cfgs), size=min(n, len(cfgs)), replace=False)
+        sel = cfgs[np.sort(idx)]
+        times = self.profile(sel)
+        return PerfDataset(np.asarray(sel, np.float64), times,
+                           list(self.columns), ["k", "c", "im", "s", "f"],
+                           self.name)
+
+    def compose_sample(self, served: PerfDataset, *, n: int = 16,
+                       seed: int = 0) -> Tuple[PerfDataset, Dict]:
+        """Build a calibration sample from served-traffic observations,
+        topping up with fresh ``measure_sample`` profiling only for configs
+        the serving buffer does not cover (DESIGN.md §8.5).
+
+        ``served`` is the ``observations_to_dataset`` output: rows over the
+        served network's layer configs, finite only at the assigned columns.
+        Its columns are embedded into this platform's full column set;
+        ``n - covered`` additional configs (if any) are freshly profiled from
+        the pool, excluding the covered ones. When the buffer already covers
+        ``n`` distinct configs the sample costs ZERO profiling.
+
+        Returns ``(sample, info)`` where info records the served/fresh row
+        mix — surfaced through ``PlatformModels.sample_info`` and the serving
+        stats so the recalibration economics are observable.
+        """
+        cols = list(self.columns)
+        unknown = sorted(set(served.columns) - set(cols))
+        if unknown:
+            raise ValueError(f"served columns {unknown} unknown to platform "
+                             f"{self.fingerprint()!r}")
+        embed = np.full((served.n, len(cols)), np.nan)
+        for j, c in enumerate(served.columns):
+            embed[:, cols.index(c)] = served.times[:, j]
+        covered = {tuple(map(int, row)) for row in
+                   np.asarray(served.feats, np.int64)}
+        missing = max(int(n) - len(covered), 0)
+        fresh_rows = 0
+        feats, times = np.asarray(served.feats, np.float64), embed
+        if missing > 0:
+            fresh = self.measure_sample(missing, seed=seed,
+                                        exclude=sorted(covered))
+            fresh_rows = fresh.n
+            feats = np.concatenate([feats, fresh.feats])
+            times = np.concatenate([times, fresh.times])
+        sample = PerfDataset(feats, times, cols,
+                             ["k", "c", "im", "s", "f"], self.name)
+        total = served.n + fresh_rows
+        info = {"served_rows": int(served.n), "fresh_rows": int(fresh_rows),
+                "served_fraction": served.n / total,
+                "covered_configs": len(covered), "requested_n": int(n)}
+        # surface the batch-shape mix the served rows came from (attached by
+        # observations_to_dataset): recalibration reports can then show which
+        # pow2 buckets — and how much per-bucket drift — fed the sample
+        served_info = getattr(served, "served_info", None)
+        if served_info:
+            info["served"] = dict(served_info)
+        return sample, info
+
+    def invalidate_datasets(self) -> None:
+        """Drop cached profiled datasets AND the DLT-model memo so the next
+        profiling/calibration pass re-measures — e.g. after the platform is
+        known to have drifted. (The memoised DLT models were trained on the
+        pre-drift dataset; keeping them would skew the primitive-vs-DLT cost
+        balance of every re-solved PBQP.)"""
+        self._prim_ds = None
+        self._dlt_ds = None
+        self._dlt_models = {}
+
+    def _native_dlt(self, kind: str, seed: int, max_iters: int, store):
+        """Native DLT model, memoised per platform instance (one training
+        per (kind, seed, iters) no matter how many calibrations ask)."""
+        memo = getattr(self, "_dlt_models", None)
+        if memo is None:
+            memo = self._dlt_models = {}
+        key = (kind, seed, max_iters)
+        if key in memo:
+            return memo[key], True
+
+        def train() -> PerfModel:
+            ds = self.dlt_dataset()
+            tr, va, _ = ds.split()
+            return fit_perf_model(kind, tr.feats, tr.times, va.feats,
+                                  va.times, columns=ds.columns, seed=seed,
+                                  max_iters=max_iters)
+
+        model, warm = _get_or_train(
+            store, self._model_fields("dlt", kind, seed=seed,
+                                      max_iters=max_iters, mode="native"),
+            train)
+        memo[key] = model
+        return model, warm
+
+
+def _get_or_train(store, fields: dict, train_fn):
+    """(model, warm) — through the artifact store when one is given."""
+    if store is None:
+        return train_fn(), False
+    return store.get_or_train(fields, train_fn)
+
+
+# ---------------------------------------------------------------------------
+# Concrete platforms
+# ---------------------------------------------------------------------------
+
+class SimulatedPlatform(Platform):
+    """Analytic platform simulator (intel/amd/arm) behind the Platform
+    interface — full-scale datasets, deterministic noise, instant profiling.
+    (The reference's ``faults=`` profiling hook waits for the port of the
+    serving fault injector.)"""
+
+    def __init__(self, name: str, *, noisy: bool = True,
+                 max_triplets: Optional[int] = None,
+                 time_scale: float = 1.0):
+        if name not in PLATFORMS:
+            raise KeyError(f"unknown simulated platform {name!r}; "
+                           f"have {sorted(PLATFORMS)}")
+        self.name = name
+        self.noisy = noisy
+        self.max_triplets = max_triplets
+        # uniform slowdown applied to every simulated measurement — the
+        # drift-experiment knob ("the machine got slower"). Mutable: bump it
+        # mid-run, invalidate_datasets(), and re-profiling observes the
+        # drifted platform. Relative primitive costs (and hence the optimal
+        # assignment) are unchanged; absolute predictions scale.
+        self.time_scale = time_scale
+        self._plat = PLATFORMS[name]
+        self._prim_ds: Optional[PerfDataset] = None
+        self._dlt_ds: Optional[PerfDataset] = None
+
+    @property
+    def columns(self) -> List[str]:
+        return list(PRIMITIVE_NAMES)
+
+    def profile(self, configs: np.ndarray) -> np.ndarray:
+        return self.time_scale * primitive_time_batch(
+            self._plat, np.asarray(configs, np.int64), noisy=self.noisy)
+
+    def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
+        return self.time_scale * dlt_time_batch(
+            self._plat, np.asarray(pairs, np.int64), noisy=self.noisy)
+
+    def primitive_dataset(self) -> PerfDataset:
+        if self._prim_ds is None:
+            ds = simulate_primitive_dataset(
+                self.name, max_triplets=self.max_triplets, noisy=self.noisy)
+            if self.time_scale != 1.0:
+                ds = dataclasses.replace(ds, times=ds.times * self.time_scale)
+            self._prim_ds = ds
+        return self._prim_ds
+
+    def dlt_dataset(self) -> PerfDataset:
+        if self._dlt_ds is None:
+            ds = simulate_dlt_dataset(self.name, noisy=self.noisy)
+            if self.time_scale != 1.0:
+                ds = dataclasses.replace(ds, times=ds.times * self.time_scale)
+            self._dlt_ds = ds
+        return self._dlt_ds
+
+    def _sample_pool(self):
+        return pools.config_pool(max_triplets=self.max_triplets)
+
+    def cost_provider(self) -> SimulatedProvider:
+        # note: unscaled — a uniform time_scale does not move the argmin, so
+        # ground-truth *selection* is scale-invariant
+        return SimulatedProvider(self.name, noisy=self.noisy)
+
+    def fingerprint(self) -> str:
+        fp = self.pool_fingerprint()
+        if self.time_scale != 1.0:        # keep pre-drift addresses stable
+            fp += f"/ts={self.time_scale:g}"
+        return fp
+
+    def pool_fingerprint(self) -> str:
+        # drift (time_scale) moves the artifact fingerprint, not the machine
+        # identity — fleet pooling keys off the stable part (§14.3)
+        return f"sim/{self.name}/noisy={int(self.noisy)}/mt={self.max_triplets}"
+
+
+def get_platform(spec: Union[str, Platform], **kwargs) -> Platform:
+    """'intel' / 'amd' / 'arm' -> SimulatedPlatform; a Platform instance
+    passes through (kwargs then disallowed). The reference's 'host' and
+    'tpu' / 'pallas' platforms are not ported: the port's measured platform
+    is the GPU, which comes with the GPU profiling slice."""
+    if isinstance(spec, Platform):
+        if kwargs:
+            raise TypeError("cannot re-configure an existing Platform")
+        return spec
+    if spec in ("host", "tpu", "pallas"):
+        raise NotImplementedError(
+            f"platform {spec!r} is not ported: the port profiles the GPU, "
+            f"which comes with the GPU profiling slice (an H100 platform "
+            f"priced by measured kernel times)")
+    return SimulatedPlatform(spec, **kwargs)

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card, at every tile the variant tables name and every epilogue combination.
+card, at every tile the variant tables name and every epilogue combination;
+and the selection path's performance models on the card against the CPU
+(``-k select``: predictions at rtol=2e-5, the same assignments).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -9,7 +11,10 @@ Tolerance: fp32 rtol=atol=1e-4 on unit-scale operands (sum order only),
 1e-3 for a full Winograd conv against the plain convolution.
 """
 import itertools
+import shutil
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -616,3 +621,85 @@ def test_gpu_flash_attention_op_gqa(variant, cuda):
     want = flash_attention_plain(fold(q), fold(kr), fold(vr), causal=True)
     torch.testing.assert_close(got, want.reshape(2, 8, 256, 64).transpose(1, 2),
                                **GEMM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The selection path: the committed perf models on the card
+# ---------------------------------------------------------------------------
+
+ARTIFACTS = Path(__file__).resolve().parents[1] / "artifacts"
+SELECT_MODELS = sorted(p.name for p in (ARTIFACTS / "models").iterdir())
+SELECT_PRED_TOL = dict(rtol=2e-5, atol=0.0)
+
+
+def _select_pool(n_outputs):
+    from repro_torch.profiler.dataset import (simulate_dlt_dataset,
+                                              simulate_primitive_dataset)
+    ds = (simulate_primitive_dataset("arm", max_triplets=60) if n_outputs == 49
+          else simulate_dlt_dataset("arm"))
+    return ds.feats
+
+
+@pytest.mark.parametrize("name", SELECT_MODELS)
+def test_gpu_select_predictions_match_cpu(name, cuda):
+    """Every committed model predicts on the card what it predicts on the
+    CPU, over the whole arm pool, with TF32 switched on globally around the
+    call (prediction runs in plain fp32 regardless)."""
+    from repro_torch.core.perfmodel import PerfModel
+    path = str(ARTIFACTS / "models" / name / "model.npz")
+    card, host = PerfModel.load(path), PerfModel.load(path, device="cpu")
+    feats = _select_pool(host.n_outputs)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = card.predict(feats)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    want = host.predict(feats)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, **SELECT_PRED_TOL)
+    assert card.fingerprint() == host.fingerprint()
+
+
+@pytest.fixture
+def select_models(cuda):
+    from repro_torch.core.perfmodel import PerfModel
+    load = lambda n, d: PerfModel.load(str(ARTIFACTS / "models" / n / "model.npz"), d)
+    return {d: (load("a84acd505b89b475", d), load("b55b99f51ffb3e50", d))
+            for d in ("cuda", "cpu")}
+
+
+@pytest.mark.parametrize("net", ["alexnet", "edge_cnn", "vgg11", "vgg13", "vgg16",
+                                 "vgg19", "resnet18", "resnet34", "resnet50",
+                                 "googlenet", "squeezenet", "mobilenet",
+                                 "densenet121", "shufflenet_v2", "inception_v3",
+                                 "resnet101", "resnet152"])
+def test_gpu_select_assignments_match_cpu(net, cuda, select_models):
+    """``select`` under the committed arm pair on the card gives the CPU's
+    assignment, over all 49 columns and over the runnable ones."""
+    from repro_torch.core.selection import ModelProvider, select
+    from repro_torch.models import cnn_zoo
+    from repro_torch.service.pipeline import _executable_columns
+    spec = cnn_zoo.get(net)
+    for cols in (None, _executable_columns(select_models["cpu"][0])):
+        got = select(spec, ModelProvider(*select_models["cuda"], columns=cols))
+        want = select(spec, ModelProvider(*select_models["cpu"], columns=cols))
+        assert got.assignment == want.assignment
+        assert abs(got.solver_cost - want.solver_cost) <= 1e-5 * want.solver_cost
+
+
+def test_gpu_select_models_hold_cuda_tensors(cuda, tmp_path):
+    """A store on ``cuda`` (the default) warm-loads its models onto the
+    card, and ``optimise`` selects with them there."""
+    from repro_torch.core.perfmodel import factor_correct
+    from repro_torch.service import ArtifactStore, optimise
+    shutil.copytree(ARTIFACTS / "models", tmp_path / "models")
+    opt = optimise("edge_cnn", "arm", store=ArtifactStore(str(tmp_path)),
+                   max_triplets=60, max_iters=2000, executable=True)
+    assert opt.warm_models and not opt.warm_selection
+    for model in (opt.models.prim, opt.models.dlt):
+        assert all(t.is_cuda for layer in model.params for t in layer.values())
+        assert model.to("cpu").device.type == "cpu" and model.device.type == "cuda"
+    sample = opt.platform.measure_sample(16)
+    fixed = factor_correct(opt.models.prim, sample.feats, sample.times)
+    assert fixed.device.type == "cuda"
