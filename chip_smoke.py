@@ -60,6 +60,29 @@ two transforms too, flash attention). Phases, each of which asserts:
    oracle, launching no hand-written kernel (the committed models price the
    49 base primitives, which run plain torch); (d) ``reoptimise`` in factor
    mode twice from one fresh sample, deterministic and equal to the CPU's.
+7. The paper's transfer onto the card (§4.4), everything trained into a
+   temporary directory (the repository is never written): (a) a cold NN2
+   pretrain in torch on the card for the simulated arm 60-triplet platform
+   at the committed model's address (seed 0, 2,000 iterations, patience
+   250), its test MdRAE beside the committed JAX-trained model's and held
+   to ``ARM_MDRAE_LIMIT``, then the same for the simulated intel platform,
+   the transfer source; (b) ``GpuPlatform`` profiled on the phase-7 pool
+   (``transfer_pool``: every conv config of edge_cnn and resnet18, and a
+   strided ``config_pool()`` subsample under a FLOP and an operand ceiling)
+   over the 21 runnable primitives and the 55 tile columns, the tile
+   columns timed through the hand-written kernels: the profiling seconds,
+   the NaN share (NaN exactly where a column is inapplicable), each
+   kernel's launches, wall and device medians of the fastest tile column
+   of each base on named layers, and each tile column held to its base
+   primitive at its largest pool config; (c) the transfer table, test
+   MdRAE on the held-out card rows of the intel model unadapted, factor-,
+   fine-tune- and scratch-calibrated on one ``TRANSFER_BUDGET``-row sample,
+   and native; (d) ``optimise("edge_cnn", gpu, base=intel, mode="finetune",
+   executable=True)``: its estimate and solver ms and selected columns, the
+   measured per-image cost of its assignment against the measured-optimal
+   assignment and the heuristic (and the seconds the measured selection
+   took), and the selected plan served at b=8 against the oracle with its
+   kernel launches.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -135,6 +158,25 @@ ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
 EDGE_CNN_SELECTION = ARTIFACTS / "selections" / "cd7c5dc68f699685" / "data.json"
 OPTIMISE_ARGS = dict(max_triplets=60, max_iters=2000, executable=True)
 SELECT_BURSTS = {"edge_cnn": (1, 3, 8), "resnet18": (8,)}
+
+# Phase 7: the committed arm NN2's training settings (its manifest), the
+# test MdRAE a torch refit must reach, the card rows each transfer mode
+# gets, and the profiling pool's cuts of config_pool() (3,276 configs)
+TRANSFER_TRAIN = dict(seed=0, max_iters=2000, patience=250)
+ARM_MDRAE_LIMIT = 0.10
+TRANSFER_BUDGET = 28
+PROFILE_STRIDE = 13                       # every 13th config_pool() config ...
+PROFILE_MAX_FLOPS = 2e8                   # ... of at most 0.2 GFLOP
+PROFILE_MAX_OPERANDS = 500_000            # ... and 5e5 image + weight elements
+PROFILE_DLT_PAIRS = 24                    # dlt_pool(max_pairs=) beside the nets' tensors
+PROFILE_REPEATS = 9
+NAMED_LAYERS = {                          # (k, c, im, s, f) configs of the nets
+    "edge_cnn 3x3 16->32 @30": (32, 16, 30, 1, 3),
+    "edge_cnn 1x1 32->16 @28": (16, 32, 28, 1, 1),
+    "resnet18 3x3 64->64 @56": (64, 64, 56, 1, 3),
+    "resnet18 1x1 s2 128->256 @28": (256, 128, 28, 2, 1),
+    "resnet18 3x3 256->256 @14": (256, 256, 14, 1, 3),
+}
 
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # fp32, unit-scale operands: sum order only
 ORACLE_TOL = dict(rtol=1e-3, atol=1e-3)   # against F.conv2d / Winograd vs direct conv
@@ -259,6 +301,10 @@ def main() -> int:
     selection = selection_phase(torch, server, nets, weights, launches,
                                 serve_err, args.seed, rng, smi)
 
+    # -- phase 7: the transfer onto the card, served -----------------------
+    transfer = transfer_phase(torch, server, nets, weights, launches,
+                              serve_err, args.seed, rng, smi)
+
     rates = {name: images_per_s(server, nets[name], rng) for name in nets}
     busy = {name: device_busy(server, nets[name], rng) for name in nets}
 
@@ -310,6 +356,7 @@ def main() -> int:
                      **extra, "card": smi})
     print(json.dumps({"kernels": rows}))
     print("selection: " + json.dumps(selection))
+    print("transfer: " + json.dumps(transfer))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -605,6 +652,248 @@ def selection_phase(torch, server, nets, weights, launches, serve_err, seed,
         print(f"select: reoptimise(factor, 16-row sample) twice on the card: "
               f"models {out['reoptimise']['models']} both times, the same "
               f"assignment as the CPU's ({changed} nodes changed)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The transfer onto the card (phase 7)
+# ---------------------------------------------------------------------------
+
+def transfer_pool():
+    """(configs, DLT pairs) phase 7 profiles. Configs: every distinct conv
+    config of edge_cnn and resnet18 (the layers selection prices), then
+    every ``PROFILE_STRIDE``-th ``config_pool()`` config of at most
+    ``PROFILE_MAX_FLOPS`` and ``PROFILE_MAX_OPERANDS`` image and weight
+    elements (each profiled cell draws its operands from numpy, as the
+    reference's profiler does, and those draws dominate the host time of
+    larger configs). Pairs:
+    every tensor an edge of the two nets carries, then
+    ``dlt_pool(max_pairs=PROFILE_DLT_PAIRS)``."""
+    from repro_torch.core.selection import _edge_tensor
+    from repro_torch.models import cnn_zoo
+    from repro_torch.models.cnn_zoo import ConvLayer
+    from repro_torch.profiler.pools import config_pool, dlt_pool
+    specs = [cnn_zoo.get(n) for n in ("edge_cnn", "resnet18")]
+    configs = sorted({n.config for sp in specs for n in sp.nodes
+                      if isinstance(n, ConvLayer)})
+
+    def flops(k, c, im, s, f):
+        o = (im - f) // s + 1
+        return 2 * k * c * f * f * o * o
+
+    configs += [cfg for cfg in config_pool()[::PROFILE_STRIDE]
+                if cfg not in configs and flops(*cfg) <= PROFILE_MAX_FLOPS
+                and cfg[1] * (cfg[2] ** 2 + cfg[0] * cfg[4] ** 2) <= PROFILE_MAX_OPERANDS]
+    pairs = sorted({_edge_tensor(sp.nodes[u]) for sp in specs for u, _ in sp.edges})
+    pairs += [p for p in dlt_pool(max_pairs=PROFILE_DLT_PAIRS) if p not in pairs]
+    return configs, pairs
+
+
+def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
+                   rng, smi) -> dict:
+    """Phase 7 in a temporary directory: (a) cold NN2 pretrains on the card
+    (sim arm against the committed model, sim intel as the source), (b)
+    ``GpuPlatform`` profiled, (c) the transfer table, (d) the transferred
+    edge_cnn selection against measured costs, served from ``server``
+    (added to ``nets``, ``weights``, ``launches``, ``serve_err``). The
+    launch counters and signatures are set aside around the phase and put
+    back after it, so the phases before it report what they report; the
+    phase's own launches are in ``launches`` under its paths. Returns the
+    numbers for the report."""
+    from collections import Counter
+    from repro_torch.core import pbqp
+    from repro_torch.core.selection import build_pbqp, network_cost
+    from repro_torch.kernels import common
+    from repro_torch.models.cnn_zoo import ConvLayer
+    from repro_torch.primitives.conv import (compile_traits, run_primitive,
+                                             split_tile)
+    from repro_torch.primitives.executor import make_weights
+    from repro_torch.primitives.plan import heuristic_assignment
+    from repro_torch.profiler.device import applicable, column_callable
+    from repro_torch.service import (ArtifactStore, GpuPlatform,
+                                     SimulatedPlatform, digest, optimise)
+    saved = (dict(common.LAUNCHES), {k: Counter(c) for k, c in common.SEEN.items()})
+    out = {"card": smi}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as td:
+        shutil.copytree(ARTIFACTS / "models", Path(td) / "committed" / "models")
+        committed_store = ArtifactStore(str(Path(td) / "committed"))
+        store = ArtifactStore(str(Path(td) / "trained"))      # cold, on the card
+
+        # (a) cold NN2 pretrains on the card
+        out["pretrain"] = {}
+        plats = {"arm": SimulatedPlatform("arm", max_triplets=60),
+                 "intel": SimulatedPlatform("intel")}
+        for name, plat in plats.items():
+            fields = plat._model_fields("prim", "nn2", mode="native", **TRANSFER_TRAIN)
+            t0 = time.perf_counter()
+            model, warm = plat.pretrain_prim("nn2", store=store, **TRANSFER_TRAIN)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            assert not warm and model.device.type == "cuda", name
+            _, _, te = plat.primitive_dataset().split()
+            err = model.mdrae(te.feats, te.times)
+            row = {"address": digest(fields), "seconds": secs,
+                   "iterations": model.train_iterations, "test_mdrae": err,
+                   "test_rows": te.n}
+            line = (f"transfer (a): cold nn2 pretrain sim {name}: "
+                    f"{model.train_iterations} iterations in {secs:.2f} s on the "
+                    f"card, test MdRAE {err:.4f} over {te.n} rows")
+            if name == "arm":
+                ref = committed_store.get_model(fields)
+                assert ref is not None, "the committed arm NN2 is not at its address"
+                row["committed_test_mdrae"] = ref.mdrae(te.feats, te.times)
+                line += (f", committed JAX model {row['committed_test_mdrae']:.4f} "
+                         f"(address {row['address']}); limit {ARM_MDRAE_LIMIT}")
+                assert err <= ARM_MDRAE_LIMIT, (err, ARM_MDRAE_LIMIT)
+            print(line + f"  ({smi})", flush=True)
+            out["pretrain"][name] = row
+        intel = plats["intel"].pretrain("nn2", store=store, **TRANSFER_TRAIN)
+        assert intel.prim.fingerprint() == model.fingerprint()   # loaded, not retrained
+
+        # (b) profile the card
+        configs, pairs = transfer_pool()
+        gpu = GpuPlatform(configs=configs, dlt_pairs=pairs,
+                          repeats=PROFILE_REPEATS, store=store)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        ds = gpu.primitive_dataset()
+        prim_s = time.perf_counter() - t0
+        dlt = gpu.dlt_dataset()
+        dlt_s = time.perf_counter() - t0 - prim_s
+        launches["gpu_profile"] = dict(common.LAUNCHES)
+        for k in SERVED_KERNELS:
+            assert launches["gpu_profile"][k] > 0, (k, launches["gpu_profile"])
+        assert not any(launches["gpu_profile"][k] for k in ENTRY_KERNELS)
+        cfg = np.asarray(configs, np.int64)
+        mask = compile_traits(tuple(gpu.columns)).applicable_mask(*cfg.T)
+        assert np.array_equal(np.isfinite(ds.times), mask), "NaN only where inapplicable"
+        assert (ds.times[mask] > 0).all() and np.isfinite(dlt.times).all()
+        dev = gpu.device_dataset()
+        assert np.array_equal(np.isfinite(dev.times), mask)
+        out["profile"] = {"configs": len(configs), "dlt_pairs": len(pairs),
+                          "columns": len(gpu.columns), "prim_seconds": prim_s,
+                          "dlt_seconds": dlt_s, "nan_share": float(1 - mask.mean()),
+                          "launches": launches["gpu_profile"]}
+        print(f"transfer (b): profiled {len(configs)} configs x {len(gpu.columns)} "
+              f"columns in {prim_s:.2f} s and {len(pairs)} DLT pairs x 6 in "
+              f"{dlt_s:.2f} s ({PROFILE_REPEATS} repeats after 2 warm-ups); NaN "
+              f"share {1 - mask.mean():.4f} (exactly the inapplicable cells); "
+              f"launches {launches['gpu_profile']}  ({smi})", flush=True)
+        out["named_layers"] = {}
+        for label, layer in NAMED_LAYERS.items():
+            i = configs.index(layer)
+            fastest = {}
+            for j, col in enumerate(gpu.columns):
+                base, variant = split_tile(col)
+                if variant is not None and np.isfinite(ds.times[i, j]) and (
+                        base not in fastest or ds.times[i, j] < fastest[base][1]):
+                    fastest[base] = (col, ds.times[i, j], dev.times[i, j])
+            out["named_layers"][label] = {
+                b: {"column": c, "wall_ms": w * 1e3, "device_ms": d * 1e3}
+                for b, (c, w, d) in fastest.items()}
+            print(f"transfer (b): {label} {layer}, fastest tile column per base, "
+                  f"wall / device median ms: " + "; ".join(
+                      f"{c} {w * 1e3:.4f} / {d * 1e3:.4f}"
+                      for c, w, d in fastest.values()), flush=True)
+        # each tile column against its base primitive (plain torch) at its
+        # largest pool config: comparison launches, not the path's
+        worst = 0.0
+        g = torch.Generator().manual_seed(seed)
+        for col in gpu.columns:
+            if split_tile(col)[1] is None:
+                continue
+            k, c, im, s, f = max((tuple(map(int, x)) for x in configs
+                                  if applicable(col, *x)),
+                                 key=lambda x: x[0] * x[1] * x[4] ** 2 * x[2] ** 2 / x[3] ** 2)
+            x = torch.randn(c, im, im, generator=g).cuda()
+            w = (torch.randn(k, c, f, f, generator=g) * (c * f * f) ** -0.5).cuda()
+            worst = max(worst, _hold(torch, column_callable(col, s)(x, w),
+                                     run_primitive(split_tile(col)[0], x, w, s),
+                                     ORACLE_TOL))
+        out["profile"]["tile_vs_base_max_abs_err"] = worst
+        n_tile = sum(split_tile(c)[1] is not None for c in gpu.columns)
+        print(f"transfer (b): {n_tile} tile columns each within {ORACLE_TOL} "
+              f"of their base primitive "
+              f"at their largest pool config, max |err| {worst:.3g}", flush=True)
+
+        # (c) the transfer table on the held-out card rows
+        _, _, te = ds.split()
+        table = {"intel-native unadapted": (intel.prim.subset_columns(
+            gpu.columns, base_of=gpu.base_column), None)}
+        for mode in ("factor", "finetune", "scratch"):
+            m = gpu.calibrate(intel, TRANSFER_BUDGET, mode=mode, store=store)
+            assert m.mode == mode and not m.warm, mode
+            table[mode] = (m.prim, m.seconds)
+        native = gpu.pretrain("nn2", store=store, **TRANSFER_TRAIN)
+        table["native"] = (native.prim, native.seconds)
+        n_train = ds.split()[0].n
+        out["transfer"] = {}
+        print(f"transfer (c): test MdRAE on {te.n} held-out card rows x "
+              f"{len(gpu.columns)} columns (sample: {TRANSFER_BUDGET} of the "
+              f"{n_train} training rows; native: all {n_train})  ({smi})")
+        for name, (model, secs) in table.items():
+            err = model.mdrae(te.feats, te.times)
+            out["transfer"][name] = {"test_mdrae": err, "seconds": secs,
+                                     "iterations": model.train_iterations}
+            print(f"    {name:24s} {err:.4f}" + ("" if secs is None else
+                  f"  ({secs:.2f} s, {model.train_iterations} iterations)"), flush=True)
+
+        # (d) the transferred selection, priced by measurement, served
+        spec = nets["edge_cnn_pbqp"].spec
+        opt = optimise("edge_cnn", gpu, base=intel, budget=TRANSFER_BUDGET,
+                       mode="finetune", store=store, executable=True)
+        assert opt.warm_models and not opt.warm_selection
+        sel = opt.selection
+        convs = [i for i, n in enumerate(spec.nodes) if isinstance(n, ConvLayer)]
+        chosen = Counter(opt.assignment[i] for i in convs)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        graph = build_pbqp(spec, gpu.cost_provider())
+        best = pbqp.solve(graph).labelled(graph)
+        measured_s = time.perf_counter() - t0
+        launches["gpu_measured_select"] = dict(common.LAUNCHES)
+        cost = {name: network_cost(spec, asg, graph=graph) for name, asg in (
+            ("selected", opt.assignment), ("measured_optimal", best),
+            ("heuristic", heuristic_assignment(spec)))}
+        out["select"] = {"estimate_ms": sel.estimate_seconds * 1e3,
+                         "solver_ms": sel.solver_seconds * 1e3,
+                         "columns": dict(chosen),
+                         "measured_cost_ms": {k: v * 1e3 for k, v in cost.items()},
+                         "measured_select_s": measured_s}
+        print(f"transfer (d): optimise(edge_cnn, gpu, base=intel, finetune): "
+              f"estimate {sel.estimate_seconds * 1e3!r} ms, solver "
+              f"{sel.solver_seconds * 1e3!r} ms, columns {dict(chosen)}", flush=True)
+        print(f"transfer (d): measured per-image cost (MeasuredProvider, wall "
+              f"ms): selected {cost['selected'] * 1e3:.4f}, measured-optimal "
+              f"{cost['measured_optimal'] * 1e3:.4f}, heuristic "
+              f"{cost['heuristic'] * 1e3:.4f}; the measured selection took "
+              f"{measured_s:.2f} s  ({smi})", flush=True)
+        name = "edge_cnn_transfer"
+        sel_opt = dataclasses.replace(opt, net=name)
+        weights[name] = make_weights(spec, seed, device="cuda")
+        server.register(sel_opt, weights=weights[name])
+        nets[name] = sel_opt
+        reqs = [images(rng, spec, 8)]
+        common.reset_launches()
+        outs = [server.serve(name, list(r)) for r in reqs]
+        torch.cuda.synchronize()
+        launches[name] = dict(common.LAUNCHES)
+        want = routed_kernels(sel_opt.assignment)
+        assert all(launches[name][k] > 0 for k in want), (name, launches[name])
+        assert all(launches[name][k] == 0 for k in common.KERNELS if k not in want)
+        serve_err[name] = check_responses(sel_opt, weights[name], reqs, outs)
+        assert serve_err[name] <= SERVE_TOL["atol"], serve_err[name]
+        out["served"] = {"max_abs_err": serve_err[name], "launches": launches[name]}
+        print(f"served {name}: b=8, max |served - oracle| = {serve_err[name]:.3g}, "
+              f"launches {launches[name]}", flush=True)
+    common.LAUNCHES.update(saved[0])
+    for k, c in saved[1].items():
+        common.SEEN[k] = c
+    out["seconds"] = time.perf_counter() - t_phase
+    phase7 = ("gpu_profile", "gpu_measured_select", "edge_cnn_transfer")
+    print("phase 7 launches: " + json.dumps({p: launches[p] for p in phase7}))
+    print(f"transfer: phase 7 took {out['seconds']:.1f} s  ({smi})", flush=True)
     return out
 
 

@@ -7,9 +7,12 @@ weights). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every hand-written kernel's wrapper takes the
 kernel's plain PyTorch version.
 
-Scope so far: select a CNN's primitives from committed performance models
-(``service.pipeline.optimise``: inference on the device, PBQP on the host),
-lower the assignment, compile it into a batched plan and serve it. Every
-Pallas kernel of the reference is ported to hand-written CUDA in ``csrc/``;
-training the performance models is not ported yet.
+Scope so far: profile primitives and tile columns on the card
+(``service.platforms.GpuPlatform``), train the performance models there or
+transfer a simulated platform's onto it (``pretrain``, ``calibrate``:
+factor, finetune, scratch), select a CNN's primitives
+(``service.pipeline.optimise``: the models on the device, PBQP on the
+host), lower the assignment, compile it into a batched plan and serve it.
+Every Pallas kernel of the reference is ported to hand-written CUDA in
+``csrc/``.
 """

@@ -2,9 +2,11 @@
 port.
 
 The reference keeps a network's parameters as ``{node: array}`` (conv
-weights ``(k, c, f, f)``, bias vectors ``(c,)``); the port keeps the same
-dict of float32 tensors on a device, in the same layouts. Arrays cross as
-numpy (``np.asarray`` of a JAX array), so this module imports no JAX.
+weights ``(k, c, f, f)``, bias vectors ``(c,)``) and an MLP's as a list of
+``{"w": (fan_in, fan_out), "b": (fan_out,)}`` layers; the port keeps the
+same structures of float32 tensors on a device, in the same layouts.
+Arrays cross as numpy (``np.asarray`` of a JAX array), so this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -19,6 +21,17 @@ def weights_from_jax(weights: Dict[int, np.ndarray],
     """``{node: array}`` -> ``{node: float32 tensor on device}``, same layouts."""
     return {int(k): torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for k, v in weights.items()}
+
+
+def mlp_params_from_jax(params, device: Union[str, torch.device] = "cuda"):
+    """The reference's ``init_mlp`` / ``train_mlp`` parameters (a list of
+    ``{"w", "b"}`` layers, or for an nn1 ensemble a list of such lists),
+    as numpy or JAX arrays -> the same structure of float32 tensors on
+    ``device``, ready for ``train_mlp(init_params=...)`` or a ``PerfModel``."""
+    if params and isinstance(params[0], (list, tuple)):
+        return [mlp_params_from_jax(p, device) for p in params]
+    return [{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+             for k, v in layer.items()} for layer in params]
 
 
 def perfmodel_from_state(state: dict, device="cuda"):

@@ -12,10 +12,15 @@ The public interface is numpy-in / numpy-out, as the reference's: the
 optimisation pipeline (Fig 2) batches all layer configurations of a CNN in
 one forward pass on the device.
 
-Training is not ported yet: ``fit_perf_model``, ``train_mlp`` and
-``init_mlp`` raise ``NotImplementedError``. This module serves models that
-exist (committed artifacts, or a reference model carried over with
-``convert.perfmodel_from_state``) and corrects them by ``factor_correct``.
+Training runs on the same explicit device (``fit_perf_model(...,
+device=)``), in plain fp32 as prediction does: Adam with early stopping
+(``train_mlp``, paper Table 3) on a masked MSE whose undefined entries have
+zero value and gradient. Initial parameters are drawn on a CPU
+``torch.Generator`` and then moved, so the card and the CPU start from the
+same parameters; minibatches come from the reference's
+``np.random.default_rng(0)`` stream. A torch fit cannot equal a JAX fit bit
+for bit (``jax.random`` draws the reference's initial parameters), but from
+the same initial parameters it follows the reference's trajectory.
 """
 from __future__ import annotations
 
@@ -24,33 +29,43 @@ import dataclasses
 import hashlib
 import json
 import os
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.normalize import LogStandardizer, mdrae, mdrae_per_column
-
-
-def _untrained(name: str) -> None:
-    """Training comes with the training slice; nothing here substitutes for
-    it."""
-    raise NotImplementedError(
-        f"{name} trains a performance model; torch training is not ported "
-        f"yet (the training slice: fit_perf_model, train/optim.py). Serve a "
-        f"committed model (ArtifactStore) or correct one (factor_correct).")
+from repro_torch.train import optim as optim_lib
+from repro_torch.train.optim import tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
 # MLP core
 # ---------------------------------------------------------------------------
 
-def init_mlp(*args, **kwargs) -> list:
-    _untrained("init_mlp")
+def generator_for(seed: int, column: Optional[int] = None) -> torch.Generator:
+    """The CPU generator initial parameters are drawn from: ``seed`` itself
+    for a single network (nn2), and for column ``j`` of an nn1 ensemble the
+    first 64-bit word of ``np.random.SeedSequence([seed, j])``, so every
+    column has its own stream (the reference splits ``PRNGKey(seed)`` into
+    one key per column)."""
+    if column is None:
+        return torch.Generator().manual_seed(int(seed))
+    word = np.random.SeedSequence([int(seed), int(column)]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(word))
 
 
-def train_mlp(*args, **kwargs):
-    _untrained("train_mlp")
+def init_mlp(sizes: Sequence[int], *, generator: torch.Generator,
+             device="cuda") -> list:
+    """He-initialised fully connected network ``sizes[0] -> ... -> sizes[-1]``
+    in the reference's ``(fan_in, fan_out)`` layout, zero biases. Drawn on
+    the CPU ``generator``, then moved to ``device``."""
+    params = []
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        w = torch.randn(fan_in, fan_out, generator=generator) * np.sqrt(2.0 / fan_in)
+        params.append({"w": w.to(device), "b": torch.zeros(fan_out, device=device)})
+    return params
 
 
 def mlp_apply(params: list, x: torch.Tensor) -> torch.Tensor:
@@ -61,17 +76,124 @@ def mlp_apply(params: list, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def masked_mse(params: list, x: torch.Tensor, y: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """MSE over defined entries only. ``y`` must already have NaNs replaced by
+    zeros (any finite value works; the mask kills their contribution AND their
+    gradient, exactly as the paper's masking does)."""
+    se = torch.square(mlp_apply(params, x) - y) * mask
+    return torch.sum(se) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 @contextlib.contextmanager
 def plain_fp32():
     """Plain fp32 matrix products for the duration: with TF32 the
     predictions move by ~1e-3 relative, enough to flip a selection, so
-    prediction never inherits the caller's global precision setting."""
+    neither training nor prediction inherits the caller's global precision
+    setting."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+# ---------------------------------------------------------------------------
+# Training loop with early stopping (paper Table 3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainResult:
+    params: list
+    train_losses: list
+    val_losses: list
+    best_val: float
+    iterations: int
+    seconds: float
+
+
+_INDEX_CHUNK = 256          # minibatch index rows uploaded at a time
+
+
+def _clone(params: list) -> list:
+    return tree_map(lambda t: t.detach().clone(), params)
+
+
+def train_mlp(sizes: Sequence[int],
+              x_train: np.ndarray, y_train: np.ndarray,
+              x_val: np.ndarray, y_val: np.ndarray,
+              lr: float = 1e-3,
+              weight_decay: float = 1e-5,
+              batch_size: int = 1024,
+              patience: int = 250,
+              max_iters: int = 20000,
+              init_params: Optional[list] = None,
+              eval_every: int = 20,
+              generator: Optional[torch.Generator] = None,
+              device="cuda") -> TrainResult:
+    """Adam + early stopping ("halt when validation has not improved for 250
+    iterations", paper Table 3) on ``device``, in plain fp32.
+    ``init_params`` given => fine-tuning (callers pass the lowered lr); they
+    are copied, never trained in place. Otherwise the network starts from
+    ``init_mlp(sizes, generator=generator)`` (``generator_for(0)`` if none).
+
+    The data go to the device once; each step indexes them there with the
+    reference's minibatch indices (``np.random.default_rng(0)``, drawn in
+    the reference's order and uploaded ``_INDEX_CHUNK`` steps at a time).
+    The host reads a loss only every ``eval_every`` steps."""
+    t0 = time.perf_counter()
+
+    def upload(a: np.ndarray, dtype=np.float32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    mask_train, mask_val = (upload(np.isfinite(y)) for y in (y_train, y_val))
+    y_tr, y_va = (upload(np.nan_to_num(y, nan=0.0)) for y in (y_train, y_val))
+    x_tr, x_va = upload(x_train), upload(x_val)
+
+    if init_params is not None:
+        params = tree_map(lambda t: t.detach().to(device).clone(), init_params)
+    else:
+        params = init_mlp(sizes, generator=generator or generator_for(0),
+                          device=device)
+    opt = optim_lib.adamw(lr, weight_decay=weight_decay)
+    opt_state = opt.init(params)
+
+    n = x_train.shape[0]
+    bs = min(batch_size, n)
+    rng = np.random.default_rng(0)
+    best_val, best_params, best_iter = np.inf, _clone(params), 0
+    train_losses, val_losses = [], []
+    it, chunk, chunk_at = 0, None, 0
+    with plain_fp32():
+        while it < max_iters:
+            if chunk is None or it - chunk_at == len(chunk):
+                rows = min(_INDEX_CHUNK, max_iters - it)
+                chunk = upload(np.stack([rng.integers(0, n, size=bs)
+                                         for _ in range(rows)]), np.int64)
+                chunk_at = it
+            idx = chunk[it - chunk_at]
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss = masked_mse(params, x_tr[idx], y_tr[idx], mask_train[idx])
+            grads = iter(torch.autograd.grad(loss, leaves))
+            params, opt_state = opt.update(
+                params, tree_map(lambda _: next(grads), params), opt_state)
+            it += 1
+            if it % eval_every == 0 or it == 1:
+                with torch.no_grad():
+                    vl = float(masked_mse(params, x_va, y_va, mask_val))
+                train_losses.append(float(loss.detach()))
+                val_losses.append(vl)
+                if vl < best_val - 1e-7:
+                    # updates make new tensors, but a clone keeps the best
+                    # parameters safe from any later in-place change
+                    best_val, best_params, best_iter = vl, _clone(params), it
+                elif it - best_iter > patience:
+                    break
+    return TrainResult(best_params, train_losses, val_losses, float(best_val),
+                       it, time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +228,9 @@ class PerfModel:
     n_outputs: int
     columns: Sequence[str]
     train_seconds: float = 0.0
+    # Adam steps the fit ran (nn1: summed over columns; None for lin and
+    # for a loaded model). Provenance only: not part of the saved state.
+    train_iterations: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -332,8 +457,101 @@ class PerfModel:
         return cls.from_state({"header": header, "arrays": data}, device)
 
 
-def fit_perf_model(*args, **kwargs) -> PerfModel:
-    _untrained("fit_perf_model")
+def _prep(feats, runtimes, in_norm=None, out_norm=None):
+    feats = np.asarray(feats, np.float64)
+    runtimes = np.asarray(runtimes, np.float64)
+    if in_norm is None:
+        in_norm = LogStandardizer(log=True).fit(feats)
+    if out_norm is None:
+        out_norm = LogStandardizer(log=True).fit(runtimes)
+    return in_norm, out_norm, in_norm.transform(feats), out_norm.transform(runtimes)
+
+
+def fit_perf_model(kind: str,
+                   feats_train: np.ndarray, runtimes_train: np.ndarray,
+                   feats_val: np.ndarray, runtimes_val: np.ndarray,
+                   columns: Optional[Sequence[str]] = None,
+                   seed: int = 0,
+                   base: Optional[PerfModel] = None,
+                   lr: Optional[float] = None,
+                   max_iters: int = 20000,
+                   patience: int = 250,
+                   device="cuda") -> PerfModel:
+    """Train a performance model of ``kind`` in {"lin", "nn1", "nn2"} with
+    its parameters on ``device``.
+
+    ``base`` given => transfer learning: reuse base normalizers and start
+    from base params with LR lowered 10x (paper §4.4) unless ``lr`` is set.
+    "lin" is the reference's closed-form ridge in numpy, cast to float32, so
+    its fingerprint is the reference's. nn2 draws its initial parameters
+    from ``generator_for(seed)``, nn1 column ``j`` from
+    ``generator_for(seed, j)``. As in the reference, an nn1 column with
+    fewer than 8 defined rows keeps its initial (untrained) network.
+    """
+    t0 = time.perf_counter()
+    n_out = np.asarray(runtimes_train).shape[1]
+    columns = list(columns) if columns is not None else [f"p{i}" for i in range(n_out)]
+    in_norm = base.in_norm if base is not None else None
+    out_norm = base.out_norm if base is not None else None
+    in_norm, out_norm, xt, yt = _prep(feats_train, runtimes_train, in_norm, out_norm)
+    xv = in_norm.transform(feats_val)
+    yv = out_norm.transform(runtimes_val)
+
+    if kind == "lin":
+        # Closed-form ridge per column on defined rows (baseline model).
+        lam = 1e-6
+        X = np.concatenate([xt, np.ones((xt.shape[0], 1), np.float32)], axis=1)
+        W = np.zeros((X.shape[1], n_out), np.float64)
+        for j in range(n_out):
+            m = np.isfinite(yt[:, j])
+            if m.sum() < X.shape[1]:
+                continue
+            A = X[m].astype(np.float64)
+            b = yt[m, j].astype(np.float64)
+            W[:, j] = np.linalg.solve(A.T @ A + lam * np.eye(A.shape[1]), A.T @ b)
+        f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        params = [{"w": f32(W[:-1]), "b": f32(W[-1])}]
+        return PerfModel("lin", in_norm, out_norm, params, n_out, columns,
+                         train_seconds=time.perf_counter() - t0)
+
+    if kind == "nn2":
+        sizes = (xt.shape[1],) + NN2_HIDDEN + (n_out,)
+        lr_eff = lr if lr is not None else (1e-4 if base is not None else 1e-3)
+        res = train_mlp(sizes, xt, yt, xv, yv, lr=lr_eff, weight_decay=1e-5,
+                        init_params=None if base is None else base.params,
+                        max_iters=max_iters, patience=patience,
+                        generator=generator_for(seed), device=device)
+        return PerfModel("nn2", in_norm, out_norm, res.params, n_out, columns,
+                         train_seconds=time.perf_counter() - t0,
+                         train_iterations=res.iterations)
+
+    if kind == "nn1":
+        # One small MLP per output column; single hyper-parameter set across
+        # all models (paper §4.2). Base model => per-column fine-tune.
+        sizes = (xt.shape[1],) + NN1_HIDDEN + (1,)
+        lr_eff = lr if lr is not None else (3e-4 if base is not None else 3e-3)
+        params, steps = [], 0
+        for j in range(n_out):
+            yj = yt[:, j:j + 1]
+            yvj = yv[:, j:j + 1]
+            m = np.isfinite(yj[:, 0])
+            if m.sum() < 8:  # too few points: the reference keeps the init
+                params.append(init_mlp(sizes, generator=generator_for(seed, j),
+                                       device=device))
+                continue
+            init_p = base.params[j] if base is not None else None
+            mv = np.isfinite(yvj[:, 0])
+            res = train_mlp(sizes, xt[m], yj[m], xv[mv], yvj[mv], lr=lr_eff,
+                            weight_decay=0.0, init_params=init_p,
+                            max_iters=max_iters, patience=patience,
+                            generator=generator_for(seed, j), device=device)
+            params.append(res.params)
+            steps += res.iterations
+        return PerfModel("nn1", in_norm, out_norm, params, n_out, columns,
+                         train_seconds=time.perf_counter() - t0,
+                         train_iterations=steps)
+
+    raise ValueError(f"unknown perf model kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------

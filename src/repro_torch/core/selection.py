@@ -11,9 +11,9 @@ cost (DESIGN.md §3), keeping inception-style graphs exactly reducible.
 
 The port of ``repro.core.selection``: the same graph, built in the same
 order from the same cost matrices, so ``select`` returns the reference's
-assignment. A ``ModelProvider`` predicts on its models' device. The
-reference's ``MeasuredProvider`` (its host-CPU profiler) is not ported; the
-port's measured provider will time on the GPU.
+assignment. A ``ModelProvider`` predicts on its models' device; the
+``MeasuredProvider`` times on the GPU (``profiler/device.py``), where the
+reference's timed the host CPU.
 """
 from __future__ import annotations
 
@@ -27,7 +27,9 @@ from repro_torch.core import pbqp
 from repro_torch.core.perfmodel import PerfModel
 from repro_torch.models.cnn_zoo import CNNSpec, ConvLayer
 from repro_torch.primitives import layouts as L
-from repro_torch.primitives.conv import PRIMITIVE_NAMES, compile_traits, resolve
+from repro_torch.primitives.conv import (PRIMITIVE_NAMES, RUNNABLE,
+                                        compile_traits, resolve)
+from repro_torch.profiler import device as device_profiler
 from repro_torch.profiler.simulators import (PLATFORMS, dlt_time_batch,
                                              primitive_time_batch)
 
@@ -47,7 +49,7 @@ class CostProvider(Protocol):
         ``layouts.dlt_pairs()`` order (identity excluded)."""
 
 
-_DLT_COLS = [L.dlt_name(s, d) for (s, d) in L.dlt_pairs() if s != d]
+_DLT_COLS = device_profiler.dlt_columns()
 
 
 class SimulatedProvider:
@@ -110,6 +112,28 @@ class ModelProvider:
 
     def dlt_cost_matrix(self, pairs: np.ndarray) -> np.ndarray:
         return self.dlt_model.predict(np.asarray(pairs, np.float64))
+
+
+class MeasuredProvider:
+    """Measured provider: profiles on demand on ``device`` (expensive — the
+    paper's point). Costs are the profiler's wall medians; ``columns`` may
+    name base primitives and tile columns alike."""
+
+    def __init__(self, repeats: int = 9, columns: Optional[Sequence[str]] = None,
+                 device="cuda"):
+        self.repeats = repeats
+        self.device = device
+        self.columns = list(columns) if columns is not None else list(RUNNABLE)
+
+    def primitive_cost_matrix(self, configs: np.ndarray) -> np.ndarray:
+        return device_profiler.profile_primitive_batch(
+            np.asarray(configs, int), self.columns, repeats=self.repeats,
+            device=self.device).wall
+
+    def dlt_cost_matrix(self, pairs: np.ndarray) -> np.ndarray:
+        return device_profiler.profile_dlt_batch(
+            np.asarray(pairs, int), repeats=self.repeats,
+            device=self.device).wall
 
 
 # ---------------------------------------------------------------------------

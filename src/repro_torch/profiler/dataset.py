@@ -11,8 +11,8 @@ split 80/10/10 after shuffling (paper §4.2).
 The port's own copy of ``repro.profiler.dataset`` (numpy only): the same
 rows, the same split and subsample draws, the same ``fingerprint`` bytes and
 the same npz payload, so a dataset keys one artifact address in both
-packages. The port profiles no real device yet; its datasets come from the
-simulators.
+packages. Measured datasets come from the GPU profiler
+(``profiler/device.py``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Service layer of the port: platform abstraction, artifact store, the
-profile → model → select pipeline and the pump-mode serving core.
+"""Service layer of the port: platform abstraction (the simulated platforms
+and the measured GPU), artifact store, the profile → model → select
+pipeline and the pump-mode serving core.
 
     from repro_torch.service import ArtifactStore, OptimisedServer, optimise
 
@@ -8,12 +9,19 @@ profile → model → select pipeline and the pump-mode serving core.
                    max_iters=2000, executable=True)
     server = OptimisedServer(max_batch=8)
     server.register(opt)
+
+    # the paper's transfer: a simulated platform's model onto the card
+    intel = get_platform("intel").pretrain(store=store, max_iters=2000)
+    gpu = GpuPlatform(configs=..., dlt_pairs=..., store=store)
+    opt = optimise("edge_cnn", gpu, base=intel, budget=28, mode="finetune",
+                   store=store, executable=True)
 """
 from repro_torch.service.artifacts import ArtifactStore, digest
 from repro_torch.service.pipeline import (OptimisedNetwork, optimise,
                                           reoptimise, safe_assignment)
-from repro_torch.service.platforms import (Platform, PlatformModels,
-                                           SimulatedPlatform, get_platform)
+from repro_torch.service.platforms import (GpuPlatform, Platform,
+                                           PlatformModels, SimulatedPlatform,
+                                           get_platform)
 from repro_torch.service.serving.server import OptimisedServer
 from repro_torch.service.store_backends import (BackendError, LocalDirBackend,
                                                 ObjectStoreBackend,
@@ -21,7 +29,8 @@ from repro_torch.service.store_backends import (BackendError, LocalDirBackend,
                                                 get_backend)
 
 __all__ = [
-    "ArtifactStore", "BackendError", "LocalDirBackend", "ObjectStoreBackend",
+    "ArtifactStore", "BackendError", "GpuPlatform", "LocalDirBackend",
+    "ObjectStoreBackend",
     "OptimisedNetwork", "OptimisedServer", "Platform", "PlatformModels",
     "ScriptedFaults", "SimulatedPlatform", "StoreBackend", "digest",
     "get_backend", "get_platform", "optimise", "reoptimise",

@@ -40,7 +40,7 @@ free recalibration.
 The port of ``repro.service.artifacts``: ``digest``, the key fields, the
 layout and the payloads (``model.npz``, ``data.json``, ``dataset.npz``) are
 the reference's, so either package reads what the other wrote. The store
-also names the device its loaded models go to (``device``).
+also names the device its models load onto and train on (``device``).
 """
 from __future__ import annotations
 
@@ -88,7 +88,8 @@ class ArtifactStore:
         local directory at ``root``. ``clock`` stamps manifests and drives
         age-gated GC — injectable for deterministic fleet tests.
         ``device`` is where ``get_model`` and ``get_or_train`` place the
-        models they load."""
+        models they load, and where the platforms train the models a miss
+        asks for."""
         if keep is not None and keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         if backend is None:

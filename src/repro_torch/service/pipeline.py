@@ -5,11 +5,12 @@ port of ``repro.service.pipeline``.
 arrive on a platform, obtain performance models (warm-loaded from an
 ``ArtifactStore``, or calibrated from another platform's base model), solve
 the PBQP, and hand back an assignment ready for the plan compiler and the
-server. The models predict on the store's device (``ArtifactStore(...,
-device=)``). Selection addresses are the reference's, so a selection either
-package stored warm-starts the other. ``OptimisedNetwork.from_assignment``
-wraps an assignment made elsewhere (a heuristic baseline, a hand-written
-plan) for serving.
+server. The models train and predict on the store's device
+(``ArtifactStore(..., device=)``), or without a store on ``device``. Model
+and selection addresses are the reference's, so what either package stored
+warm-starts the other. ``OptimisedNetwork.from_assignment`` wraps an
+assignment made elsewhere (a heuristic baseline, a hand-written plan) for
+serving.
 """
 from __future__ import annotations
 
@@ -114,6 +115,7 @@ def optimise(net: Union[str, CNNSpec],
              executable: bool = False,
              seed: int = 0,
              max_iters: Optional[int] = None,
+             device="cuda",
              **platform_kwargs) -> OptimisedNetwork:
     """Optimise ``net`` for ``platform`` end to end.
 
@@ -125,8 +127,8 @@ def optimise(net: Union[str, CNNSpec],
     * ``executable=True`` restricts selection to runnable primitives so the
       assignment can be compiled and served.
 
-    Models come from the store on its device; without a store, or on a
-    store miss, pretraining raises (torch training is not ported yet).
+    Models come from the store on its device; a store miss trains them
+    there. Without a store they train on ``device``.
     """
     t0 = time.perf_counter()
     platform = get_platform(platform, **platform_kwargs)
@@ -139,9 +141,10 @@ def optimise(net: Union[str, CNNSpec],
     if models is None:
         if base is not None:
             models = platform.calibrate(base, budget, mode=mode, store=store,
-                                        seed=seed, **iters)
+                                        seed=seed, device=device, **iters)
         else:
-            models = platform.pretrain(kind, store=store, seed=seed, **iters)
+            models = platform.pretrain(kind, store=store, seed=seed,
+                                       device=device, **iters)
 
     columns = _executable_columns(models.prim) if executable else list(models.prim.columns)
     provider = models.provider(columns=columns if executable else None)
@@ -189,7 +192,8 @@ def reoptimise(opt: OptimisedNetwork,
                store: Optional[ArtifactStore] = None,
                seed: int = 0,
                max_iters: Optional[int] = None,
-               executable: Optional[bool] = None) -> OptimisedNetwork:
+               executable: Optional[bool] = None,
+               device="cuda") -> OptimisedNetwork:
     """Re-optimise an already-optimised network from fresh measurements —
     the serving drift loop's entry point (DESIGN.md §8.3, §8.5).
 
@@ -213,6 +217,8 @@ def reoptimise(opt: OptimisedNetwork,
 
     ``executable``: None infers it from ``opt`` (a selection restricted to
     fewer columns than its models was an ``executable=True`` optimise).
+
+    ``device``: where fine-tuned or scratch models train without a store.
     """
     if opt.platform is None or opt.models is None:
         raise ValueError("reoptimise needs an OptimisedNetwork produced by "
@@ -221,7 +227,8 @@ def reoptimise(opt: OptimisedNetwork,
     models = opt.platform.calibrate(opt.models, budget, mode=mode,
                                     sample=sample, served=served,
                                     pooled=pooled, sample_n=sample_n,
-                                    store=store, seed=seed, **iters)
+                                    store=store, seed=seed, device=device,
+                                    **iters)
     if executable is None:
         executable = list(opt.columns) != list(opt.models.prim.columns)
     return optimise(opt.spec, opt.platform, models=models, store=store,

@@ -19,12 +19,12 @@ warm-start in milliseconds instead of retraining (Table 4, operational).
 
 The port of ``repro.service.platforms``. The simulated platforms (intel,
 amd, arm) are ported in full, with the reference's model and selection
-addresses, so a store the reference filled warm-starts the port. What
-trains refuses until the training slice brings torch training: a
-``pretrain`` that misses the store, and ``calibrate`` in ``finetune`` or
-``scratch`` mode (``auto`` resolves to ``finetune`` on a sample of 24 rows
-or more). ``calibrate(mode="factor")`` works in full. The host-CPU and
-Pallas platforms are not ported: the port's measured platform is the GPU.
+addresses, so a store the reference filled warm-starts the port and the
+other way round. Models train on the store's device, or without a store on
+an explicit ``device`` (``cuda`` by default). The port's measured platform
+is ``GpuPlatform``: the reference's host-CPU platform moved onto the card,
+and the measured form of its Pallas platform (tile columns timed through
+the hand-written kernels instead of priced by an analytic TPU surface).
 """
 from __future__ import annotations
 
@@ -34,12 +34,16 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from repro_torch.core.autotune import pallas_columns
 from repro_torch.core.perfmodel import (FactorCorrectedModel, PerfModel,
                                         factor_correct, fit_perf_model)
-from repro_torch.core.selection import (CostProvider, ModelProvider,
-                                        SimulatedProvider)
-from repro_torch.primitives.conv import PRIMITIVE_NAMES
+from repro_torch.core.selection import (CostProvider, MeasuredProvider,
+                                        ModelProvider, SimulatedProvider)
+from repro_torch.primitives.conv import (PRIMITIVE_NAMES, RUNNABLE,
+                                         is_runnable, split_tile)
+from repro_torch.profiler import device as device_profiler
 from repro_torch.profiler import pools
 from repro_torch.profiler.dataset import (PerfDataset, merge_served,
                                           simulate_dlt_dataset,
@@ -146,19 +150,20 @@ class Platform(abc.ABC):
                 "role": role, **extra}
 
     def pretrain_prim(self, kind: str = "nn2", *, store=None, seed: int = 0,
-                      max_iters: int = 4000,
-                      patience: int = 250) -> "Tuple[PerfModel, bool]":
+                      max_iters: int = 4000, patience: int = 250,
+                      device="cuda") -> "Tuple[PerfModel, bool]":
         """Native primitive model: (model, warm). This is THE artifact
         address for a natively trained primitive model on this platform —
         benchmarks and ``pretrain`` route through it, so the same logical
         model is stored exactly once (ROADMAP "one keying scheme")."""
+        device = _train_device(store, device)
 
         def train() -> PerfModel:
             tr, va, _ = self.primitive_dataset().split()
             return fit_perf_model(kind, tr.feats, tr.times, va.feats, va.times,
                                   columns=self.primitive_dataset().columns,
                                   seed=seed, max_iters=max_iters,
-                                  patience=patience)
+                                  patience=patience, device=device)
 
         return _get_or_train(
             store, self._model_fields("prim", kind, seed=seed,
@@ -167,22 +172,24 @@ class Platform(abc.ABC):
             train)
 
     def pretrain_dlt(self, kind: str = "lin", *, store=None, seed: int = 0,
-                     max_iters: int = 1500) -> "Tuple[PerfModel, bool]":
+                     max_iters: int = 1500, device="cuda") -> "Tuple[PerfModel, bool]":
         """Native DLT model: (model, warm) — same single-address contract as
         ``pretrain_prim``."""
-        return self._native_dlt(kind, seed, max_iters, store)
+        return self._native_dlt(kind, seed, max_iters, store, device)
 
     def pretrain(self, kind: str = "nn2", *, store=None, seed: int = 0,
                  max_iters: int = 4000, patience: int = 250,
-                 dlt_kind: str = "lin", dlt_max_iters: int = 1500) -> PlatformModels:
+                 dlt_kind: str = "lin", dlt_max_iters: int = 1500,
+                 device="cuda") -> PlatformModels:
         """Native path: train (or warm-load) performance models from this
-        platform's full profiled dataset."""
+        platform's full profiled dataset, on the store's device (without a
+        store on ``device``)."""
         t0 = time.perf_counter()
         prim, prim_warm = self.pretrain_prim(kind, store=store, seed=seed,
                                              max_iters=max_iters,
-                                             patience=patience)
+                                             patience=patience, device=device)
         dlt, dlt_warm = self.pretrain_dlt(dlt_kind, store=store, seed=seed,
-                                          max_iters=dlt_max_iters)
+                                          max_iters=dlt_max_iters, device=device)
         return PlatformModels(prim, dlt, self.fingerprint(), "native",
                               warm=prim_warm and dlt_warm,
                               seconds=time.perf_counter() - t0)
@@ -192,7 +199,7 @@ class Platform(abc.ABC):
                   sample=None, served=None, pooled=None, sample_n: int = 16,
                   seed: int = 0, max_iters: int = 2000,
                   patience: int = 150, dlt_kind: str = "lin",
-                  dlt_max_iters: int = 1500) -> PlatformModels:
+                  dlt_max_iters: int = 1500, device="cuda") -> PlatformModels:
         """Transfer path (§4.4): profile a ``budget`` sample of this platform
         (fraction if < 1, row count if >= 1), then correct ``base`` onto it.
 
@@ -224,8 +231,12 @@ class Platform(abc.ABC):
         Deterministic: the merged sample's fingerprint keys the artifact,
         so two hosts pooling identical evidence warm-load byte-identical
         corrected models.
+
+        Fine-tuned and scratch models train on the store's device, or on
+        ``device`` without a store.
         """
         t0 = time.perf_counter()
+        device = _train_device(store, device)
         sample_info = None
         pooled = [d for d in (pooled or []) if d is not None and d.n]
         if pooled:
@@ -292,7 +303,8 @@ class Platform(abc.ABC):
                                   columns=target_cols,
                                   seed=seed,
                                   base=None if mode == "scratch" else ft_base,
-                                  max_iters=max_iters, patience=patience)
+                                  max_iters=max_iters, patience=patience,
+                                  device=device)
 
         extra = dict(seed=seed, mode=mode, budget=budget,
                      sample=sample.fingerprint(), fill=fill,
@@ -311,7 +323,8 @@ class Platform(abc.ABC):
         # the DLT model is 2-feature/6-column — native training is cheap, so
         # it is not worth transferring; it is also independent of the
         # calibration sample, hence trained at a fixed seed and memoised
-        dlt, dlt_warm = self._native_dlt(dlt_kind, 0, dlt_max_iters, store)
+        dlt, dlt_warm = self._native_dlt(dlt_kind, 0, dlt_max_iters, store,
+                                         device)
         return PlatformModels(prim, dlt, self.fingerprint(), mode,
                               budget=budget, warm=prim_warm and dlt_warm,
                               seconds=time.perf_counter() - t0,
@@ -410,9 +423,12 @@ class Platform(abc.ABC):
         self._dlt_ds = None
         self._dlt_models = {}
 
-    def _native_dlt(self, kind: str, seed: int, max_iters: int, store):
+    def _native_dlt(self, kind: str, seed: int, max_iters: int, store,
+                    device="cuda"):
         """Native DLT model, memoised per platform instance (one training
-        per (kind, seed, iters) no matter how many calibrations ask)."""
+        per (kind, seed, iters) no matter how many calibrations ask, on
+        whichever device it first trained or loaded)."""
+        device = _train_device(store, device)
         memo = getattr(self, "_dlt_models", None)
         if memo is None:
             memo = self._dlt_models = {}
@@ -425,7 +441,7 @@ class Platform(abc.ABC):
             tr, va, _ = ds.split()
             return fit_perf_model(kind, tr.feats, tr.times, va.feats,
                                   va.times, columns=ds.columns, seed=seed,
-                                  max_iters=max_iters)
+                                  max_iters=max_iters, device=device)
 
         model, warm = _get_or_train(
             store, self._model_fields("dlt", kind, seed=seed,
@@ -433,6 +449,12 @@ class Platform(abc.ABC):
             train)
         memo[key] = model
         return model, warm
+
+
+def _train_device(store, device):
+    """Where a model trains: the store's device, where it would warm-load
+    (``device`` is for training without a store)."""
+    return device if store is None else store.device
 
 
 def _get_or_train(store, fields: dict, train_fn):
@@ -520,18 +542,181 @@ class SimulatedPlatform(Platform):
         return f"sim/{self.name}/noisy={int(self.noisy)}/mt={self.max_triplets}"
 
 
+class GpuPlatform(Platform):
+    """The CUDA card behind the Platform interface — measured, reduced
+    scale, genuinely expensive profiling (the cost the paper eliminates).
+
+    The port's counterpart of the reference's ``HostPlatform`` on the card,
+    and the measured form of its ``PallasPlatform``: ``primitives`` may name
+    base primitives and tile columns ``<base>@<variant>`` alike, the latter
+    timed through the hand-written kernels a compiled plan launches
+    (``profiler/device.py``). The default columns are the 21 runnable
+    primitives and the 55 tile columns of ``autotune.pallas_columns()``.
+    ``base_column`` strips the tile suffix, so ``calibrate`` expands a base
+    model over plain primitives onto the tile columns.
+
+    Datasets persist through ``store`` under a measurement-independent
+    address (pool, repeats, columns, ``device_machine_id``): the wall
+    dataset the models train on and, beside it, the CUDA-event device times
+    of the same calls (``device_dataset``). ``invalidate_datasets`` drops
+    both. ``device`` defaults to ``cuda``, and without a card the platform
+    refuses to start; ``device="cpu"`` is for the tests.
+    """
+
+    name = "gpu"
+
+    def __init__(self, *, configs: Optional[Sequence] = None,
+                 dlt_pairs: Optional[Sequence] = None,
+                 primitives: Optional[Sequence[str]] = None,
+                 repeats: int = 9, store=None, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("GpuPlatform profiles a CUDA device and none is "
+                               "available (device='cpu' is for the tests)")
+        self.repeats = repeats
+        self.store = store
+        self._primitives = (list(primitives) if primitives is not None
+                            else list(RUNNABLE) + pallas_columns())
+        unrunnable = [c for c in self._primitives if not is_runnable(c)]
+        if unrunnable:
+            raise ValueError(f"cannot profile columns {unrunnable}: not runnable")
+        self._configs = [tuple(map(int, c)) for c in configs] if configs is not None else None
+        self._dlt_pairs = [tuple(map(int, p)) for p in dlt_pairs] if dlt_pairs is not None else None
+        self._prim_ds: Optional[PerfDataset] = None
+        self._dlt_ds: Optional[PerfDataset] = None
+        self._device_ds: Dict[str, PerfDataset] = {}
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._primitives)
+
+    def base_column(self, column: str) -> str:
+        return split_tile(column)[0]
+
+    def profile(self, configs: np.ndarray) -> np.ndarray:
+        return device_profiler.profile_primitive_batch(
+            np.asarray(configs, int), self._primitives, repeats=self.repeats,
+            device=self.device).wall
+
+    def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
+        return device_profiler.profile_dlt_batch(
+            np.asarray(pairs, int), repeats=self.repeats,
+            device=self.device).wall
+
+    def _pool(self, role: str):
+        """The configs (``prim``) or DLT pairs (``dlt``) to profile: the
+        given ones, else the reference host platform's default pools."""
+        if role == "prim":
+            return (self._configs if self._configs is not None
+                    else pools.config_pool(max_triplets=12))
+        return (self._dlt_pairs if self._dlt_pairs is not None
+                else pools.dlt_pool(max_pairs=12))
+
+    def _sample_pool(self):
+        return self._pool("prim")
+
+    def _dataset_fields(self, role: str, quantity: str) -> dict:
+        """Measurement-independent dataset address: the pool that would be
+        profiled, the repeat count, the columns, the quantity (``wall`` or
+        ``device`` seconds) and the machine identity — NOT the measured
+        times (those are what the address retrieves)."""
+        return {"artifact": "perf_dataset", "role": role, "quantity": quantity,
+                "machine": device_machine_id(self.device),
+                "repeats": self.repeats,
+                "pool": [list(map(int, p)) for p in self._pool(role)],
+                "primitives": self._primitives if role == "prim" else None}
+
+    def _load(self, role: str) -> PerfDataset:
+        """The wall dataset of ``role`` (its device twin kept beside it):
+        from the store when it holds both, else profiled now and stored."""
+        fields = {q: self._dataset_fields(role, q) for q in ("wall", "device")}
+        ds = None
+        if self.store is not None:
+            got = [self.store.get_dataset(fields[q]) for q in ("wall", "device")]
+            if all(d is not None for d in got):
+                ds = device_profiler.Timing(*got)
+        if ds is None:
+            if role == "prim":
+                ds = device_profiler.profile_primitive_dataset(
+                    self._pool(role), primitives=self._primitives,
+                    repeats=self.repeats, device=self.device)
+            else:
+                ds = device_profiler.profile_dlt_dataset(
+                    self._pool(role), repeats=self.repeats, device=self.device)
+            if self.store is not None:
+                self.store.put_dataset(fields["wall"], ds.wall)
+                self.store.put_dataset(fields["device"], ds.device)
+        self._device_ds[role] = ds.device
+        return ds.wall
+
+    def primitive_dataset(self) -> PerfDataset:
+        if self._prim_ds is None:
+            self._prim_ds = self._load("prim")
+        return self._prim_ds
+
+    def dlt_dataset(self) -> PerfDataset:
+        if self._dlt_ds is None:
+            self._dlt_ds = self._load("dlt")
+        return self._dlt_ds
+
+    def device_dataset(self, role: str = "prim") -> PerfDataset:
+        """CUDA-event device seconds of the calls behind the ``role``
+        dataset (``prim`` or ``dlt``), profiled with it."""
+        (self.primitive_dataset if role == "prim" else self.dlt_dataset)()
+        return self._device_ds[role]
+
+    def invalidate_datasets(self) -> None:
+        """Also drop the PERSISTED datasets: their address is
+        measurement-independent, so without this the next profiling pass
+        would warm-load the stale measurements from the store."""
+        super().invalidate_datasets()
+        self._device_ds = {}
+        if self.store is not None:
+            for role in ("prim", "dlt"):
+                for q in ("wall", "device"):
+                    self.store.delete("datasets", self._dataset_fields(role, q))
+
+    def cost_provider(self) -> MeasuredProvider:
+        return MeasuredProvider(repeats=self.repeats, columns=self._primitives,
+                                device=self.device)
+
+    def fingerprint(self) -> str:
+        import hashlib
+        cols = hashlib.sha256("|".join(self._primitives).encode()).hexdigest()[:8]
+        return (f"{device_profiler.platform_label(self.device)}"
+                f"/r={self.repeats}/cols={cols}")
+
+
+def device_machine_id(device="cuda") -> str:
+    """Stable identity of the measuring device for dataset addressing: a
+    profiled dataset is only valid on hardware that looks like the one that
+    measured it — on a card its name, SM count and memory and the CUDA
+    runtime; on the CPU the host (name, architecture, cores)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        p = torch.cuda.get_device_properties(device)
+        return (f"{p.name}/sms={p.multi_processor_count}"
+                f"/mem={p.total_memory >> 20}MiB/cuda={torch.version.cuda}")
+    import os
+    import platform as _stdlib_platform
+    u = _stdlib_platform.uname()
+    return f"cpu/{u.node}/{u.machine}/cpus={os.cpu_count()}"
+
+
 def get_platform(spec: Union[str, Platform], **kwargs) -> Platform:
-    """'intel' / 'amd' / 'arm' -> SimulatedPlatform; a Platform instance
-    passes through (kwargs then disallowed). The reference's 'host' and
-    'tpu' / 'pallas' platforms are not ported: the port's measured platform
-    is the GPU, which comes with the GPU profiling slice."""
+    """'intel' / 'amd' / 'arm' -> SimulatedPlatform, 'gpu' -> GpuPlatform; a
+    Platform instance passes through (kwargs then disallowed). The
+    reference's 'host' and 'tpu' / 'pallas' platforms are not ported: the
+    port's measured platform is 'gpu'."""
     if isinstance(spec, Platform):
         if kwargs:
             raise TypeError("cannot re-configure an existing Platform")
         return spec
+    if spec == "gpu":
+        return GpuPlatform(**kwargs)
     if spec in ("host", "tpu", "pallas"):
         raise NotImplementedError(
-            f"platform {spec!r} is not ported: the port profiles the GPU, "
-            f"which comes with the GPU profiling slice (an H100 platform "
-            f"priced by measured kernel times)")
+            f"platform {spec!r} is not ported: the port's measured platform "
+            f"is 'gpu' (GpuPlatform, tile columns timed through the "
+            f"hand-written kernels)")
     return SimulatedPlatform(spec, **kwargs)

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 card, at every tile the variant tables name and every epilogue combination;
-and the selection path's performance models on the card against the CPU
-(``-k select``: predictions at rtol=2e-5, the same assignments).
+the selection path's performance models on the card against the CPU
+(``-k select``: predictions at rtol=2e-5, the same assignments); training
+and profiling on the card (``-k "train or profile"``: a card fit against
+the CPU's, repeatable fits, profiled tile columns through the kernels).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -703,3 +705,117 @@ def test_gpu_select_models_hold_cuda_tensors(cuda, tmp_path):
     sample = opt.platform.measure_sample(16)
     fixed = factor_correct(opt.models.prim, sample.feats, sample.times)
     assert fixed.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# Training and profiling on the card
+# ---------------------------------------------------------------------------
+
+def _train_surface(seed=1, n=400):
+    """The reference test's monomial surface (``tests/test_perfmodel.py``)."""
+    rng = np.random.default_rng(seed)
+    feats = np.exp(rng.uniform(0, 3, (n, 5)))
+    times = np.exp(np.log(feats) @ rng.uniform(0.5, 2.0, (5, 3))) * 1e-6
+    times *= np.exp(rng.normal(0, 0.02, times.shape))
+    times[rng.random((n, 3)) < 0.1] = np.nan
+    return feats, times
+
+
+def test_gpu_train_fit_matches_cpu_band(cuda):
+    """The same nn2 fit (seed, initial parameters, minibatches) on the card
+    and on the CPU: both under the reference test's 0.2 and within 1.5x +
+    0.02 of each other's MdRAE."""
+    from repro_torch.core.perfmodel import fit_perf_model
+    f, t = _train_surface()
+    args = (f[:300], t[:300], f[300:350], t[300:350])
+    card = fit_perf_model("nn2", *args, max_iters=1500, patience=150)
+    host = fit_perf_model("nn2", *args, max_iters=1500, patience=150, device="cpu")
+    assert card.device.type == "cuda"
+    got, want = card.mdrae(f[350:], t[350:]), host.mdrae(f[350:], t[350:])
+    assert got < 0.2 and want < 0.2
+    assert got <= 1.5 * want + 0.02 and want <= 1.5 * got + 0.02, (got, want)
+
+
+def test_gpu_train_same_seed_same_fingerprint(cuda):
+    """Two same-seed fits on the card are bit for bit the same model: no
+    atomics in the forward, backward or update, TF32 off throughout."""
+    from repro_torch.core.perfmodel import fit_perf_model
+    f, t = _train_surface()
+    args = (f[:300], t[:300], f[300:350], t[300:350])
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")     # training ignores it
+    try:
+        a, b = (fit_perf_model(kind, *args, max_iters=300)
+                for kind in ("nn2", "nn2"))
+        c, d = (fit_perf_model("nn1", *args, max_iters=100) for _ in range(2))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert a.fingerprint() == b.fingerprint()
+    assert c.fingerprint() == d.fingerprint()
+
+
+def _profile_config(col):
+    """One applicable config per tile column, at edge_cnn-like widths."""
+    from repro_torch.primitives.conv import resolve
+    fam = resolve(col).family
+    return {"c1x1": (32, 32, 26, 1, 1), "wino3": (32, 32, 24, 1, 3)}.get(
+        fam, (48, 32, 22, 2, 3))
+
+
+def test_gpu_profile_tile_columns_launch_the_kernels(cuda):
+    """Profiling tile columns on the card launches the matmul, the
+    implicit-GEMM conv and the Winograd point-GEMM with its transforms;
+    every time is finite and positive, device times included."""
+    from repro_torch.core.autotune import pallas_columns
+    from repro_torch.profiler.device import profile_primitive_batch
+    cols = pallas_columns()
+    cfgs = sorted({_profile_config(c) for c in cols})
+    common.reset_launches()
+    t = profile_primitive_batch(cfgs, cols, repeats=3)
+    for k in ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
+              "winograd_input_transform", "winograd_inverse_transform"):
+        assert common.LAUNCHES[k] > 0, k
+    for k in ("matmul_batch", "conv_im2col", "winograd_point_gemm", "flash_attention"):
+        assert common.LAUNCHES[k] == 0, k
+    ok = np.isfinite(t.wall)
+    assert ok.sum() >= len(cols) and np.array_equal(ok, np.isfinite(t.device))
+    assert (t.wall[ok] > 0).all() and (t.device[ok] > 0).all()
+
+
+def test_gpu_profile_tile_column_output_matches_base(cuda):
+    """Every profiled tile column computes its base primitive's output
+    within 1e-3 on one config (the kernel route against plain torch)."""
+    from repro_torch.core.autotune import pallas_columns
+    from repro_torch.primitives.conv import run_primitive, split_tile
+    from repro_torch.profiler.device import column_callable
+    gen = torch.Generator().manual_seed(0)
+    for col in pallas_columns():
+        k, c, im, s, f = _profile_config(col)
+        x = _cuda_rand(gen, c, im, im)
+        w = _cuda_rand(gen, k, c, f, f, scale=(c * f * f) ** -0.5)
+        torch.testing.assert_close(column_callable(col, s)(x, w),
+                                   run_primitive(split_tile(col)[0], x, w, s),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_gpu_profile_platform_persists_on_the_card(cuda, tmp_path):
+    """A small GpuPlatform on the card: profiled once into the store, warm
+    on a second instance, models trained there, factor calibration from a
+    base over plain primitives onto its tile columns."""
+    from repro_torch.core.autotune import pallas_columns
+    from repro_torch.service import ArtifactStore, GpuPlatform, get_platform
+    store = ArtifactStore(str(tmp_path))
+    cols = ["im2col-copy-ab-ki", "direct-sum2d"] + pallas_columns()[:6]
+    pool = [(16, 3, 32, 1, 3), (32, 16, 30, 1, 3), (32, 32, 26, 1, 1), (48, 32, 22, 2, 3)]
+    pairs = [(3, 32), (16, 30), (32, 26), (32, 22), (48, 10), (64, 8)]
+    mk = lambda: GpuPlatform(configs=pool, dlt_pairs=pairs, primitives=cols,
+                             repeats=3, store=store)
+    gpu = mk()
+    ds = gpu.primitive_dataset()
+    assert np.isfinite(ds.times).any() and ds.platform == "gpu"
+    assert gpu.fingerprint().startswith("gpu/r=3/cols=")
+    again = mk()
+    assert again.primitive_dataset().fingerprint() == ds.fingerprint()
+    base = get_platform("arm", max_triplets=4).pretrain("lin", store=store)
+    models = again.calibrate(base, 2, mode="factor", store=store)
+    assert list(models.prim.columns) == cols and models.dlt.device.type == "cuda"
