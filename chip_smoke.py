@@ -83,6 +83,33 @@ two transforms too, flash attention). Phases, each of which asserts:
    assignment and the heuristic (and the seconds the measured selection
    took), and the selected plan served at b=8 against the oracle with its
    kernel launches.
+8. The concurrent serving core (after the pump-mode img/s of phases 2-7),
+   in phase 7's temporary directory: (a) ``OptimisedServer(workers=2)``
+   with the three phase-2 paths, four client threads sending 64 requests to
+   each path; each worker's stream not the default one, every response
+   held to the oracle, no failed or degraded dispatch, both workers
+   dispatching, the paths' kernels launched; img/s per path at b=8 with
+   the three paths loaded at once (one client thread a path,
+   ``SERVE_WINDOW_S`` windows), beside the pump mode's, and what those
+   windows were made of: images per dispatch, host ms of one dispatch,
+   queue wait, the share of the wall time in which one and both workers
+   were executing, and the device's busy share of one profiled window; (b) the
+   fault drill: a persistent ``raise`` on one backend of edge_cnn / PBQP —
+   its tickets served degraded by the safe plan on the card and held to
+   the oracle, its breaker open after three failed dispatches, traffic
+   spilling to the other backend, the breaker closed by a half-open probe
+   once the faults end — then a ``corrupt`` output caught and retried, and
+   a ``hang`` abandoned at the execution deadline, rescued degraded, its
+   worker replaced; (c) the drift drill: phase 7's transferred plan with a
+   canary and ``make_recalibrator(mode="factor")``; a ``slowdown`` of three
+   mean dispatch times sets off exactly one recalibration on the measured
+   platform from the served observations, canaried and hot-swapped to
+   generation 1, with its seconds, profiled and served rows and launches,
+   every response before and after held to the oracle; (d) edge_cnn routed
+   over an ``arm`` backend (the committed models' plan) and a ``gpu``
+   backend (phase 7's), each backend's requests and predicted per-image
+   cost, both held to the oracle, then one unregistered; (e) the serving
+   CLI on a copy of ``artifacts/``.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -187,6 +214,14 @@ RATE_WINDOWS, RATE_WINDOW_S = 5, 2.0      # served img/s: windows per path, seco
 TOP_DEVICE_OPS = 8                        # device ops listed per profiled burst
 TOP_SIGNATURES = 4                        # costliest signatures listed per pass of a kernel
                                           # outside the tensor cores
+SERVE_WINDOW_S = 1.0                      # phase 8 (a): seconds per img/s window
+DRILL_HANG_S = 1.0                        # phase 8 (b): the injected hang ...
+DRILL_DEADLINE_MS = 250.0                 # ... and the deadline that abandons it
+DRILL_COOLDOWN_MS = 500.0                 # breaker hold before its half-open probe
+DRIFT_CALIB_OBS = 8                       # phase 8 (c): dispatches that set the reference
+DRIFT_ALPHA = 0.1                         # EWMA weight: one clamped 8x outlier moves it
+                                          # 0.21 < log 1.5, a sustained 4x trips it in 4
+DRIFT_MAX_BURSTS = 12                     # slowed bursts allowed to trip the monitor
 
 
 def main() -> int:
@@ -301,12 +336,18 @@ def main() -> int:
     selection = selection_phase(torch, server, nets, weights, launches,
                                 serve_err, args.seed, rng, smi)
 
-    # -- phase 7: the transfer onto the card, served -----------------------
-    transfer = transfer_phase(torch, server, nets, weights, launches,
-                              serve_err, args.seed, rng, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as td:
+        # -- phase 7: the transfer onto the card, served -------------------
+        transfer, transferred = transfer_phase(
+            torch, server, nets, weights, launches, serve_err, args.seed,
+            rng, smi, Path(td))
 
-    rates = {name: images_per_s(server, nets[name], rng) for name in nets}
-    busy = {name: device_busy(server, nets[name], rng) for name in nets}
+        rates = {name: images_per_s(server, nets[name], rng) for name in nets}
+        busy = {name: device_busy(server, nets[name], rng) for name in nets}
+
+        # -- phase 8: the concurrent serving core on the card --------------
+        serving = serving_phase(torch, nets, weights, launches, transferred,
+                                rates, rng, smi, Path(td))
 
     # -- report -----------------------------------------------------------
     summary = {k: {"launches": {p: launches[p][k] for p in launches},
@@ -357,6 +398,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print("selection: " + json.dumps(selection))
     print("transfer: " + json.dumps(transfer))
+    print("serving: " + json.dumps(serving))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -460,7 +502,6 @@ def device_busy(server, opt, rng):
     CPU-side rows, which Kineto tags with their kernel's time, and user
     annotations are left out, so no device time counts twice. Busy ms is
     None when the profiler recorded no device event."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs = list(images(rng, opt.spec, 8))
     server.serve(opt.net, reqs)
@@ -468,6 +509,19 @@ def device_busy(server, opt, rng):
         t0 = time.perf_counter()
         server.serve(opt.net, reqs)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, evs = device_events(prof)
+    by_op = {}
+    for e in evs:
+        by_op[e.name[:90]] = by_op.get(e.name[:90], 0.0) + e.time_range.elapsed_us() * 1e-3
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
+    return busy_ms, wall_ms, ranked, by_launching_op(prof, evs)
+
+
+def device_events(prof):
+    """(device-busy ms, device events) of one profile: the events are the
+    device's own (kernels and copies, no user annotations), busy time the
+    union of their intervals; None when it recorded no device event."""
+    from torch.autograd import DeviceType
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not e.is_user_annotation]
     busy_us, end = 0.0, float("-inf")
@@ -475,12 +529,7 @@ def device_busy(server, opt, rng):
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    by_op = {}
-    for e in evs:
-        by_op[e.name[:90]] = by_op.get(e.name[:90], 0.0) + e.time_range.elapsed_us() * 1e-3
-    ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
-    return ((busy_us * 1e-3 if evs else None), wall_ms, ranked,
-            by_launching_op(prof, evs))
+    return (busy_us * 1e-3 if evs else None), evs
 
 
 def by_launching_op(prof, evs):
@@ -690,16 +739,17 @@ def transfer_pool():
 
 
 def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
-                   rng, smi) -> dict:
-    """Phase 7 in a temporary directory: (a) cold NN2 pretrains on the card
-    (sim arm against the committed model, sim intel as the source), (b)
-    ``GpuPlatform`` profiled, (c) the transfer table, (d) the transferred
-    edge_cnn selection against measured costs, served from ``server``
+                   rng, smi, td):
+    """Phase 7 in the temporary directory ``td``: (a) cold NN2 pretrains on
+    the card (sim arm against the committed model, sim intel as the
+    source), (b) ``GpuPlatform`` profiled, (c) the transfer table, (d) the
+    transferred edge_cnn selection against measured costs, served from ``server``
     (added to ``nets``, ``weights``, ``launches``, ``serve_err``). The
     launch counters and signatures are set aside around the phase and put
     back after it, so the phases before it report what they report; the
     phase's own launches are in ``launches`` under its paths. Returns the
-    numbers for the report."""
+    numbers for the report, and the measured platform with its transferred
+    edge_cnn selection (``{"gpu": ..., "opt": ...}``) for phase 8."""
     from collections import Counter
     from repro_torch.core import pbqp
     from repro_torch.core.selection import build_pbqp, network_cost
@@ -715,178 +765,177 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     saved = (dict(common.LAUNCHES), {k: Counter(c) for k, c in common.SEEN.items()})
     out = {"card": smi}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke.") as td:
-        shutil.copytree(ARTIFACTS / "models", Path(td) / "committed" / "models")
-        committed_store = ArtifactStore(str(Path(td) / "committed"))
-        store = ArtifactStore(str(Path(td) / "trained"))      # cold, on the card
+    shutil.copytree(ARTIFACTS / "models", Path(td) / "committed" / "models")
+    committed_store = ArtifactStore(str(Path(td) / "committed"))
+    store = ArtifactStore(str(Path(td) / "trained"))      # cold, on the card
 
-        # (a) cold NN2 pretrains on the card
-        out["pretrain"] = {}
-        plats = {"arm": SimulatedPlatform("arm", max_triplets=60),
-                 "intel": SimulatedPlatform("intel")}
-        for name, plat in plats.items():
-            fields = plat._model_fields("prim", "nn2", mode="native", **TRANSFER_TRAIN)
-            t0 = time.perf_counter()
-            model, warm = plat.pretrain_prim("nn2", store=store, **TRANSFER_TRAIN)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            assert not warm and model.device.type == "cuda", name
-            _, _, te = plat.primitive_dataset().split()
-            err = model.mdrae(te.feats, te.times)
-            row = {"address": digest(fields), "seconds": secs,
-                   "iterations": model.train_iterations, "test_mdrae": err,
-                   "test_rows": te.n}
-            line = (f"transfer (a): cold nn2 pretrain sim {name}: "
-                    f"{model.train_iterations} iterations in {secs:.2f} s on the "
-                    f"card, test MdRAE {err:.4f} over {te.n} rows")
-            if name == "arm":
-                ref = committed_store.get_model(fields)
-                assert ref is not None, "the committed arm NN2 is not at its address"
-                row["committed_test_mdrae"] = ref.mdrae(te.feats, te.times)
-                line += (f", committed JAX model {row['committed_test_mdrae']:.4f} "
-                         f"(address {row['address']}); limit {ARM_MDRAE_LIMIT}")
-                assert err <= ARM_MDRAE_LIMIT, (err, ARM_MDRAE_LIMIT)
-            print(line + f"  ({smi})", flush=True)
-            out["pretrain"][name] = row
-        intel = plats["intel"].pretrain("nn2", store=store, **TRANSFER_TRAIN)
-        assert intel.prim.fingerprint() == model.fingerprint()   # loaded, not retrained
-
-        # (b) profile the card
-        configs, pairs = transfer_pool()
-        gpu = GpuPlatform(configs=configs, dlt_pairs=pairs,
-                          repeats=PROFILE_REPEATS, store=store)
-        common.reset_launches()
+    # (a) cold NN2 pretrains on the card
+    out["pretrain"] = {}
+    plats = {"arm": SimulatedPlatform("arm", max_triplets=60),
+             "intel": SimulatedPlatform("intel")}
+    for name, plat in plats.items():
+        fields = plat._model_fields("prim", "nn2", mode="native", **TRANSFER_TRAIN)
         t0 = time.perf_counter()
-        ds = gpu.primitive_dataset()
-        prim_s = time.perf_counter() - t0
-        dlt = gpu.dlt_dataset()
-        dlt_s = time.perf_counter() - t0 - prim_s
-        launches["gpu_profile"] = dict(common.LAUNCHES)
-        for k in SERVED_KERNELS:
-            assert launches["gpu_profile"][k] > 0, (k, launches["gpu_profile"])
-        assert not any(launches["gpu_profile"][k] for k in ENTRY_KERNELS)
-        cfg = np.asarray(configs, np.int64)
-        mask = compile_traits(tuple(gpu.columns)).applicable_mask(*cfg.T)
-        assert np.array_equal(np.isfinite(ds.times), mask), "NaN only where inapplicable"
-        assert (ds.times[mask] > 0).all() and np.isfinite(dlt.times).all()
-        dev = gpu.device_dataset()
-        assert np.array_equal(np.isfinite(dev.times), mask)
-        out["profile"] = {"configs": len(configs), "dlt_pairs": len(pairs),
-                          "columns": len(gpu.columns), "prim_seconds": prim_s,
-                          "dlt_seconds": dlt_s, "nan_share": float(1 - mask.mean()),
-                          "launches": launches["gpu_profile"]}
-        print(f"transfer (b): profiled {len(configs)} configs x {len(gpu.columns)} "
-              f"columns in {prim_s:.2f} s and {len(pairs)} DLT pairs x 6 in "
-              f"{dlt_s:.2f} s ({PROFILE_REPEATS} repeats after 2 warm-ups); NaN "
-              f"share {1 - mask.mean():.4f} (exactly the inapplicable cells); "
-              f"launches {launches['gpu_profile']}  ({smi})", flush=True)
-        out["named_layers"] = {}
-        for label, layer in NAMED_LAYERS.items():
-            i = configs.index(layer)
-            fastest = {}
-            for j, col in enumerate(gpu.columns):
-                base, variant = split_tile(col)
-                if variant is not None and np.isfinite(ds.times[i, j]) and (
-                        base not in fastest or ds.times[i, j] < fastest[base][1]):
-                    fastest[base] = (col, ds.times[i, j], dev.times[i, j])
-            out["named_layers"][label] = {
-                b: {"column": c, "wall_ms": w * 1e3, "device_ms": d * 1e3}
-                for b, (c, w, d) in fastest.items()}
-            print(f"transfer (b): {label} {layer}, fastest tile column per base, "
-                  f"wall / device median ms: " + "; ".join(
-                      f"{c} {w * 1e3:.4f} / {d * 1e3:.4f}"
-                      for c, w, d in fastest.values()), flush=True)
-        # each tile column against its base primitive (plain torch) at its
-        # largest pool config: comparison launches, not the path's
-        worst = 0.0
-        g = torch.Generator().manual_seed(seed)
-        for col in gpu.columns:
-            if split_tile(col)[1] is None:
-                continue
-            k, c, im, s, f = max((tuple(map(int, x)) for x in configs
-                                  if applicable(col, *x)),
-                                 key=lambda x: x[0] * x[1] * x[4] ** 2 * x[2] ** 2 / x[3] ** 2)
-            x = torch.randn(c, im, im, generator=g).cuda()
-            w = (torch.randn(k, c, f, f, generator=g) * (c * f * f) ** -0.5).cuda()
-            worst = max(worst, _hold(torch, column_callable(col, s)(x, w),
-                                     run_primitive(split_tile(col)[0], x, w, s),
-                                     ORACLE_TOL))
-        out["profile"]["tile_vs_base_max_abs_err"] = worst
-        n_tile = sum(split_tile(c)[1] is not None for c in gpu.columns)
-        print(f"transfer (b): {n_tile} tile columns each within {ORACLE_TOL} "
-              f"of their base primitive "
-              f"at their largest pool config, max |err| {worst:.3g}", flush=True)
-
-        # (c) the transfer table on the held-out card rows
-        _, _, te = ds.split()
-        table = {"intel-native unadapted": (intel.prim.subset_columns(
-            gpu.columns, base_of=gpu.base_column), None)}
-        for mode in ("factor", "finetune", "scratch"):
-            m = gpu.calibrate(intel, TRANSFER_BUDGET, mode=mode, store=store)
-            assert m.mode == mode and not m.warm, mode
-            table[mode] = (m.prim, m.seconds)
-        native = gpu.pretrain("nn2", store=store, **TRANSFER_TRAIN)
-        table["native"] = (native.prim, native.seconds)
-        n_train = ds.split()[0].n
-        out["transfer"] = {}
-        print(f"transfer (c): test MdRAE on {te.n} held-out card rows x "
-              f"{len(gpu.columns)} columns (sample: {TRANSFER_BUDGET} of the "
-              f"{n_train} training rows; native: all {n_train})  ({smi})")
-        for name, (model, secs) in table.items():
-            err = model.mdrae(te.feats, te.times)
-            out["transfer"][name] = {"test_mdrae": err, "seconds": secs,
-                                     "iterations": model.train_iterations}
-            print(f"    {name:24s} {err:.4f}" + ("" if secs is None else
-                  f"  ({secs:.2f} s, {model.train_iterations} iterations)"), flush=True)
-
-        # (d) the transferred selection, priced by measurement, served
-        spec = nets["edge_cnn_pbqp"].spec
-        opt = optimise("edge_cnn", gpu, base=intel, budget=TRANSFER_BUDGET,
-                       mode="finetune", store=store, executable=True)
-        assert opt.warm_models and not opt.warm_selection
-        sel = opt.selection
-        convs = [i for i, n in enumerate(spec.nodes) if isinstance(n, ConvLayer)]
-        chosen = Counter(opt.assignment[i] for i in convs)
-        common.reset_launches()
-        t0 = time.perf_counter()
-        graph = build_pbqp(spec, gpu.cost_provider())
-        best = pbqp.solve(graph).labelled(graph)
-        measured_s = time.perf_counter() - t0
-        launches["gpu_measured_select"] = dict(common.LAUNCHES)
-        cost = {name: network_cost(spec, asg, graph=graph) for name, asg in (
-            ("selected", opt.assignment), ("measured_optimal", best),
-            ("heuristic", heuristic_assignment(spec)))}
-        out["select"] = {"estimate_ms": sel.estimate_seconds * 1e3,
-                         "solver_ms": sel.solver_seconds * 1e3,
-                         "columns": dict(chosen),
-                         "measured_cost_ms": {k: v * 1e3 for k, v in cost.items()},
-                         "measured_select_s": measured_s}
-        print(f"transfer (d): optimise(edge_cnn, gpu, base=intel, finetune): "
-              f"estimate {sel.estimate_seconds * 1e3!r} ms, solver "
-              f"{sel.solver_seconds * 1e3!r} ms, columns {dict(chosen)}", flush=True)
-        print(f"transfer (d): measured per-image cost (MeasuredProvider, wall "
-              f"ms): selected {cost['selected'] * 1e3:.4f}, measured-optimal "
-              f"{cost['measured_optimal'] * 1e3:.4f}, heuristic "
-              f"{cost['heuristic'] * 1e3:.4f}; the measured selection took "
-              f"{measured_s:.2f} s  ({smi})", flush=True)
-        name = "edge_cnn_transfer"
-        sel_opt = dataclasses.replace(opt, net=name)
-        weights[name] = make_weights(spec, seed, device="cuda")
-        server.register(sel_opt, weights=weights[name])
-        nets[name] = sel_opt
-        reqs = [images(rng, spec, 8)]
-        common.reset_launches()
-        outs = [server.serve(name, list(r)) for r in reqs]
+        model, warm = plat.pretrain_prim("nn2", store=store, **TRANSFER_TRAIN)
         torch.cuda.synchronize()
-        launches[name] = dict(common.LAUNCHES)
-        want = routed_kernels(sel_opt.assignment)
-        assert all(launches[name][k] > 0 for k in want), (name, launches[name])
-        assert all(launches[name][k] == 0 for k in common.KERNELS if k not in want)
-        serve_err[name] = check_responses(sel_opt, weights[name], reqs, outs)
-        assert serve_err[name] <= SERVE_TOL["atol"], serve_err[name]
-        out["served"] = {"max_abs_err": serve_err[name], "launches": launches[name]}
-        print(f"served {name}: b=8, max |served - oracle| = {serve_err[name]:.3g}, "
-              f"launches {launches[name]}", flush=True)
+        secs = time.perf_counter() - t0
+        assert not warm and model.device.type == "cuda", name
+        _, _, te = plat.primitive_dataset().split()
+        err = model.mdrae(te.feats, te.times)
+        row = {"address": digest(fields), "seconds": secs,
+               "iterations": model.train_iterations, "test_mdrae": err,
+               "test_rows": te.n}
+        line = (f"transfer (a): cold nn2 pretrain sim {name}: "
+                f"{model.train_iterations} iterations in {secs:.2f} s on the "
+                f"card, test MdRAE {err:.4f} over {te.n} rows")
+        if name == "arm":
+            ref = committed_store.get_model(fields)
+            assert ref is not None, "the committed arm NN2 is not at its address"
+            row["committed_test_mdrae"] = ref.mdrae(te.feats, te.times)
+            line += (f", committed JAX model {row['committed_test_mdrae']:.4f} "
+                     f"(address {row['address']}); limit {ARM_MDRAE_LIMIT}")
+            assert err <= ARM_MDRAE_LIMIT, (err, ARM_MDRAE_LIMIT)
+        print(line + f"  ({smi})", flush=True)
+        out["pretrain"][name] = row
+    intel = plats["intel"].pretrain("nn2", store=store, **TRANSFER_TRAIN)
+    assert intel.prim.fingerprint() == model.fingerprint()   # loaded, not retrained
+
+    # (b) profile the card
+    configs, pairs = transfer_pool()
+    gpu = GpuPlatform(configs=configs, dlt_pairs=pairs,
+                      repeats=PROFILE_REPEATS, store=store)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    ds = gpu.primitive_dataset()
+    prim_s = time.perf_counter() - t0
+    dlt = gpu.dlt_dataset()
+    dlt_s = time.perf_counter() - t0 - prim_s
+    launches["gpu_profile"] = dict(common.LAUNCHES)
+    for k in SERVED_KERNELS:
+        assert launches["gpu_profile"][k] > 0, (k, launches["gpu_profile"])
+    assert not any(launches["gpu_profile"][k] for k in ENTRY_KERNELS)
+    cfg = np.asarray(configs, np.int64)
+    mask = compile_traits(tuple(gpu.columns)).applicable_mask(*cfg.T)
+    assert np.array_equal(np.isfinite(ds.times), mask), "NaN only where inapplicable"
+    assert (ds.times[mask] > 0).all() and np.isfinite(dlt.times).all()
+    dev = gpu.device_dataset()
+    assert np.array_equal(np.isfinite(dev.times), mask)
+    out["profile"] = {"configs": len(configs), "dlt_pairs": len(pairs),
+                      "columns": len(gpu.columns), "prim_seconds": prim_s,
+                      "dlt_seconds": dlt_s, "nan_share": float(1 - mask.mean()),
+                      "launches": launches["gpu_profile"]}
+    print(f"transfer (b): profiled {len(configs)} configs x {len(gpu.columns)} "
+          f"columns in {prim_s:.2f} s and {len(pairs)} DLT pairs x 6 in "
+          f"{dlt_s:.2f} s ({PROFILE_REPEATS} repeats after 2 warm-ups); NaN "
+          f"share {1 - mask.mean():.4f} (exactly the inapplicable cells); "
+          f"launches {launches['gpu_profile']}  ({smi})", flush=True)
+    out["named_layers"] = {}
+    for label, layer in NAMED_LAYERS.items():
+        i = configs.index(layer)
+        fastest = {}
+        for j, col in enumerate(gpu.columns):
+            base, variant = split_tile(col)
+            if variant is not None and np.isfinite(ds.times[i, j]) and (
+                    base not in fastest or ds.times[i, j] < fastest[base][1]):
+                fastest[base] = (col, ds.times[i, j], dev.times[i, j])
+        out["named_layers"][label] = {
+            b: {"column": c, "wall_ms": w * 1e3, "device_ms": d * 1e3}
+            for b, (c, w, d) in fastest.items()}
+        print(f"transfer (b): {label} {layer}, fastest tile column per base, "
+              f"wall / device median ms: " + "; ".join(
+                  f"{c} {w * 1e3:.4f} / {d * 1e3:.4f}"
+                  for c, w, d in fastest.values()), flush=True)
+    # each tile column against its base primitive (plain torch) at its
+    # largest pool config: comparison launches, not the path's
+    worst = 0.0
+    g = torch.Generator().manual_seed(seed)
+    for col in gpu.columns:
+        if split_tile(col)[1] is None:
+            continue
+        k, c, im, s, f = max((tuple(map(int, x)) for x in configs
+                              if applicable(col, *x)),
+                             key=lambda x: x[0] * x[1] * x[4] ** 2 * x[2] ** 2 / x[3] ** 2)
+        x = torch.randn(c, im, im, generator=g).cuda()
+        w = (torch.randn(k, c, f, f, generator=g) * (c * f * f) ** -0.5).cuda()
+        worst = max(worst, _hold(torch, column_callable(col, s)(x, w),
+                                 run_primitive(split_tile(col)[0], x, w, s),
+                                 ORACLE_TOL))
+    out["profile"]["tile_vs_base_max_abs_err"] = worst
+    n_tile = sum(split_tile(c)[1] is not None for c in gpu.columns)
+    print(f"transfer (b): {n_tile} tile columns each within {ORACLE_TOL} "
+          f"of their base primitive "
+          f"at their largest pool config, max |err| {worst:.3g}", flush=True)
+
+    # (c) the transfer table on the held-out card rows
+    _, _, te = ds.split()
+    table = {"intel-native unadapted": (intel.prim.subset_columns(
+        gpu.columns, base_of=gpu.base_column), None)}
+    for mode in ("factor", "finetune", "scratch"):
+        m = gpu.calibrate(intel, TRANSFER_BUDGET, mode=mode, store=store)
+        assert m.mode == mode and not m.warm, mode
+        table[mode] = (m.prim, m.seconds)
+    native = gpu.pretrain("nn2", store=store, **TRANSFER_TRAIN)
+    table["native"] = (native.prim, native.seconds)
+    n_train = ds.split()[0].n
+    out["transfer"] = {}
+    print(f"transfer (c): test MdRAE on {te.n} held-out card rows x "
+          f"{len(gpu.columns)} columns (sample: {TRANSFER_BUDGET} of the "
+          f"{n_train} training rows; native: all {n_train})  ({smi})")
+    for name, (model, secs) in table.items():
+        err = model.mdrae(te.feats, te.times)
+        out["transfer"][name] = {"test_mdrae": err, "seconds": secs,
+                                 "iterations": model.train_iterations}
+        print(f"    {name:24s} {err:.4f}" + ("" if secs is None else
+              f"  ({secs:.2f} s, {model.train_iterations} iterations)"), flush=True)
+
+    # (d) the transferred selection, priced by measurement, served
+    spec = nets["edge_cnn_pbqp"].spec
+    opt = optimise("edge_cnn", gpu, base=intel, budget=TRANSFER_BUDGET,
+                   mode="finetune", store=store, executable=True)
+    assert opt.warm_models and not opt.warm_selection
+    sel = opt.selection
+    convs = [i for i, n in enumerate(spec.nodes) if isinstance(n, ConvLayer)]
+    chosen = Counter(opt.assignment[i] for i in convs)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    graph = build_pbqp(spec, gpu.cost_provider())
+    best = pbqp.solve(graph).labelled(graph)
+    measured_s = time.perf_counter() - t0
+    launches["gpu_measured_select"] = dict(common.LAUNCHES)
+    cost = {name: network_cost(spec, asg, graph=graph) for name, asg in (
+        ("selected", opt.assignment), ("measured_optimal", best),
+        ("heuristic", heuristic_assignment(spec)))}
+    out["select"] = {"estimate_ms": sel.estimate_seconds * 1e3,
+                     "solver_ms": sel.solver_seconds * 1e3,
+                     "columns": dict(chosen),
+                     "measured_cost_ms": {k: v * 1e3 for k, v in cost.items()},
+                     "measured_select_s": measured_s}
+    print(f"transfer (d): optimise(edge_cnn, gpu, base=intel, finetune): "
+          f"estimate {sel.estimate_seconds * 1e3!r} ms, solver "
+          f"{sel.solver_seconds * 1e3!r} ms, columns {dict(chosen)}", flush=True)
+    print(f"transfer (d): measured per-image cost (MeasuredProvider, wall "
+          f"ms): selected {cost['selected'] * 1e3:.4f}, measured-optimal "
+          f"{cost['measured_optimal'] * 1e3:.4f}, heuristic "
+          f"{cost['heuristic'] * 1e3:.4f}; the measured selection took "
+          f"{measured_s:.2f} s  ({smi})", flush=True)
+    name = "edge_cnn_transfer"
+    sel_opt = dataclasses.replace(opt, net=name)
+    weights[name] = make_weights(spec, seed, device="cuda")
+    server.register(sel_opt, weights=weights[name])
+    nets[name] = sel_opt
+    reqs = [images(rng, spec, 8)]
+    common.reset_launches()
+    outs = [server.serve(name, list(r)) for r in reqs]
+    torch.cuda.synchronize()
+    launches[name] = dict(common.LAUNCHES)
+    want = routed_kernels(sel_opt.assignment)
+    assert all(launches[name][k] > 0 for k in want), (name, launches[name])
+    assert all(launches[name][k] == 0 for k in common.KERNELS if k not in want)
+    serve_err[name] = check_responses(sel_opt, weights[name], reqs, outs)
+    assert serve_err[name] <= SERVE_TOL["atol"], serve_err[name]
+    out["served"] = {"max_abs_err": serve_err[name], "launches": launches[name]}
+    print(f"served {name}: b=8, max |served - oracle| = {serve_err[name]:.3g}, "
+          f"launches {launches[name]}", flush=True)
     common.LAUNCHES.update(saved[0])
     for k, c in saved[1].items():
         common.SEEN[k] = c
@@ -894,6 +943,480 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     phase7 = ("gpu_profile", "gpu_measured_select", "edge_cnn_transfer")
     print("phase 7 launches: " + json.dumps({p: launches[p] for p in phase7}))
     print(f"transfer: phase 7 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out, {"gpu": gpu, "opt": opt}
+
+
+# ---------------------------------------------------------------------------
+# The concurrent serving core on the card (phase 8)
+# ---------------------------------------------------------------------------
+
+def threaded_rates(server, nets, rng) -> dict:
+    """Served img/s per path with every path loaded at once: one client
+    thread per path sends back-to-back bursts of 8 (``serve``, which waits
+    for its tickets) while the server's workers dispatch; one rate per path
+    per window of ``SERVE_WINDOW_S`` seconds, ``RATE_WINDOWS`` windows, then
+    one more window under ``torch.profiler``. Besides the rates, what the
+    unprofiled windows were made of: per path the images per dispatch and
+    the host ms of one dispatch (``execute``, claim to delivery), the share
+    of their wall time in which at least one and both workers were inside
+    ``execute``; and the device's busy share of the profiled window."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    reqs = {name: [list(images(rng, nets[name].spec, 8)) for _ in range(2)]
+            for name in nets}
+    spans = []             # (net, images, start, end, queue waits) per dispatch
+    real = server.execute
+
+    def timed(batch):
+        waits = [t.queue_wait_s for t in batch.tickets]
+        t0 = time.perf_counter()
+        try:
+            real(batch)
+        finally:
+            spans.append((batch.net, len(batch.tickets), t0,
+                          time.perf_counter(), waits))
+
+    def window():
+        counts = dict.fromkeys(nets, 0)
+        stop = time.perf_counter() + SERVE_WINDOW_S
+
+        def client(name):
+            while time.perf_counter() < stop:
+                server.serve(name, reqs[name][counts[name] % 2])
+                counts[name] += 1
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(n,)) for n in nets]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+        dt = time.perf_counter() - t0
+        return {name: 8 * counts[name] / dt for name in nets}, (t0, dt)
+
+    server.execute = timed
+    try:
+        rates = {name: [] for name in nets}
+        walls = []
+        for _ in range(RATE_WINDOWS):
+            r, wall = window()
+            walls.append(wall)
+            for name in nets:
+                rates[name].append(r[name])
+        done = list(spans)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced, (_, traced_s) = window()
+    finally:
+        del server.execute
+    busy_ms, _ = device_events(prof)
+    # host time with k workers inside execute, over the unprofiled windows
+    edges = sorted([(a, 1) for _, _, a, _, _ in done]
+                   + [(b, -1) for _, _, _, b, _ in done])
+    held = {1: 0.0, 2: 0.0}
+    k, last = 0, None
+    for t, step in edges:
+        if last is not None:
+            for n in held:
+                if k >= n:
+                    held[n] += t - last
+        k, last = k + step, t
+    wall = sum(dt for _, dt in walls)
+    per_path = {}
+    for name in nets:
+        mine = [(n, b - a) for net, n, a, b, _ in done if net == name]
+        waits = [w for net, *_, ws in done if net == name for w in ws]
+        per_path[name] = {
+            "dispatches": len(mine),
+            "images_per_dispatch": sum(n for n, _ in mine) / max(len(mine), 1),
+            "execute_ms_mean": 1e3 * sum(d for _, d in mine) / max(len(mine), 1),
+            "burst_ms_median": 8e3 / float(np.median(rates[name])),
+            "queue_wait_p50_ms": (1e3 * float(np.median(waits)) if waits
+                                  else None)}
+    return {"rates": rates, "paths": per_path,
+            "workers_executing_share": {"at_least_1": held[1] / wall,
+                                        "both": held[2] / wall},
+            "profiled_window": {"images_per_s": traced, "wall_s": traced_s,
+                                "device_busy_ms": busy_ms,
+                                "device_busy_share": (None if busy_ms is None
+                                                      else busy_ms * 1e-3 / traced_s)}}
+
+
+def until(pred, timeout: float = 60.0) -> None:
+    """Poll ``pred`` until it holds; fail after ``timeout`` seconds."""
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {pred}")
+        time.sleep(0.005)
+
+
+def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
+                  rng, smi, td) -> dict:
+    """Phase 8 in the temporary directory ``td`` (a copy of ``artifacts/``
+    where a store is needed): (a) two workers serving phase 2's three paths
+    to four client threads, every response held to the oracle, each
+    worker's dispatches, and img/s per path beside the pump mode's; (b) the
+    fault drill — a persistent ``raise`` served degraded by the safe plan on
+    the card while the backend's breaker opens and recovers through a
+    half-open probe, a ``corrupt`` output detected and retried, a ``hang``
+    abandoned at the execution deadline, rescued, its worker replaced; (c)
+    the drift drill on phase 7's transferred plan — a 4x ``slowdown``
+    sets off one recalibration on the measured platform from the served
+    observations, canaried and hot-swapped; (d) edge_cnn routed over an
+    ``arm`` and a ``gpu`` backend, then one unregistered; (e) the serving
+    CLI. Launch counters and signatures are set aside around the phase and
+    put back; its launches are in ``launches`` under its paths."""
+    import threading
+    from collections import Counter
+    from repro_torch.kernels import common
+    from repro_torch.service import (ArtifactStore, Fault, FaultInjector,
+                                     OptimisedServer, make_recalibrator,
+                                     optimise)
+    from repro_torch.service.server import main as serve_main
+    saved = (dict(common.LAUNCHES), {k: Counter(c) for k, c in common.SEEN.items()})
+    out = {"card": smi}
+    t_phase = time.perf_counter()
+    served = ("edge_cnn_pbqp", "edge_cnn_mix", "resnet18_mix")
+    clean = ("failed_dispatches", "fallback_images", "rejected", "retries")
+
+    # (a) two workers, three paths, four client threads
+    server = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
+                             device="cuda")
+    for name in served:
+        server.register(nets[name], weights=weights[name])
+    assert all(s.cuda_stream != torch.cuda.default_stream().cuda_stream
+               for s in server._pool.streams)
+    reqs = {name: images(rng, nets[name].spec, 64) for name in served}
+    tickets = {name: [None] * 64 for name in served}
+
+    def client(c):
+        for i in range(16):
+            for name in served:
+                j = 16 * c + i
+                tickets[name][j] = server.submit(name, reqs[name][j])
+    common.reset_launches()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(120.0)
+    assert all(t.wait(120.0) for name in served for t in tickets[name])
+    burst_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches["serve_workers"] = dict(common.LAUNCHES)
+    want = set().union(*(routed_kernels(nets[n].assignment) for n in served))
+    assert all(launches["serve_workers"][k] > 0 for k in want), launches["serve_workers"]
+    dispatched = server._pool.dispatches
+    assert len(dispatched) == 2 and min(dispatched) > 0, dispatched
+    out["workers"] = {"burst_s": burst_s, "worker_dispatches": dispatched,
+                      "launches": launches["serve_workers"], "paths": {}}
+    for name in served:
+        assert all(t.error is None and not t.degraded for t in tickets[name])
+        err = check_responses(nets[name], weights[name], [reqs[name]],
+                              [[t.result for t in tickets[name]]])
+        st = server.stats(name)
+        assert not any(st[k] for k in clean), (name, st)
+        assert st["images"] == 64
+        out["workers"]["paths"][name] = {"max_abs_err": err,
+                                         "dispatches": st["dispatches"],
+                                         "padded": st["padded"]}
+    print(f"serve (a): workers=2, 4 client threads x 16 requests to each of "
+          f"{len(served)} paths in {burst_s:.3f} s; worker dispatches "
+          f"{dispatched}; per path max |served - oracle| "
+          + ", ".join(f"{n} {p['max_abs_err']:.3g}"
+                      for n, p in out["workers"]["paths"].items())
+          + f"; no failed or degraded dispatch; launches "
+          f"{launches['serve_workers']}", flush=True)
+    # img/s with every path loaded at once, and what its windows were made of
+    made = threaded_rates(server, {n: nets[n] for n in served}, rng)
+    out["workers"]["threaded"] = {k: v for k, v in made.items() if k != "rates"}
+    for name in served:
+        r, p, m = made["rates"][name], pump_rates[name], made["paths"][name]
+        out["workers"]["paths"][name].update(
+            images_per_s=r, images_per_s_pump_median=float(np.median(p)))
+        print(f"serve (a): img/s {name} b=8 at workers=2 with the 3 paths "
+              f"loaded at once, median over {len(r)} windows of "
+              f"{SERVE_WINDOW_S} s: {float(np.median(r))!r} "
+              f"{[round(x, 1) for x in r]}; pump mode alone (phase 2 server, "
+              f"windows of {RATE_WINDOW_S} s): median {float(np.median(p))!r}; "
+              f"in those windows {m['dispatches']} dispatches of "
+              f"{m['images_per_dispatch']!r} images, execute "
+              f"{m['execute_ms_mean']!r} ms each, burst {m['burst_ms_median']!r} "
+              f"ms, queue wait p50 {m['queue_wait_p50_ms']!r} ms  ({smi})",
+              flush=True)
+    w, pw = made["workers_executing_share"], made["profiled_window"]
+    traced = {n: round(v, 1) for n, v in pw["images_per_s"].items()}
+    print(f"serve (a): share of the windows' wall time with at least one "
+          f"worker executing {w['at_least_1']!r}, with both {w['both']!r}; one "
+          f"profiled window of {pw['wall_s']!r} s: img/s {traced}, device "
+          f"busy {pw['device_busy_ms']!r} ms, share {pw['device_busy_share']!r}"
+          f"  ({smi})", flush=True)
+    st = {n: server.stats(n) for n in served}
+    assert not any(st[n][k] for n in served for k in clean), st
+    server.stop()
+
+    # (b) the fault drill
+    pbqp = nets["edge_cnn_pbqp"]
+    inj = FaultInjector([Fault("raise", net="edge_cnn#a"),
+                         Fault("corrupt", net="edge_cnn_mix", first=0, last=1),
+                         Fault("hang", net="edge_cnn_mix", first=2, last=3,
+                               seconds=DRILL_HANG_S)])
+    drill = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
+                            faults=inj, breaker_failures=3,
+                            breaker_cooldown_ms=DRILL_COOLDOWN_MS,
+                            exec_deadline_ms=DRILL_DEADLINE_MS, device="cuda")
+    degraded_on = []
+    real_forward = drill._fallback_forward
+
+    def forward(*a):
+        y = real_forward(*a)
+        degraded_on.append(str(y.device))
+        return y
+    drill._fallback_forward = forward
+    # backend a is predicted far cheaper, so it takes the traffic until its
+    # breaker opens; the mix path dispatches only full batches of 8, one
+    # fault-plan index per burst
+    for backend, cost in (("a", 1e-6), ("b", 1.0)):
+        drill.register(dataclasses.replace(pbqp, net="edge_cnn",
+                                           predicted_cost_s=cost),
+                       backend=backend, weights=weights["edge_cnn_pbqp"])
+    drill.register(nets["edge_cnn_mix"], weights=weights["edge_cnn_mix"],
+                   max_wait_ms=60e3)
+    common.reset_launches()
+    raised = [images(rng, pbqp.spec, 8) for _ in range(4)]
+    ts = []
+    for r in raised[:3]:
+        ts.append([drill.submit("edge_cnn", x) for x in r])
+        assert all(t.wait(60.0) for t in ts[-1])
+    st = drill.stats("edge_cnn")["backends"]
+    on_a = [t for burst in ts for t in burst if t.net == "edge_cnn#a"]
+    assert on_a and all(t.degraded and t.error is None for t in on_a)
+    assert st["a"]["breaker"]["opens"] == 1, st["a"]["breaker"]
+    assert set(degraded_on) == {"cuda:0"}, degraded_on
+    spill = [drill.submit("edge_cnn", x) for x in raised[3]]
+    assert all(t.wait(60.0) for t in spill)
+    assert all(t.net == "edge_cnn#b" and not t.degraded and t.error is None
+               for t in spill)
+    err_raise = check_responses(pbqp, weights["edge_cnn_pbqp"],
+                                [np.concatenate(raised)],
+                                [[t.result for t in (*sum(ts, []), *spill)]])
+    inj.faults = [f for f in inj.faults if f.net != "edge_cnn#a"]  # faults end
+    time.sleep(DRILL_COOLDOWN_MS * 1e-3 * 1.5)
+    probe = drill.submit("edge_cnn", raised[0][0])
+    assert probe.wait(60.0) and probe.net == "edge_cnn#a" and not probe.degraded
+    br = drill.stats("edge_cnn")["backends"]["a"]["breaker"]
+    assert br["state"] == "closed" and br["closes"] == 1, br
+    fa = drill.stats("edge_cnn")
+    print(f"serve (b): persistent raise on edge_cnn#a: {len(on_a)} tickets "
+          f"served degraded by the safe plan on {sorted(set(degraded_on))} "
+          f"(max |err| vs oracle {err_raise:.3g}), breaker opened after "
+          f"{fa['backends']['a']['failed_dispatches']} failed dispatches, "
+          f"{len(spill)} spilled to edge_cnn#b, faults ended -> half-open "
+          f"probe closed it (opens {br['opens']}, closes {br['closes']})",
+          flush=True)
+    mix = nets["edge_cnn_mix"]
+    corrupt = images(rng, mix.spec, 8)
+    out_c = drill.serve("edge_cnn_mix", list(corrupt))
+    sm = drill.stats("edge_cnn_mix")
+    # the corrupt output failed validation and the retry served the batch
+    assert ("edge_cnn_mix", 0, 0, "corrupt") in inj.injected
+    assert sm["retries"] == 1 and not sm["failures"]
+    assert sm["fallback_images"] == 0 and sm["images"] == 8
+    hang = images(rng, mix.spec, 8)
+    t0 = time.perf_counter()
+    hung = [drill.submit("edge_cnn_mix", x) for x in hang]
+    assert all(t.wait(60.0) for t in hung)
+    rescue_s = time.perf_counter() - t0
+    assert all(t.degraded and t.error is None for t in hung)
+    until(lambda: drill._pool.restarts == 1)     # the rescue settles first
+    zombies = drill._pool.zombies
+    restarts = drill._pool.restarts
+    assert restarts == 1 and zombies == 1, (restarts, zombies)
+    err_mix = check_responses(mix, weights["edge_cnn_mix"], [corrupt, hang],
+                              [out_c, [t.result for t in hung]])
+    until(lambda: drill._pool.zombies == 0)
+    after = drill.serve("edge_cnn_mix", list(hang))
+    np.testing.assert_allclose(np.stack(after), np.stack([t.result for t in hung]),
+                               **SERVE_TOL)
+    sm = drill.stats("edge_cnn_mix")
+    assert sm["failures"] == {"deadline": 1}, sm["failures"]
+    launches["serve_faults"] = dict(common.LAUNCHES)
+    out["faults"] = {"degraded": len(on_a), "spilled": len(spill),
+                     "breaker": br, "raise_max_abs_err": err_raise,
+                     "mix_max_abs_err": err_mix, "rescue_s": rescue_s,
+                     "zombies_after_rescue": zombies, "restarts": restarts,
+                     "zombies_at_end": drill._pool.zombies,
+                     "ledger": {"edge_cnn": fa["failures"],
+                                "edge_cnn_mix": sm["failures"]},
+                     "launches": launches["serve_faults"]}
+    print(f"serve (b): corrupt output detected and served by the retry "
+          f"(retries {sm['retries']}); hang of {DRILL_HANG_S} s abandoned at the "
+          f"{DRILL_DEADLINE_MS:g} ms deadline and rescued degraded in "
+          f"{rescue_s:.3f} s, worker replaced (restarts {restarts}, zombies "
+          f"{zombies}, {drill._pool.zombies} once the hang ended); max |err| "
+          f"{err_mix:.3g}", flush=True)
+    drill.stop()
+
+    # (c) the drift drill on the transferred plan
+    gpu_opt = dataclasses.replace(transferred["opt"], net="edge_cnn_transfer")
+    gpu_w = weights["edge_cnn_transfer"]
+    recal_store = ArtifactStore(str(td / "recalibrated"), device="cuda")
+    recal = make_recalibrator(store=recal_store, sample_n=12, mode="factor",
+                              device="cuda")
+    timing = {"calls": 0}
+
+    def timed_recal(opt, served=None):
+        # the drill sends nothing while this runs (it waits for the workers
+        # to finish each burst's observation before it decides to send
+        # another): every launch from here to the swap's end is the
+        # recalibration's
+        timing["calls"] += 1
+        timing["launches"] = dict(common.LAUNCHES)
+        t0 = time.perf_counter()
+        new = recal(opt, served=served)
+        timing["seconds"] = time.perf_counter() - t0
+        return new
+    slow = FaultInjector([])
+    drift = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
+                            canary=True, drift_calib_obs=DRIFT_CALIB_OBS,
+                            drift_alpha=DRIFT_ALPHA, recalibrate=timed_recal,
+                            faults=slow, device="cuda")
+    drift.register(gpu_opt, weights=gpu_w)
+    key = gpu_opt.net
+    common.reset_launches()
+    sent, results = [], []
+    for _ in range(DRIFT_CALIB_OBS + 4):                 # the reference ratio
+        sent.append(images(rng, gpu_opt.spec, 8))
+        results.append(drift.serve(key, list(sent[-1])))
+    assert not drift._drift.stats(key).triggers and not timing["calls"]
+    base_s = drift.stats(key)["busy_s"] / drift.stats(key)["dispatches"]
+    slow.faults.append(Fault("slowdown", net=key, generation=0,
+                             seconds=3.0 * base_s))       # 4x from here
+    for i in range(DRIFT_MAX_BURSTS):
+        sent.append(images(rng, gpu_opt.spec, 8))
+        results.append(drift.serve(key, list(sent[-1])))
+        # tickets finish before the dispatch's drift observation lands
+        until(lambda: drift._pool.busy == 0)
+        if drift._drift.stats(key).triggers or timing["calls"]:
+            break
+
+    def settled():
+        st = drift.stats(key)
+        return (st["recalibrations"] or st["canary_rejected"]
+                or st["last_recal_error"] is not None)
+    until(settled, 120.0)
+    until(drift.recalibrations_idle, 120.0)
+    torch.cuda.synchronize()
+    recal_launches = {k: common.LAUNCHES[k] - timing["launches"][k]
+                      for k in common.KERNELS}
+    sd = drift.stats(key)
+    assert timing["calls"] == 1, timing
+    assert sd["last_recal_error"] is None, sd["last_recal_error"]
+    assert sd["recalibrations"] == 1 and sd["generation"] == 1, sd
+    assert sd["canary_rejected"] == 0, sd["last_canary"]
+    for _ in range(4):                                   # after the swap
+        sent.append(images(rng, gpu_opt.spec, 8))
+        results.append(drift.serve(key, list(sent[-1])))
+    sd = drift.stats(key)
+    assert sd["recalibrations"] == 1 and sd["generation"] == 1, sd
+    assert not any(sd[k] for k in clean), sd
+    with drift._cond:
+        new_opt = drift._nets[key].opt
+    drift.stop()
+    launches["serve_drift"] = dict(common.LAUNCHES)
+    err_drift = check_responses(gpu_opt, gpu_w, sent, results)
+    sample = sd["recal_sample"] or {}
+    changed = sum(new_opt.assignment[i] != a for i, a in gpu_opt.assignment.items())
+    out["drift"] = {"recal_seconds": timing.get("seconds"),
+                    "served_rows": sample.get("served_rows"),
+                    "profiled_rows": sample.get("fresh_rows"),
+                    "recal_launches": recal_launches,
+                    "bursts_to_trigger": i + 1,
+                    "predicted_ms": [gpu_opt.predicted_cost_s * 1e3,
+                                     new_opt.predicted_cost_s * 1e3],
+                    "changed_nodes": changed, "max_abs_err": err_drift,
+                    "model": new_opt.models.prim.kind}
+    print(f"serve (c): 4x slowdown ({3.0 * base_s * 1e3:.3f} ms added to a "
+          f"{base_s * 1e3:.3f} ms mean dispatch) on {key} tripped the drift "
+          f"monitor after {i + 1} bursts; one recalibration on "
+          f"{gpu_opt.platform.fingerprint()} in {timing.get('seconds', float('nan')):.3f} s "
+          f"from {sample.get('served_rows')} served rows and "
+          f"{sample.get('fresh_rows')} profiled rows ({new_opt.models.prim.kind}, "
+          f"predicted {gpu_opt.predicted_cost_s * 1e3:.4f} -> "
+          f"{new_opt.predicted_cost_s * 1e3:.4f} ms/img, {changed} nodes "
+          f"re-selected), canary passed, generation {sd['generation']}; "
+          f"launches during it {recal_launches}; max |served - oracle| "
+          f"{err_drift:.3g} over {len(sent)} bursts  ({smi})", flush=True)
+
+    # (d) edge_cnn over an arm and a gpu backend
+    shutil.copytree(ARTIFACTS / "models", td / "serve_store" / "models")
+    shutil.copytree(ARTIFACTS / "selections", td / "serve_store" / "selections")
+    arm = optimise("edge_cnn", "arm", store=ArtifactStore(
+        str(td / "serve_store"), device="cuda"), **OPTIMISE_ARGS)
+    router = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
+                             device="cuda")
+    edge_w = weights["edge_cnn_pbqp"]
+    router.register(arm, backend="arm", weights=edge_w)
+    router.register(dataclasses.replace(transferred["opt"], net="edge_cnn"),
+                    backend="gpu", weights=edge_w)
+    predicted = {b: router.predict_per_image(f"edge_cnn#{b}") for b in ("arm", "gpu")}
+    common.reset_launches()
+    routed = images(rng, arm.spec, 128)
+    rt = [router.submit("edge_cnn", x) for x in routed]
+    pinned = images(rng, arm.spec, 16)
+    rt += [router.submit(f"edge_cnn#{('arm', 'gpu')[j % 2]}", x)
+           for j, x in enumerate(pinned)]
+    assert all(t.wait(120.0) for t in rt)
+    counts = Counter(t.net for t in rt[:128])
+    by_backend = {}
+    for b in ("arm", "gpu"):
+        mine = [(x, t) for x, t in zip(np.concatenate([routed, pinned]), rt)
+                if t.net == f"edge_cnn#{b}"]
+        opt_b = arm if b == "arm" else transferred["opt"]
+        by_backend[b] = check_responses(opt_b, edge_w, [[x for x, _ in mine]],
+                                        [[t.result for _, t in mine]])
+    assert router.unregister_backend("edge_cnn", "gpu")
+    rest = [router.submit("edge_cnn", x) for x in routed[:16]]
+    assert all(t.wait(60.0) for t in rest)
+    assert {t.net for t in rest} == {"edge_cnn#arm"}
+    check_responses(arm, edge_w, [routed[:16]], [[t.result for t in rest]])
+    sr = router.stats("edge_cnn")
+    assert not any(sr[k] for k in clean), sr
+    router.stop()
+    launches["serve_routing"] = dict(common.LAUNCHES)
+    out["routing"] = {"predicted_ms": {b: v * 1e3 for b, v in predicted.items()},
+                      "routed_requests": dict(counts),
+                      "max_abs_err": by_backend, "after_unregister": len(rest)}
+    print(f"serve (d): edge_cnn over backends arm (committed models' PBQP "
+          f"plan, predicted {predicted['arm'] * 1e3:.4f} ms/img) and gpu "
+          f"(phase 7's plan, predicted {predicted['gpu'] * 1e3:.4f} ms/img): "
+          f"128 routed requests went {dict(counts)}; max |served - oracle| "
+          f"{by_backend}; after unregistering gpu all {len(rest)} went to arm"
+          f"  ({smi})", flush=True)
+
+    # (e) the serving CLI on a store copy
+    common.reset_launches()
+    t0 = time.perf_counter()
+    rc = serve_main(["--net", "edge_cnn", "--platform", "arm", "--workers",
+                     "2", "--requests", "64", "--store",
+                     str(td / "serve_store")])
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    launches["serve_cli"] = dict(common.LAUNCHES)
+    out["cli"] = {"rc": rc, "seconds": time.perf_counter() - t0}
+    print(f"serve (e): python -m repro_torch.service.server --net edge_cnn "
+          f"--platform arm --workers 2 --requests 64 --store <copy>: exit "
+          f"{rc} in {out['cli']['seconds']:.2f} s", flush=True)
+
+    common.LAUNCHES.update(saved[0])
+    for k, c in saved[1].items():
+        common.SEEN[k] = c
+    out["seconds"] = time.perf_counter() - t_phase
+    phase8 = ("serve_workers", "serve_faults", "serve_drift", "serve_routing",
+              "serve_cli")
+    print("phase 8 launches: " + json.dumps({p: launches[p] for p in phase8}))
+    print(f"serve: phase 8 took {out['seconds']:.1f} s  ({smi})", flush=True)
     return out
 
 

@@ -12,7 +12,9 @@ build.
 **Launch rule.** A wrapper whose tensors lie on the CPU computes the
 kernel's plain PyTorch version (the CPU tests rely on it); a wrapper whose
 tensors lie on a CUDA device launches the kernel or raises. There is no
-fallback from a kernel to its plain version.
+fallback from a kernel to its plain version. A kernel that cannot be built,
+loaded or launched raises :class:`KernelError`, so a caller (the serving
+core) can tell it from any other failure and never serve around it.
 
 **Counters.** ``LAUNCHES[name]`` grows by one each time a wrapper launches
 its kernel, and nowhere else; ``SEEN[name]`` counts the launches per call
@@ -54,17 +56,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()     # serving workers launch concurrently
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched."""
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-        SEEN[k].clear()
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+            SEEN[k].clear()
 
 
 def count_launch(name: str, signature: Tuple) -> None:
-    LAUNCHES[name] += 1
-    SEEN[name][signature] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        SEEN[name][signature] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +87,8 @@ def nvcc_path() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels are built on a "
+                          "machine with the CUDA toolkit")
     return found
 
 
@@ -119,7 +128,7 @@ def build_kernels() -> float:
                     print(f"[nvcc {s}.cu]\n{log.rstrip()}", flush=True)
                 os.replace(tmp, library_path(s))
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelError("\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -131,7 +140,10 @@ def library(source: str) -> ctypes.CDLL:
         with _LOCK:
             lib = _LIBS.get(source)
             if lib is None:
-                lib = ctypes.CDLL(str(library_path(source)))
+                try:
+                    lib = ctypes.CDLL(str(library_path(source)))
+                except OSError as e:
+                    raise KernelError(f"cannot load {source}: {e}") from e
                 _LIBS[source] = lib
     return lib
 
@@ -144,7 +156,10 @@ def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
     signature set. Pointers and the stream are ``c_void_p`` — anything else
     would truncate them to 32 bits. A ``c_int`` wraps silently past 2**31 - 1:
     a wrapper checks its ints with ``check_int32`` or passes them as longs."""
-    fn = getattr(library(source), symbol)
+    try:
+        fn = getattr(library(source), symbol)
+    except AttributeError as e:
+        raise KernelError(f"{source} has no symbol {symbol}") from e
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_longlong] * n_longs + [ctypes.c_float] * n_floats
                    + [ctypes.c_void_p])
@@ -267,7 +282,7 @@ def check_launch(name: str, err: int) -> None:
     right after the launch) — a refused launch never runs, and a later
     ``synchronize`` would not report it."""
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+        raise KernelError(f"{name}: kernel launch failed with cudaError {err}")
 
 
 def epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],

@@ -10,7 +10,8 @@ Winograd kernels. NaN means "inapplicable" and nothing else; any other
 failure (a kernel that refuses a shape, memory running out) raises.
 
 Each entry is the reference's quantity: the median over ``repeats`` of the
-wall time from the call to ``torch.cuda.synchronize()``, after ``warmup``
+wall time from the call to a sync of the calling thread's current stream
+(all of the call's work, none of another thread's stream), after ``warmup``
 calls (which also absorb a kernel library's first load and its launch-plan
 host work). The served paths are host-bound (the card idles most of an
 unprofiled burst), so wall time is the cost that binds; device time alone
@@ -63,14 +64,17 @@ def platform_label(device) -> str:
 
 def time_callable(fn: Callable, *args, repeats: int = 25, warmup: int = 2,
                   device="cuda") -> Timing:
-    """Median wall time of ``fn(*args)`` up to a device sync, and median
-    CUDA-event time of the same calls (paper: 25 repeats, the median)."""
+    """Median wall time of ``fn(*args)`` up to a sync of the current
+    stream, and median CUDA-event time of the same calls (paper: 25
+    repeats, the median)."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
 
     def sync() -> None:
+        # the calling thread's stream only: a serving worker's probe must
+        # not wait for what another worker's stream has in flight
         if cuda:
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
 
     for _ in range(warmup):
         fn(*args)

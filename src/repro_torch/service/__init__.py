@@ -1,13 +1,14 @@
 """Service layer of the port: platform abstraction (the simulated platforms
 and the measured GPU), artifact store, the profile → model → select
-pipeline and the pump-mode serving core.
+pipeline and the concurrent serving core.
 
     from repro_torch.service import ArtifactStore, OptimisedServer, optimise
 
     store = ArtifactStore("artifacts-copy")          # models load onto cuda
     opt = optimise("edge_cnn", "arm", store=store, max_triplets=60,
                    max_iters=2000, executable=True)
-    server = OptimisedServer(max_batch=8)
+    server = OptimisedServer(workers=2, max_wait_ms=5.0,
+                             recalibrate=make_recalibrator(store=store))
     server.register(opt)
 
     # the paper's transfer: a simulated platform's model onto the card
@@ -21,18 +22,27 @@ from repro_torch.service.pipeline import (OptimisedNetwork, optimise,
                                           reoptimise, safe_assignment)
 from repro_torch.service.platforms import (GpuPlatform, Platform,
                                            PlatformModels, SimulatedPlatform,
-                                           get_platform)
-from repro_torch.service.serving.server import OptimisedServer
+                                           device_machine_id, get_platform)
+from repro_torch.service.serving import (CircuitBreaker, CorruptOutput,
+                                         DriftMonitor, DriftStats, Fault,
+                                         FaultError, FaultInjector,
+                                         LayerProfile, NetQueue,
+                                         OptimisedServer, ServedObservation,
+                                         Ticket, WorkerPool, layer_profile,
+                                         make_recalibrator)
 from repro_torch.service.store_backends import (BackendError, LocalDirBackend,
                                                 ObjectStoreBackend,
                                                 ScriptedFaults, StoreBackend,
                                                 get_backend)
 
 __all__ = [
-    "ArtifactStore", "BackendError", "GpuPlatform", "LocalDirBackend",
+    "ArtifactStore", "BackendError", "CircuitBreaker", "CorruptOutput",
+    "DriftMonitor", "DriftStats", "Fault", "FaultError", "FaultInjector",
+    "GpuPlatform", "LayerProfile", "LocalDirBackend", "NetQueue",
     "ObjectStoreBackend",
     "OptimisedNetwork", "OptimisedServer", "Platform", "PlatformModels",
-    "ScriptedFaults", "SimulatedPlatform", "StoreBackend", "digest",
-    "get_backend", "get_platform", "optimise", "reoptimise",
-    "safe_assignment",
+    "ScriptedFaults", "ServedObservation", "SimulatedPlatform",
+    "StoreBackend", "Ticket", "WorkerPool", "device_machine_id", "digest",
+    "get_backend", "get_platform", "layer_profile", "make_recalibrator",
+    "optimise", "reoptimise", "safe_assignment",
 ]

@@ -471,12 +471,13 @@ def _get_or_train(store, fields: dict, train_fn):
 class SimulatedPlatform(Platform):
     """Analytic platform simulator (intel/amd/arm) behind the Platform
     interface — full-scale datasets, deterministic noise, instant profiling.
-    (The reference's ``faults=`` profiling hook waits for the port of the
-    serving fault injector.)"""
+    ``faults``: a ``serving.faults.FaultInjector`` whose ``profile`` hook
+    (key ``"profile:<name>"``) can fail or corrupt profiling calls."""
 
     def __init__(self, name: str, *, noisy: bool = True,
                  max_triplets: Optional[int] = None,
-                 time_scale: float = 1.0):
+                 time_scale: float = 1.0,
+                 faults=None):
         if name not in PLATFORMS:
             raise KeyError(f"unknown simulated platform {name!r}; "
                            f"have {sorted(PLATFORMS)}")
@@ -489,6 +490,7 @@ class SimulatedPlatform(Platform):
         # drifted platform. Relative primitive costs (and hence the optimal
         # assignment) are unchanged; absolute predictions scale.
         self.time_scale = time_scale
+        self.faults = faults
         self._plat = PLATFORMS[name]
         self._prim_ds: Optional[PerfDataset] = None
         self._dlt_ds: Optional[PerfDataset] = None
@@ -498,12 +500,18 @@ class SimulatedPlatform(Platform):
         return list(PRIMITIVE_NAMES)
 
     def profile(self, configs: np.ndarray) -> np.ndarray:
-        return self.time_scale * primitive_time_batch(
+        times = self.time_scale * primitive_time_batch(
             self._plat, np.asarray(configs, np.int64), noisy=self.noisy)
+        if self.faults is not None:
+            times = self.faults.profile(self.name, times)
+        return times
 
     def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
-        return self.time_scale * dlt_time_batch(
+        times = self.time_scale * dlt_time_batch(
             self._plat, np.asarray(pairs, np.int64), noisy=self.noisy)
+        if self.faults is not None:
+            times = self.faults.profile(self.name, times)
+        return times
 
     def primitive_dataset(self) -> PerfDataset:
         if self._prim_ds is None:

@@ -1,12 +1,23 @@
 """Tickets and per-network request queues with deadline-aware batch windows
 — the port's own copy of ``repro.service.serving.queues`` (pure Python and
-numpy), without the process front end's slab groups.
+numpy), without the process front end's slab groups (DESIGN.md §8.1, §8.5).
 
-A ``Ticket`` is one queued inference request; ``wait()`` blocks until it is
-settled. A ``NetQueue`` is a bounded FIFO for one network that owns the
-batching policy: dispatch when ``len(queue) >= batch_cap`` or when the
-oldest ticket has waited the effective window — ``max_wait`` capped by the
-latency budget minus the predicted execution of the pending pow2 batch.
+A ``Ticket`` is one queued inference request. It carries a
+``threading.Event`` so a submitting thread can block on exactly its own
+result while worker threads dispatch batches concurrently.
+
+A ``NetQueue`` is a bounded FIFO for one network. It does NOT lock itself:
+the serving core serialises all queue mutation under one lock. What it
+*does* own is the batching policy:
+
+  * dispatch when ``len(queue) >= batch_cap``            (the batch is full)
+  * or when ``oldest ticket age >= effective max_wait``  (the window expired)
+
+The *effective* window is deadline-aware: ``max_wait`` capped by the
+latency budget minus the model-predicted execution of the pending pow2
+batch (batch-shape-aware when a ``bucket_scale`` head is fitted), all scaled
+by ``window_scale`` (the drift monitor shrinks it when observed p99 queueing
+latency exceeds the budget, and restores it when the queue drains).
 ``push`` refuses tickets beyond ``depth`` (backpressure).
 """
 from __future__ import annotations
@@ -38,8 +49,8 @@ def pow2_ceil(n: int) -> int:
 @dataclasses.dataclass
 class Ticket:
     """One queued inference request. ``result``/``error`` are set by the
-    dispatch; a failed or rejected dispatch marks its tickets instead of
-    losing them."""
+    dispatching worker; ``wait()`` blocks until then. A failed or rejected
+    dispatch marks its tickets instead of losing them."""
 
     net: str
     x: np.ndarray                      # (c, im, im)
@@ -47,6 +58,7 @@ class Ticket:
     done: bool = False
     error: Optional[str] = None
     rejected: bool = False             # refused at submit (backpressure)
+    degraded: bool = False             # served by the safe fallback plan
     submitted_s: float = 0.0           # clock timestamps
     dispatched_s: float = 0.0
     completed_s: float = 0.0
@@ -58,7 +70,8 @@ class Ticket:
         default_factory=threading.Lock, repr=False, compare=False)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """Block until this ticket is finished (True) or ``timeout`` expires."""
+        """Block until this ticket is finished (True) or ``timeout`` expires
+        (False). Finished covers success, failure, and rejection."""
         return self._done_event.wait(timeout)
 
     @property
@@ -67,14 +80,21 @@ class Ticket:
         return max(self.dispatched_s - self.submitted_s, 0.0)
 
     def finish(self, *, result: Optional[np.ndarray] = None,
-               error: Optional[str] = None, rejected: bool = False) -> bool:
-        """Settle the ticket; the first finish wins, later calls return False."""
+               error: Optional[str] = None, rejected: bool = False,
+               degraded: bool = False) -> bool:
+        """Settle the ticket. First finish wins: a supervisor abandoning a
+        hung dispatch and the dispatch eventually completing must not both
+        deliver — whichever settles first is the result the waiter saw, and
+        the loser's call is a no-op (returns False). This is what makes
+        "zero duplicated tickets" a structural property rather than a timing
+        accident."""
         with self._finish_lock:
             if self.done:
                 return False
             self.result = result
             self.error = error
             self.rejected = rejected
+            self.degraded = degraded
             self.completed_s = (self.clock or monotonic)()
             self.done = True
         self._done_event.set()
@@ -82,11 +102,13 @@ class Ticket:
 
 
 class NetQueue:
-    """Bounded FIFO + deadline-aware batch window for one network."""
+    """Bounded FIFO + deadline-aware batch window for one network. All
+    methods must be called under the serving core's lock."""
 
     def __init__(self, *, depth: int, batch_cap: int, max_wait_s: float,
                  budget_s: Optional[float] = None,
-                 predicted_s: float = 0.0):
+                 predicted_s: float = 0.0,
+                 bucket_scale: Optional[Callable[[int], float]] = None):
         if depth < 1:
             raise ValueError(f"queue depth must be >= 1, got {depth}")
         self.depth = depth
@@ -94,6 +116,10 @@ class NetQueue:
         self.max_wait_s = max_wait_s
         self.budget_s = budget_s
         self.predicted_s = predicted_s
+        # batch-shape correction (BucketScaleHead.scale): per-image cost as
+        # a function of the pending batch's pow2 bucket. None = linear.
+        self.bucket_scale = bucket_scale
+        self.window_scale = 1.0        # shrunk/restored by the drift monitor
         self._q: Deque[Ticket] = deque()
 
     def __len__(self) -> int:
@@ -101,13 +127,25 @@ class NetQueue:
 
     def effective_wait_s(self) -> float:
         """``max_wait`` capped by the latency budget minus the predicted
-        execution of the pending batch's pow2 bucket; never negative."""
+        execution of the pending batch's pow2 bucket (bucket-scaled when a
+        head is fitted), times ``window_scale``; never negative — a pending
+        batch whose predicted execution alone exceeds the budget dispatches
+        immediately."""
         w = self.max_wait_s
         if (self.budget_s is not None and math.isfinite(self.budget_s)
-                and self.predicted_s > 0.0 and math.isfinite(self.predicted_s)):
+                and self.predicted_s > 0.0
+                and math.isfinite(self.predicted_s)):
             b = pow2_ceil(len(self._q)) if self._q else 1
-            w = min(w, self.budget_s - self.predicted_s * b)
-        return max(w, 0.0)
+            per = self.predicted_s
+            if self.bucket_scale is not None:
+                per *= float(self.bucket_scale(b))
+            w = min(w, self.budget_s - per * b)
+        return max(w, 0.0) * self.window_scale
+
+    def backlog_images(self, inflight: int = 0) -> int:
+        """Queued images plus an in-flight allowance (``inflight`` batches
+        at ``batch_cap`` each) — the cross-backend router's load proxy."""
+        return len(self) + inflight * self.batch_cap
 
     def push(self, t: Ticket) -> bool:
         """Enqueue; False when the queue is at depth (backpressure)."""
@@ -117,19 +155,27 @@ class NetQueue:
         return True
 
     def drain(self) -> List[Ticket]:
-        """Empty the queue (re-register: nothing may be stranded queued)."""
+        """Empty the queue (re-register / unregister: nothing may be
+        stranded queued)."""
         out = list(self._q)
         self._q.clear()
         return out
 
     def ready(self, now: float, *, drain: bool = False) -> bool:
         """Should a batch dispatch now? Full batch, expired window, or an
-        explicit drain."""
+        explicit drain (synchronous pump / shutdown)."""
         if not self._q:
             return False
         if drain or len(self._q) >= self.batch_cap:
             return True
         return now - self._q[0].submitted_s >= self.effective_wait_s()
+
+    def next_deadline(self) -> Optional[float]:
+        """Clock time at which the oldest ticket's window expires (the
+        worker-pool wait bound); None when empty."""
+        if not self._q:
+            return None
+        return self._q[0].submitted_s + self.effective_wait_s()
 
     def take(self, n: int) -> List[Ticket]:
         """Pop up to ``n`` tickets in FIFO order."""

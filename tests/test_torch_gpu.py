@@ -3,7 +3,10 @@ card, at every tile the variant tables name and every epilogue combination;
 the selection path's performance models on the card against the CPU
 (``-k select``: predictions at rtol=2e-5, the same assignments); training
 and profiling on the card (``-k "train or profile"``: a card fit against
-the CPU's, repeatable fits, profiled tile columns through the kernels).
+the CPU's, repeatable fits, profiled tile columns through the kernels);
+the serving core on the card (``-k serve``: one stream per worker carrying
+its kernels, hot_swap publishing after a device sync, the fallback on the
+card, a two-worker burst against the kernel-free oracle).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -14,6 +17,7 @@ Tolerance: fp32 rtol=atol=1e-4 on unit-scale operands (sum order only),
 """
 import itertools
 import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -819,3 +823,228 @@ def test_gpu_profile_platform_persists_on_the_card(cuda, tmp_path):
     base = get_platform("arm", max_triplets=4).pretrain("lin", store=store)
     models = again.calibrate(base, 2, mode="factor", store=store)
     assert list(models.prim.columns) == cols and models.dlt.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The serving core on the card (-k serve)
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    import importlib.util
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_net(name="edge_cnn", rule="pbqp"):
+    """(opt, weights, chip_smoke): edge_cnn under the PBQP tile assignment
+    (the matmul kernel) or the kernel mix, weights on the card."""
+    from repro_torch.models import cnn_zoo
+    from repro_torch.primitives.executor import make_weights
+    from repro_torch.service import OptimisedNetwork
+    smoke = _smoke()
+    spec = cnn_zoo.get("edge_cnn")
+    asg = (smoke.kernel_mix_assignment(spec) if rule == "mix" else
+           {i: smoke.EDGE_CNN_PBQP.get(i, "chw") for i in range(len(spec.nodes))})
+    opt = OptimisedNetwork.from_assignment(spec, asg, net=name,
+                                           predicted_cost_s=1e-3)
+    return opt, make_weights(spec, 0, device="cuda"), smoke
+
+
+def _serve_net(**kw):
+    """(server, opt, weights, chip_smoke): edge_cnn / PBQP registered on a
+    server on the card."""
+    from repro_torch.service import OptimisedServer
+    opt, weights, smoke = _card_net()
+    server = OptimisedServer(max_batch=8, max_wait_ms=0.0, device="cuda", **kw)
+    server.register(opt, weights=weights)
+    return server, opt, weights, smoke
+
+
+def _images(n, seed=0):
+    return np.random.default_rng(seed).standard_normal((n, 3, 32, 32)).astype(np.float32)
+
+
+def test_gpu_serve_workers_launch_on_their_own_streams(cuda, monkeypatch):
+    """Each worker slot owns a non-default stream; every kernel a dispatch
+    launches goes on the stream of the worker that runs it."""
+    from repro_torch.kernels.matmul import matmul as mm_mod
+    seen = []
+    real = mm_mod.stream_of
+
+    def recording(t):
+        s = real(t)
+        seen.append((s, torch.cuda.current_stream().cuda_stream))
+        return s
+    monkeypatch.setattr(mm_mod, "stream_of", recording)
+    server, opt, weights, _ = _serve_net(workers=2)
+    try:
+        streams = server._pool.streams
+        handles = {s.cuda_stream for s in streams}
+        default = torch.cuda.default_stream().cuda_stream
+        assert len(handles) == 2 and default not in handles
+        seen.clear()
+        outs = server.serve(opt.net, list(_images(16)))
+        assert len(outs) == 16 and seen
+        assert {s for s, _ in seen} <= handles
+        assert all(s == cur for s, cur in seen)
+    finally:
+        server.stop()
+
+
+def test_gpu_serve_hot_swap_publishes_after_a_device_sync(cuda, monkeypatch):
+    """hot_swap (with and without a canary) synchronises the device after
+    the candidate's last work on the swapping thread and before it commits."""
+    from repro_torch.service import OptimisedNetwork
+    server, opt, weights, smoke = _serve_net(canary_slowdown=1e3)
+    syncs = [0]
+    real_sync = torch.cuda.synchronize
+
+    def counting(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    marks = {}
+    real_gate, real_commit = server._canary_gate, server._commit_swap_locked
+
+    def gate(*a, **k):
+        ok = real_gate(*a, **k)
+        marks["canary_done"] = syncs[0]
+        return ok
+
+    def commit(*a, **k):
+        marks.setdefault("commits", []).append(syncs[0])
+        return real_commit(*a, **k)
+    server._canary_gate, server._commit_swap_locked = gate, commit
+    mix = OptimisedNetwork.from_assignment(
+        opt.spec, smoke.kernel_mix_assignment(opt.spec), net=opt.net,
+        predicted_cost_s=1e-3)
+    before = syncs[0]
+    assert server.hot_swap(opt.net, mix, canary=False)
+    assert marks["commits"][0] > before
+    assert server.hot_swap(opt.net, opt, canary=True)
+    assert marks["commits"][1] > marks["canary_done"]
+    assert server.stats(opt.net)["generation"] == 2
+    assert len(server.serve(opt.net, list(_images(3)))) == 3
+
+
+def test_gpu_serve_fallback_output_lies_on_cuda(cuda):
+    """A persistent fault: every ticket is served degraded by the safe plan
+    on the card (its output tensor on cuda), within 1e-3 of the oracle, and
+    no hand-written kernel runs for it."""
+    from repro_torch.service import Fault, FaultInjector
+    server, opt, weights, smoke = _serve_net(
+        faults=FaultInjector([Fault("raise", net="edge_cnn")]))
+    devices = []
+    real = server._fallback_forward
+
+    def spy(*a):
+        y = real(*a)
+        devices.append(y.device.type)
+        return y
+    server._fallback_forward = spy
+    xs = _images(5, seed=1)
+    tickets = [server.submit(opt.net, x) for x in xs]
+    common.reset_launches()
+    server.pump()
+    assert not any(common.LAUNCHES.values())
+    assert devices == ["cuda"] * 5
+    assert all(t.degraded and t.error is None for t in tickets)
+    smoke.check_responses(opt, weights, [xs], [[t.result for t in tickets]])
+    st = server.stats(opt.net)
+    assert st["fallback_images"] == 5 and st["failures"] == {"fault": 1}
+
+
+def test_gpu_serve_two_worker_burst_matches_the_oracle(cuda):
+    """Two workers, two client threads, edge_cnn / PBQP and the kernel mix:
+    every response within 1e-3 of the kernel-free oracle, no failed or
+    degraded dispatch, the path's kernels launched."""
+    import threading
+    server, opt, weights, smoke = _serve_net(workers=2)
+    mix, mix_w, _ = _card_net(name="edge_cnn_mix", rule="mix")
+    server.register(mix, weights=mix_w)
+    xs = _images(48, seed=2)
+    tickets = {}
+
+    def client(c):
+        for i in range(c, 48, 2):
+            net = (opt if i % 2 else mix).net
+            tickets[i] = server.submit(net, xs[i])
+    common.reset_launches()
+    try:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+        assert all(t.wait(60.0) for t in tickets.values())
+    finally:
+        server.stop()
+    want = smoke.routed_kernels(opt.assignment) | smoke.routed_kernels(mix.assignment)
+    assert all(common.LAUNCHES[k] > 0 for k in want)
+    for o, w, idx in ((opt, weights, range(1, 48, 2)), (mix, mix_w, range(0, 48, 2))):
+        smoke.check_responses(o, w, [xs[list(idx)]],
+                              [[tickets[i].result for i in idx]])
+        st = server.stats(o.net)
+        assert st["failed_dispatches"] == 0 and st["fallback_images"] == 0
+        assert st["images"] == 24
+
+
+def test_gpu_serve_broken_kernel_fails_tickets_not_degraded(cuda, monkeypatch):
+    """A kernel whose launch fails (its launcher returns a CUDA error):
+    register refuses the plan, and a registered plan's dispatch fails its
+    tickets with the kernel's error — the safe plan serves none of them."""
+    from repro_torch.kernels.common import KernelError
+    from repro_torch.kernels.matmul import matmul as mm_mod
+    from repro_torch.service import OptimisedServer
+    server, opt, weights, _ = _serve_net()
+    broken = lambda *a, **k: (lambda *args: 98)   # cudaErrorInvalidDeviceFunction
+    monkeypatch.setattr(mm_mod, "bind", broken)
+    with pytest.raises(KernelError, match="cudaError 98"):
+        OptimisedServer(max_batch=8, device="cuda").register(opt, weights=weights)
+    xs = _images(5, seed=3)
+    tickets = [server.submit(opt.net, x) for x in xs]
+    server.pump()
+    assert all(t.error is not None and "cudaError 98" in t.error
+               and not t.degraded and t.result is None for t in tickets)
+    st = server.stats(opt.net)
+    assert st["fallback_images"] == 0 and st["failed_tickets"] == 5
+    assert st["failures"] == {"kernel": 1}
+
+
+def test_gpu_serve_probe_waits_on_its_own_stream(cuda):
+    """A probe on one worker's stream while the other worker's stream is
+    busy for about a second: the probe waits for its own work only."""
+    import threading
+    from repro_torch.models.cnn_zoo import ConvLayer
+    server, opt, weights, _ = _serve_net(workers=2)
+    try:
+        busy_stream, probe_stream = server._pool.streams
+        i = next(i for i, n in enumerate(opt.spec.nodes)
+                 if isinstance(n, ConvLayer) and "@" in opt.assignment[i])
+        cfg, col = opt.spec.nodes[i].config, opt.assignment[i]
+        took = {}
+
+        def probe():
+            with torch.cuda.stream(probe_stream):
+                t0 = time.perf_counter()
+                took["per_image"] = server._run_probe(opt, cfg, col)
+                took["wall"] = time.perf_counter() - t0
+        probe()                                  # warm: build, load, allocate
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(busy_stream):
+            start.record()
+            torch.cuda._sleep(2_000_000_000)     # ~1 s of one busy SM
+            end.record()
+        t = threading.Thread(target=probe)
+        t.start()
+        t.join(60.0)
+        torch.cuda.synchronize()
+        busy_s = start.elapsed_time(end) * 1e-3
+        assert busy_s > 0.5, busy_s
+        assert 0 < took["per_image"] < 0.1 and took["wall"] < 0.4 * busy_s, took
+    finally:
+        server.stop()
