@@ -16,33 +16,42 @@ pipeline and the concurrent serving core.
     gpu = GpuPlatform(configs=..., dlt_pairs=..., store=store)
     opt = optimise("edge_cnn", gpu, base=intel, budget=28, mode="finetune",
                    store=store, executable=True)
-"""
-from repro_torch.service.artifacts import ArtifactStore, digest
-from repro_torch.service.pipeline import (OptimisedNetwork, optimise,
-                                          reoptimise, safe_assignment)
-from repro_torch.service.platforms import (GpuPlatform, Platform,
-                                           PlatformModels, SimulatedPlatform,
-                                           device_machine_id, get_platform)
-from repro_torch.service.serving import (CircuitBreaker, CorruptOutput,
-                                         DriftMonitor, DriftStats, Fault,
-                                         FaultError, FaultInjector,
-                                         LayerProfile, NetQueue,
-                                         OptimisedServer, ServedObservation,
-                                         Ticket, WorkerPool, layer_profile,
-                                         make_recalibrator)
-from repro_torch.service.store_backends import (BackendError, LocalDirBackend,
-                                                ObjectStoreBackend,
-                                                ScriptedFaults, StoreBackend,
-                                                get_backend)
 
-__all__ = [
-    "ArtifactStore", "BackendError", "CircuitBreaker", "CorruptOutput",
-    "DriftMonitor", "DriftStats", "Fault", "FaultError", "FaultInjector",
-    "GpuPlatform", "LayerProfile", "LocalDirBackend", "NetQueue",
-    "ObjectStoreBackend",
-    "OptimisedNetwork", "OptimisedServer", "Platform", "PlatformModels",
-    "ScriptedFaults", "ServedObservation", "SimulatedPlatform",
-    "StoreBackend", "Ticket", "WorkerPool", "device_machine_id", "digest",
-    "get_backend", "get_platform", "layer_profile", "make_recalibrator",
-    "optimise", "reoptimise", "safe_assignment",
-]
+The names load lazily (PEP 562), so importing ``repro_torch.service``
+loads nothing: the serving front end's intake processes import its
+torch-free submodules only.
+"""
+import importlib
+
+_EXPORTS = {
+    "ArtifactStore": "artifacts", "digest": "artifacts",
+    "OptimisedNetwork": "pipeline", "optimise": "pipeline",
+    "reoptimise": "pipeline", "safe_assignment": "pipeline",
+    "GpuPlatform": "platforms", "Platform": "platforms",
+    "PlatformModels": "platforms", "SimulatedPlatform": "platforms",
+    "device_machine_id": "platforms", "get_platform": "platforms",
+    "BackendError": "store_backends", "LocalDirBackend": "store_backends",
+    "ObjectStoreBackend": "store_backends", "ScriptedFaults": "store_backends",
+    "StoreBackend": "store_backends", "get_backend": "store_backends",
+    **{name: "serving" for name in (
+        "BatchGroup", "CircuitBreaker", "CorruptOutput", "DriftMonitor",
+        "DriftStats", "Fault", "FaultError", "FaultInjector", "LayerProfile",
+        "NetQueue", "OptimisedServer", "ProcessFrontend", "ServedObservation",
+        "SlabHandle", "SlabPool", "Ticket", "WorkerPool", "layer_profile",
+        "make_recalibrator")},
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

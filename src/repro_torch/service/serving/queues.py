@@ -1,6 +1,7 @@
-"""Tickets and per-network request queues with deadline-aware batch windows
-— the port's own copy of ``repro.service.serving.queues`` (pure Python and
-numpy), without the process front end's slab groups (DESIGN.md §8.1, §8.5).
+"""Tickets, pre-assembled slab batches and per-network request queues with
+deadline-aware batch windows — the port's own copy of
+``repro.service.serving.queues`` (pure Python and numpy; DESIGN.md §8.1,
+§8.5, §12).
 
 A ``Ticket`` is one queued inference request. It carries a
 ``threading.Event`` so a submitting thread can block on exactly its own
@@ -19,6 +20,14 @@ batch (batch-shape-aware when a ``bucket_scale`` head is fitted), all scaled
 by ``window_scale`` (the drift monitor shrinks it when observed p99 queueing
 latency exceeds the budget, and restores it when the queue drains).
 ``push`` refuses tickets beyond ``depth`` (backpressure).
+
+A ``BatchGroup`` is a batch the process front end already assembled,
+pow2-padded, in one shared-memory slab (``frontend.py``): it shares the
+queue's depth bound with loose tickets, makes the queue ready at once (its
+window ran in the intake process) and dispatches whole.
+
+This module imports numpy only: the front end's intake processes import it
+and must not load torch.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import math
 import threading
 import time
 from collections import deque
-from typing import Callable, Deque, List, Optional
+from typing import Callable, Deque, List, Optional, Tuple
 
 import numpy as np
 
@@ -53,8 +62,11 @@ class Ticket:
     dispatch marks its tickets instead of losing them."""
 
     net: str
-    x: np.ndarray                      # (c, im, im)
+    x: np.ndarray                      # (c, im, im) — for slab-backed
+    # tickets this is a zero-copy row view into a shared-memory slab
     result: Optional[np.ndarray] = None
+    slab: Optional[object] = None      # SlabHandle provenance (frontend.py)
+    row: int = -1                      # row index inside the slab, -1 = none
     done: bool = False
     error: Optional[str] = None
     rejected: bool = False             # refused at submit (backpressure)
@@ -101,6 +113,21 @@ class Ticket:
         return True
 
 
+@dataclasses.dataclass
+class BatchGroup:
+    """A pre-assembled dispatch from the process front end: tickets whose
+    payload rows already live contiguously — and pow2-padded — in one
+    shared-memory slab. ``xs`` is the zero-copy padded batch view the worker
+    executes directly; ``on_done(tickets, out)`` fires exactly once when the
+    dispatch settles (delivered, degraded, failed, or rejected) so the front
+    end can ship results back and recycle the slab."""
+
+    tickets: List[Ticket]
+    xs: np.ndarray                     # (pow2 bucket, c, im, im) padded view
+    on_done: Optional[Callable[[List[Ticket],
+                                Optional[np.ndarray]], None]] = None
+
+
 class NetQueue:
     """Bounded FIFO + deadline-aware batch window for one network. All
     methods must be called under the serving core's lock."""
@@ -121,9 +148,10 @@ class NetQueue:
         self.bucket_scale = bucket_scale
         self.window_scale = 1.0        # shrunk/restored by the drift monitor
         self._q: Deque[Ticket] = deque()
+        self._groups: Deque[BatchGroup] = deque()
 
     def __len__(self) -> int:
-        return len(self._q)
+        return len(self._q) + sum(len(g.tickets) for g in self._groups)
 
     def effective_wait_s(self) -> float:
         """``max_wait`` capped by the latency budget minus the predicted
@@ -154,16 +182,35 @@ class NetQueue:
         self._q.append(t)
         return True
 
-    def drain(self) -> List[Ticket]:
-        """Empty the queue (re-register / unregister: nothing may be
-        stranded queued)."""
-        out = list(self._q)
+    def push_group(self, g: BatchGroup) -> bool:
+        """Enqueue a pre-assembled slab batch; False when the group would
+        push the queue past depth (backpressure, same bound as ``push``)."""
+        if len(self) + len(g.tickets) > self.depth:
+            return False
+        self._groups.append(g)
+        return True
+
+    def group_ready(self) -> bool:
+        return bool(self._groups)
+
+    def take_group(self) -> BatchGroup:
+        """Pop the oldest pre-assembled batch (caller checked group_ready)."""
+        return self._groups.popleft()
+
+    def drain(self) -> Tuple[List[Ticket], List[BatchGroup]]:
+        """Empty the queue entirely: loose tickets and pre-assembled groups
+        (re-register / unregister: nothing may be stranded queued)."""
+        tickets, groups = list(self._q), list(self._groups)
         self._q.clear()
-        return out
+        self._groups.clear()
+        return tickets, groups
 
     def ready(self, now: float, *, drain: bool = False) -> bool:
-        """Should a batch dispatch now? Full batch, expired window, or an
-        explicit drain (synchronous pump / shutdown)."""
+        """Should a batch dispatch now? A pre-assembled group (its window
+        already ran in the intake process), full batch, expired window, or
+        an explicit drain (synchronous pump / shutdown)."""
+        if self._groups:
+            return True
         if not self._q:
             return False
         if drain or len(self._q) >= self.batch_cap:
@@ -172,13 +219,17 @@ class NetQueue:
 
     def next_deadline(self) -> Optional[float]:
         """Clock time at which the oldest ticket's window expires (the
-        worker-pool wait bound); None when empty."""
+        worker-pool wait bound); None when empty. A pending group is ready
+        immediately."""
+        if self._groups:
+            return self._groups[0].tickets[0].submitted_s
         if not self._q:
             return None
         return self._q[0].submitted_s + self.effective_wait_s()
 
     def take(self, n: int) -> List[Ticket]:
-        """Pop up to ``n`` tickets in FIFO order."""
+        """Pop up to ``n`` loose tickets in FIFO order (groups dispatch
+        whole, via ``take_group``)."""
         out = []
         while self._q and len(out) < n:
             out.append(self._q.popleft())

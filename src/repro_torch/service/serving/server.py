@@ -39,6 +39,12 @@ closing the paper's loop end to end:
     column) pairs, timed as the measured platform profiles them
     (``profiler/device.py``), so a probe row and a profiled row mean the
     same thing.
+  * **Process front end** (``frontend.py``): ``frontend_procs`` > 0 (with
+    ``workers`` >= 1) lets ``frontend()`` start intake processes that
+    assemble request batches in shared-memory slabs; the workers execute a
+    slab batch whole (``_submit_group``). On a cuda server the slabs are
+    page-locked once, so a slab batch reaches the card in one asynchronous
+    copy on the worker's stream; loose tickets keep the pageable upload.
 
 Device discipline: registered weights live on ``device``; every path that
 publishes weights or bound plan handles made on one thread to the workers
@@ -48,13 +54,13 @@ claimed batch keeps its own ``opt``/``weights`` until its device-to-host
 copy returns, so a swap never frees weights a stream still reads.
 
 Timing is injectable: ``clock=`` replaces the monotonic clock everywhere a
-window or queueing decision reads time. The process front end
-(``frontend_procs``, ``frontend()``) is not ported yet and raises.
+window or queueing decision reads time.
 
 CLI:
 
     python -m repro_torch.service.server --net edge_cnn --platform arm \\
-        --workers 2 --max-wait-ms 5 --latency-budget-ms 50
+        --workers 2 --max-wait-ms 5 --latency-budget-ms 50 \\
+        [--frontend-procs 2]
 """
 from __future__ import annotations
 
@@ -85,8 +91,9 @@ from repro_torch.service.serving.drift import DriftMonitor, LayerProfile
 from repro_torch.service.serving.faults import (DEGRADABLE, FaultInjector,
                                                 classify, validate_output)
 from repro_torch.service.serving.health import CircuitBreaker, merge_failures
-from repro_torch.service.serving.queues import (NetQueue, Ticket, monotonic,
-                                                pow2_ceil, pow2_floor)
+from repro_torch.service.serving.queues import (BatchGroup, NetQueue, Ticket,
+                                                monotonic, pow2_ceil,
+                                                pow2_floor)
 from repro_torch.service.serving.workers import WorkerPool
 
 # batch-shape cost model (DESIGN.md §12.3): fit the per-bucket scale head
@@ -95,16 +102,6 @@ BUCKET_MIN_OBS = 8
 BUCKET_REFRESH_EVERY = 8
 # a probe is the median of this many timed calls after two warm-ups
 PROBE_REPEATS = 3
-
-
-def _unported(**knobs) -> None:
-    """Raise for a knob of the process front end set away from its
-    default: the front end is not ported yet and would otherwise be
-    silently ignored."""
-    for name, (value, default) in knobs.items():
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (the process front end)")
 
 
 class ProbeUnsupported(Exception):
@@ -155,7 +152,11 @@ class _Batch:
     the execution deadline; ``settled`` guards the release of the in-flight
     slot — the executing worker, its ``finally``, a late zombie, and the
     supervisor's ``abandon`` may all race to settle, and exactly one wins
-    (DESIGN.md §11.3)."""
+    (DESIGN.md §11.3).
+
+    A slab batch from the process front end carries its pre-assembled,
+    pow2-padded ``xs`` (a zero-copy shared-memory view) and the group's
+    ``on_done``, fired exactly once when the dispatch settles."""
     net: str
     tickets: List[Ticket]
     generation: int
@@ -164,6 +165,8 @@ class _Batch:
     weights: Dict
     claimed_s: float = 0.0
     settled: bool = False              # mutated only under the server lock
+    xs: Optional[np.ndarray] = None    # slab batch: the padded view
+    on_done: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -276,11 +279,9 @@ class OptimisedServer:
         circuit breakers; ``faults`` injects a deterministic fault plan into
         every plan execution, canary batch and probe; ``bucket_cost_model``
         fits a per-bucket scale head from served traffic; ``probe_rate`` >
-        0 allows that many single-layer probes a second per state.
-        ``frontend_procs`` and ``frontend_slots`` (the process front end)
-        raise ``NotImplementedError`` away from their defaults."""
-        _unported(frontend_procs=(frontend_procs, 0),
-                  frontend_slots=(frontend_slots, 16))
+        0 allows that many single-layer probes a second per state;
+        ``frontend_procs`` intake processes (``frontend()``, which needs
+        ``workers`` >= 1) share ``frontend_slots`` slabs per pow2 bucket."""
         self.max_batch = max_batch
         self.latency_budget_ms = latency_budget_ms
         self.max_wait_ms = max_wait_ms
@@ -319,6 +320,17 @@ class OptimisedServer:
         self._recal_threads: List[threading.Thread] = []
         self._pool = WorkerPool(self, workers) if workers > 0 else None
         self.bucket_cost_model = bool(bucket_cost_model)
+        if frontend_procs > 0 and workers < 1:
+            raise ValueError(
+                "frontend_procs requires workers >= 1: intake processes "
+                "feed pre-assembled batches to the worker pool; pump mode "
+                "has no concurrent consumer")
+        self.frontend_procs = int(frontend_procs)
+        self.frontend_slots = int(frontend_slots)
+        self._frontend = None
+        # page-locked slab segments, (address, bytes): a batch whose bytes
+        # lie inside one uploads with one asynchronous copy
+        self._pinned: List[Tuple[int, int]] = []
         if probe_rate < 0:
             raise ValueError(f"probe_rate must be >= 0, got {probe_rate}")
         self.probe_rate = float(probe_rate)
@@ -337,13 +349,43 @@ class OptimisedServer:
 
     def frontend(self, procs: Optional[int] = None, *,
                  slots: Optional[int] = None):
-        """The process front end is not ported yet."""
-        raise NotImplementedError("the process front end is not ported yet")
+        """The process front end, created and started on first use — intake
+        processes assembling request batches in shared-memory slabs
+        (``frontend.ProcessFrontend``). Register every network first: the
+        front end sizes its slab pools from the registered image shapes and
+        batch caps."""
+        if self._frontend is None:
+            from repro_torch.service.serving.frontend import ProcessFrontend
+            n = procs if procs is not None else self.frontend_procs
+            if n < 1:
+                raise ValueError("frontend requires procs >= 1 (pass procs= "
+                                 "or construct with frontend_procs=)")
+            if self._pool is None:
+                raise ValueError(
+                    "the process front end requires workers >= 1: intake "
+                    "processes feed pre-assembled batches to the worker "
+                    "pool; pump mode has no concurrent consumer")
+            self.start()
+            fe = ProcessFrontend(
+                self, n,
+                slots=slots if slots is not None else self.frontend_slots)
+            fe.start()
+            self._frontend = fe
+        return self._frontend
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Drain queued tickets, stop workers, join pending recalibrations."""
-        if self._pool is not None:
-            self._pool.stop(timeout)
+        """Stop the front end's intake, drain queued tickets, stop workers,
+        then unpin and close the slabs (no dispatch reads them any more),
+        and join pending recalibrations."""
+        fe, self._frontend = self._frontend, None
+        if fe is not None:
+            fe.stop_intake(timeout)
+        try:
+            if self._pool is not None:
+                self._pool.stop(timeout)
+        finally:
+            if fe is not None:
+                fe.close()
         with self._cond:
             pending = list(self._recal_threads)
         for t in pending:
@@ -369,6 +411,48 @@ class OptimisedServer:
         complete before another thread's stream may read it."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- page-locked slabs (the process front end) -------------------------
+    def _pin_slabs(self, pools) -> None:
+        """Page-lock every data segment of the front end's slab ``pools``
+        on a cuda server (``cudaHostRegister``), so a slab batch reaches
+        the card in one asynchronous copy. A failed register unpins what
+        was pinned and raises: the front end never falls back quietly to
+        pageable copies. Nothing to do on the CPU."""
+        if self.device.type != "cuda":
+            return
+        cudart = torch.cuda.cudart()
+        for pool in pools:
+            for addr, nbytes in pool.segments():
+                rc = int(cudart.cudaHostRegister(addr, nbytes, 0))
+                if rc != 0:
+                    self._unpin_slabs()
+                    raise RuntimeError(
+                        f"cudaHostRegister of a {nbytes}-byte slab segment "
+                        f"failed (cudaError {rc})")
+                with self._cond:
+                    self._pinned.append((addr, nbytes))
+
+    def _unpin_slabs(self) -> None:
+        """Unregister every pinned segment, after a device sync (no copy
+        from one is still in flight). Called before the segments close."""
+        with self._cond:
+            pinned, self._pinned = self._pinned, []
+        if not pinned:
+            return
+        torch.cuda.synchronize(self.device)
+        cudart = torch.cuda.cudart()
+        failed = [(addr, rc) for addr, _ in pinned
+                  if (rc := int(cudart.cudaHostUnregister(addr))) != 0]
+        if failed:
+            raise RuntimeError(f"cudaHostUnregister failed for "
+                               f"{len(failed)} slab segment(s): {failed}")
+
+    def _is_pinned(self, xs: np.ndarray) -> bool:
+        """Whether ``xs``'s bytes lie inside one page-locked segment."""
+        lo = xs.__array_interface__["data"][0]
+        return any(a <= lo and lo + xs.nbytes <= a + n
+                   for a, n in self._pinned)
 
     # -- registration ------------------------------------------------------
     def _budget_s(self, budget_ms: Optional[float]) -> float:
@@ -494,15 +578,14 @@ class OptimisedServer:
             else:
                 # replacing a live registration must not strand its queued
                 # tickets, and must not reuse its generation numbers
-                stranded = old.queue.drain()
+                stranded, sgroups = old.queue.drain()
                 state.generation = old.generation + 1
             self._nets[key] = state
             if old is not None:
                 self._evict_retired_locked(old.opt)
         if old is not None:
-            for t in stranded:
-                t.finish(error=f"rejected: {key!r} was re-registered",
-                         rejected=True)
+            self._reject(stranded, sgroups,
+                         f"rejected: {key!r} was re-registered")
         self._precompile_plans(opt, state.weights)
         self._drift.reset(key, state.generation, layers=layer_profile(opt))
         self.start()
@@ -523,14 +606,23 @@ class OptimisedServer:
             route = self._routes.get(net)
             if route and key in route:
                 route.remove(key)
-            stranded = state.queue.drain()
+            stranded, sgroups = state.queue.drain()
             self._evict_retired_locked(state.opt)
             self._cond.notify_all()
-        err = (f"rejected: backend {backend!r} of {net!r} "
-               f"was unregistered")
-        for t in stranded:
-            t.finish(error=err, rejected=True)
+        self._reject(stranded, sgroups, f"rejected: backend {backend!r} of "
+                                        f"{net!r} was unregistered")
         return True
+
+    def _reject(self, tickets: List[Ticket], groups: List[BatchGroup],
+                err: str) -> None:
+        """Finish drained tickets and groups rejected; each group's
+        ``on_done`` fires so the front end recycles its slab."""
+        for t in tickets:
+            t.finish(error=err, rejected=True)
+        for g in groups:
+            for t in g.tickets:
+                t.finish(error=err, rejected=True)
+            self._notify_done(g, None)
 
     def hot_swap(self, net: str, opt: OptimisedNetwork, *,
                  latency_budget_ms: Optional[float] = None,
@@ -772,6 +864,75 @@ class OptimisedServer:
                            f"depth (backpressure)", rejected=True)
         return t
 
+    def _notify_done(self, holder, out: Optional[np.ndarray]) -> None:
+        """Fire a group/batch ``on_done`` exactly once (the executing
+        worker's ``finally``, the supervisor's ``abandon``, and a drain all
+        converge here — the callback swap under the lock picks one winner).
+        ``out`` is the primary plan's padded output when every ticket was
+        served by it, else None (results travel per ticket)."""
+        with self._cond:
+            cb, holder.on_done = holder.on_done, None
+        if cb is None:
+            return
+        try:
+            cb(holder.tickets, out)
+        except Exception:
+            pass                       # front-end delivery is best-effort
+
+    def _submit_group(self, net: str, xs: np.ndarray, rows: int, *,
+                      handle=None, on_done: Optional[Callable] = None
+                      ) -> BatchGroup:
+        """Enqueue one pre-assembled slab batch from the process front end:
+        ``xs`` is the pow2-padded batch (a zero-copy shared-memory view),
+        ``rows`` of it real. Routing mirrors ``submit`` — breaker-gated,
+        cheapest-predicted-first, spilling on backpressure, whole-group —
+        so the fault-tolerance contracts hold unchanged for slab
+        dispatches. When every candidate queue is full the group is
+        rejected whole: tickets finish rejected and ``on_done`` fires so
+        the front end recycles the slab."""
+        now = self._clock()
+        tickets = [Ticket(net=net, x=xs[i], slab=handle, row=i,
+                          submitted_s=now, clock=self._clock)
+                   for i in range(rows)]
+        g = BatchGroup(tickets=tickets, xs=xs, on_done=on_done)
+        err = None
+        with self._cond:
+            try:
+                keys = self._route_keys_locked(net)
+            except KeyError as e:
+                keys, err = [], str(e)
+            granted: List[str] = []
+            if len(keys) > 1:
+                allowed = []
+                for k in keys:
+                    if self._nets[k].breaker.allow(now):
+                        allowed.append(k)
+                        granted.append(k)
+                keys = allowed if allowed else keys
+                keys.sort(key=lambda k:
+                          self._route_score_locked(self._nets[k]))
+            pushed = None
+            for k in keys:
+                for t in tickets:
+                    t.net = k
+                if self._nets[k].queue.push_group(g):
+                    pushed = k
+                    break
+            for k in granted:
+                if k != pushed:
+                    self._nets[k].breaker.cancel_probe()
+            if pushed is not None:
+                self._cond.notify()
+                return g
+            if keys:
+                self._nets[keys[0]].rejected += len(tickets)
+                err = (f"rejected: every backend of {net!r} at queue "
+                       f"depth (backpressure)")
+        for t in tickets:
+            t.finish(error=err, rejected=True)
+        self._notify_done(g, None)
+        return g
+
     # -- scheduling --------------------------------------------------------
     def _claim_locked(self, now: float, *, drain: bool = False) -> Optional[_Batch]:
         """Pop the next dispatchable batch (round-robin across networks),
@@ -784,7 +945,14 @@ class OptimisedServer:
                 continue
             if not state.queue.ready(now, drain=drain):
                 continue
-            tickets = state.queue.take(state.queue.batch_cap)
+            if state.queue.group_ready():
+                # pre-assembled slab batch: dispatch whole, payload already
+                # padded in shared memory (its window ran in the intake)
+                group = state.queue.take_group()
+                tickets, gxs, gdone = group.tickets, group.xs, group.on_done
+            else:
+                tickets = state.queue.take(state.queue.batch_cap)
+                gxs = gdone = None
             state.inflight += 1
             t_claim = self._clock()
             for t in tickets:
@@ -799,7 +967,7 @@ class OptimisedServer:
             return _Batch(net=name, tickets=tickets,
                           generation=state.generation, state=state,
                           opt=state.opt, weights=state.weights,
-                          claimed_s=t_claim)
+                          claimed_s=t_claim, xs=gxs, on_done=gdone)
         return None
 
     def claim_blocking(self, stop_event: threading.Event) -> Optional[_Batch]:
@@ -911,14 +1079,18 @@ class OptimisedServer:
         """Execute one padded batch: copy it to the device, run the bound
         plan for its shape (a shape or generation without a warm handle
         binds through the global plan cache) and copy the sink back on the
-        calling thread's stream. Isolated so tests can wrap it."""
+        calling thread's stream. A batch in a page-locked slab goes up in
+        one asynchronous copy on that stream, which the closing copy back
+        waits for; any other batch takes the pageable copy. Isolated so
+        tests can wrap it."""
         ent = self._plan_handles.get((id(opt), id(weights)))
         bound = None
         if ent is not None and ent[0] is opt and ent[1] is weights:
             bound = ent[2].get(xs.shape)
         if bound is None:
             bound = self._bind_plan(opt, weights, xs.shape)
-        x = torch.from_numpy(np.ascontiguousarray(xs)).to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(xs))
+        x = x.to(self.device, non_blocking=self._is_pinned(xs))
         return bound(x).cpu().numpy()
 
     def _run_faulted(self, key: str, generation: int, opt: OptimisedNetwork,
@@ -1061,7 +1233,7 @@ class OptimisedServer:
         state = batch.state
         tickets = batch.tickets
         take = len(tickets)
-        b = pow2_ceil(take)
+        b = batch.xs.shape[0] if batch.xs is not None else pow2_ceil(take)
         err: Optional[str] = None
         kind: Optional[str] = None
         out = None
@@ -1069,7 +1241,10 @@ class OptimisedServer:
         t0 = t1 = self._clock()
         try:
             try:
-                xs = self._assemble(state, tickets, b)
+                # a slab batch is already assembled, padded and pow2-bucketed
+                # in shared memory: no copy here
+                xs = (batch.xs if batch.xs is not None
+                      else self._assemble(state, tickets, b))
                 t0 = self._clock()
                 try:
                     out = self._attempt(batch, xs, b)
@@ -1125,6 +1300,10 @@ class OptimisedServer:
             if not abandoned:
                 for t in tickets:
                     t.finish(error=err or "internal serving error")
+                # slab batches: tell the front end this batch settled (every
+                # ticket finished above) so it can recycle the slab and ship
+                # results; an abandoned batch's supervisor owns it
+                self._notify_done(batch, out if err is None else None)
 
     def abandon(self, batch: _Batch, reason: str) -> None:
         """Give up on a claim whose worker hung past the execution deadline
@@ -1151,6 +1330,7 @@ class OptimisedServer:
         if not rescued:
             for t in batch.tickets:
                 t.finish(error=msg)
+        self._notify_done(batch, None)
         if roll:
             self._rollback(batch.net, expect_generation=batch.generation)
 
@@ -1620,8 +1800,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--workers", type=int, default=0,
                     help="serving worker threads; 0 = synchronous pump mode")
     ap.add_argument("--frontend-procs", type=int, default=0,
-                    help="intake processes (the process front end is not "
-                         "ported yet: > 0 raises)")
+                    help="intake processes assembling request batches in "
+                         "shared-memory slabs and handing them to the "
+                         "worker pool by reference (requires --workers >= "
+                         "1); 0 = thread-only front end")
     ap.add_argument("--no-bucket-cost-model", action="store_true",
                     help="disable the batch-shape-aware cost model")
     ap.add_argument("--backend-budget-ms", default=None,
@@ -1679,8 +1861,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     specs = ([s.strip() for s in args.backends.split(",") if s.strip()]
              if args.backends else [args.platform])
     routed = len(specs) > 1
-    # refuse the unported front end before any optimisation work
-    _unported(frontend_procs=(args.frontend_procs, 0))
 
     base = None
     if args.transfer_from:
@@ -1733,6 +1913,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              breaker_cooldown_ms=args.breaker_cooldown_ms,
                              rollback_history=args.rollback_history,
                              bucket_cost_model=not args.no_bucket_cost_model,
+                             frontend_procs=args.frontend_procs,
                              probe_rate=args.probe_rate,
                              recalibrate=make_recalibrator(
                                  store=store,
@@ -1806,6 +1987,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         server.serve(opt.net, xs[:8])
         print(f"[serve] hot-swapped to recalibrated assignment "
               f"(generation {server.stats(key)['generation']})")
+
+    if args.frontend_procs > 0:
+        fe = server.frontend()
+        agg = fe.drive(opt.net, args.requests, seed=1)
+        print(f"[serve] frontend: {args.frontend_procs} intake procs, "
+              f"{agg['requests']} requests -> {agg['served']} served "
+              f"({agg['degraded']} degraded, {agg['failed']} failed, "
+              f"{agg['rejected']} rejected) at {agg['images_per_s']:.1f} "
+              f"img/s, mean latency {agg['latency_mean_ms']:.2f} ms")
     server.stop()
     return 0
 

@@ -6,7 +6,10 @@ and profiling on the card (``-k "train or profile"``: a card fit against
 the CPU's, repeatable fits, profiled tile columns through the kernels);
 the serving core on the card (``-k serve``: one stream per worker carrying
 its kernels, hot_swap publishing after a device sync, the fallback on the
-card, a two-worker burst against the kernel-free oracle).
+card, a two-worker burst against the kernel-free oracle); the process front
+end on the card (``-k frontend``: page-locked slabs uploading the same bytes
+as a pageable copy, unpinned at stop and pinned again by the next front end,
+a kernel error failing a slab batch's tickets and recycling its slab).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -1046,5 +1049,93 @@ def test_gpu_serve_probe_waits_on_its_own_stream(cuda):
         busy_s = start.elapsed_time(end) * 1e-3
         assert busy_s > 0.5, busy_s
         assert 0 < took["per_image"] < 0.1 and took["wall"] < 0.4 * busy_s, took
+    finally:
+        server.stop()
+
+
+# ---------------------------------------------------------------------------
+# The process front end on the card (-k frontend)
+# ---------------------------------------------------------------------------
+
+def _frontend_server(**kw):
+    """(server, opt, weights, chip_smoke): edge_cnn / PBQP on a two-worker
+    card server with one intake process, the front end started."""
+    server, opt, weights, smoke = _serve_net(workers=2, frontend_procs=1,
+                                             frontend_slots=2, **kw)
+    server.frontend()
+    return server, opt, weights, smoke
+
+
+def test_gpu_frontend_pinned_slab_uploads_the_same_bytes(cuda):
+    """A page-locked slab's asynchronous upload brings the same bytes as a
+    pageable copy of it, and the ingest path serves them within 1e-3 of
+    the kernel-free oracle."""
+    server, opt, weights, smoke = _frontend_server()
+    try:
+        pool = server._frontend._pools[opt.net]
+        h = pool.alloc(8)
+        slab = pool.view(h)
+        slab[:] = _images(8, seed=4)
+        assert server._is_pinned(slab) and torch.from_numpy(slab).is_pinned()
+        pageable = np.array(slab)
+        assert not server._is_pinned(pageable)
+        got = torch.from_numpy(slab).to("cuda", non_blocking=True)
+        want = torch.from_numpy(pageable).to("cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        pool.free(h)
+        xs = _images(8, seed=5)
+        tickets = server._frontend.ingest(opt.net, xs)
+        assert all(t.wait(60.0) for t in tickets)
+        assert all(t.error is None and not t.degraded for t in tickets)
+        smoke.check_responses(opt, weights, [xs], [[t.result for t in tickets]])
+    finally:
+        server.stop()
+
+
+def test_gpu_frontend_stop_unpins_and_the_next_front_end_pins(cuda):
+    server, opt, weights, _ = _frontend_server()
+    try:
+        first = list(server._pinned)
+        pool = server._frontend._pools[opt.net]
+        assert first and sorted(first) == sorted(pool.segments())
+        view = pool.view(pool.alloc(1))
+        server.stop()
+        assert server._pinned == [] and server._frontend is None
+        assert not torch.from_numpy(view).is_pinned()
+        fe = server.frontend()
+        assert server._pinned and all(
+            torch.from_numpy(p.view(p.alloc(1))).is_pinned()
+            for p in fe._pools.values())
+        xs = _images(4, seed=6)
+        assert all(t.wait(60.0) and t.error is None
+                   for t in fe.ingest(opt.net, xs))
+    finally:
+        server.stop()
+    assert server._pinned == []
+
+
+def test_gpu_frontend_kernel_error_fails_the_slab_batch(cuda, monkeypatch):
+    """A slab batch whose kernel launch fails: its tickets fail with the
+    kernel's error (never degraded), and its slab goes back to the ring."""
+    from repro_torch.kernels.matmul import matmul as mm_mod
+    server, opt, weights, _ = _frontend_server()
+    try:
+        pool = server._frontend._pools[opt.net]
+        free = pool.available(8)
+        monkeypatch.setattr(mm_mod, "bind",
+                            lambda *a, **k: (lambda *args: 98))
+        tickets = server._frontend.ingest(opt.net, _images(8, seed=7))
+        assert all(t.wait(60.0) for t in tickets)
+        assert all(t.error is not None and "cudaError 98" in t.error
+                   and not t.degraded and t.result is None for t in tickets)
+        deadline = time.time() + 30.0
+        while pool.available(8) != free and time.time() < deadline:
+            time.sleep(0.01)
+        assert pool.available(8) == free
+        st = server.stats(opt.net)
+        assert st["fallback_images"] == 0 and st["failed_tickets"] == 8
+        # the intake's window is 0 ms here: as many batches as arrived apart
+        assert st["failures"] == {"kernel": st["failed_dispatches"]}
     finally:
         server.stop()

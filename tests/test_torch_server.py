@@ -1,8 +1,7 @@
 """The port's server in pump mode on the CPU against the reference's
 compiled plan: bursts of 1, 3 and 8 (pow2 padding by repeating the last
 row), every response equal to ``repro.primitives.plan.compile_plan`` on the
-same weights and inputs at the reference's plan tolerance, and the process
-front end (not ported yet) refused rather than ignored."""
+same weights and inputs at the reference's plan tolerance."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,15 +103,6 @@ def test_reregister_rejects_queued_tickets(rng):
     server.register(OptimisedNetwork.from_assignment(spec, safe_assignment(spec)))
     assert t.rejected and "re-registered" in t.error
     assert server.networks() == ["edge_cnn"]
-
-
-@pytest.mark.parametrize("case", ["frontend_procs", "frontend"])
-def test_unported_knobs_raise(case):
-    with pytest.raises(NotImplementedError):
-        if case == "frontend_procs":
-            OptimisedServer(device="cpu", frontend_procs=2)
-        else:
-            OptimisedServer(workers=1, device="cpu").frontend(2)
 
 
 def test_ticket_and_queue_copy():

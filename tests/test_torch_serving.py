@@ -187,17 +187,29 @@ def test_drift_monitor_matches_reference(seed):
 
 
 def test_netqueue_matches_reference():
+    """Both queues fed one seeded sequence of loose pushes and takes, slab
+    groups pushed and taken whole, clock moves, window changes and drains:
+    every answer equal."""
     clock = FakeClock(100.0)
-    queues = [mod.NetQueue(depth=5, batch_cap=4, max_wait_s=0.01,
-                           budget_s=0.02, predicted_s=2e-3)
-              for mod in (JQ, TQ)]
+    mods = (JQ, TQ)
+    queues = [mod.NetQueue(depth=9, batch_cap=4, max_wait_s=0.01,
+                           budget_s=0.02, predicted_s=2e-3) for mod in mods]
     rng = np.random.default_rng(0)
-    for step in range(200):
-        op = rng.integers(0, 6)
+
+    def group(mod, rows):
+        ts = [mod.Ticket(net="n", x=np.zeros(1), row=i, submitted_s=clock())
+              for i in range(rows)]
+        return mod.BatchGroup(tickets=ts, xs=np.zeros((rows, 1)))
+
+    def shape(tickets, groups):
+        return ([t.row for t in tickets],
+                [[t.row for t in g.tickets] for g in groups])
+    for step in range(300):
+        op = rng.integers(0, 9)
         if op < 2:
             got = [q.push(mod.Ticket(net="n", x=np.zeros(1),
                                      submitted_s=clock()))
-                   for q, mod in zip(queues, (JQ, TQ))]
+                   for q, mod in zip(queues, mods)]
         elif op == 2:
             n = int(rng.integers(1, 5))
             got = [len(q.take(n)) for q in queues]
@@ -211,13 +223,23 @@ def test_netqueue_matches_reference():
             for q in queues:
                 q.window_scale, q.bucket_scale = s, head
             got = [q.effective_wait_s() for q in queues]
+        elif op == 5:
+            rows = int(rng.integers(1, 5))
+            got = [q.push_group(group(mod, rows))
+                   for q, mod in zip(queues, mods)]
+        elif op == 6:
+            got = [(q.group_ready(), len(q.take_group().tickets)
+                    if q.group_ready() else None) for q in queues]
+        elif op == 7 and rng.random() < 0.2:
+            got = [shape(*q.drain()) for q in queues]
         else:
-            got = [(q.next_deadline(), q.backlog_images(1), len(q))
-                   for q in queues]
+            got = [(q.next_deadline(), q.backlog_images(1), len(q),
+                    q.ready(clock()), q.group_ready()) for q in queues]
         assert got[0] == got[1], step
-    (loose, groups), left = queues[0].drain(), queues[1].drain()
-    assert not groups and len(loose) == len(left) and not len(queues[1])
+    assert shape(*queues[0].drain()) == shape(*queues[1].drain())
+    assert not len(queues[0]) and not len(queues[1])
     t = TQ.Ticket(net="n", x=np.zeros(1))
+    assert t.slab is None and t.row == -1
     assert t.finish(result=np.ones(1), degraded=True) and t.degraded
     assert not t.finish(error="late") and t.error is None
 
@@ -471,8 +493,7 @@ def test_cli_serves_on_the_cpu_from_a_store_copy(tmp_path, capsys):
     assert "warm" in out and "16 requests" in out and "device cpu" in out
 
 
-@pytest.mark.parametrize("argv", [["--frontend-procs", "2"],
-                                  ["--platform", "tpu"]])
+@pytest.mark.parametrize("argv", [["--platform", "tpu"]])
 def test_cli_refuses_what_is_not_ported(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         t_main(["--device", "cpu", "--store", str(tmp_path), *argv])
