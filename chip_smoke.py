@@ -9,7 +9,9 @@ through the five kernels a plan runs (matmul, implicit-GEMM conv, and the
 Winograd point-GEMM with its input and inverse transforms), and the ``ops``
 entry points of the four kernels no plan reaches (batched matmul,
 single-image im2col conv, single-image Winograd point-GEMM, which runs the
-two transforms too, flash attention). Phases, each of which asserts:
+two transforms too, flash attention), and the LM decode path, whose
+prefill attention runs on the flash attention kernel. Phases, each of
+which asserts:
 
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / nvcc
    versions, and the kernel build (one ``nvcc`` per source, in parallel,
@@ -124,6 +126,20 @@ two transforms too, flash attention). Phases, each of which asserts:
    bytes arriving; (e) a ``raise`` and a ``hang`` schedule through the slab
    path on edge_cnn / mix: no ticket lost or duplicated, degraded rows
    delivered row by row, every response held to the oracle.
+10. The LM decode path (``repro_torch.models.transformer``,
+   ``launch.lm_decode``), chatglm3_6b (32 query heads over 2 KV heads, head
+   dim 128), batch 2, weights from a seeded generator on the card: (a) at
+   full width and depth in fp32, TF32 off: prefill a ragged 4,089-token
+   prompt, decode 7 tokens teacher-forced from the cache, prefill all
+   4,096, the last decode logits within 3e-3 of the full prefill's (the
+   reference's bound), flash attention launched once a layer (28) in each
+   prefill and no kernel in decode; (b) cut to 2 layers at full width:
+   prefill (256 tokens) and two decode steps on the card within 1e-3 of
+   the port on the CPU; (c) ``lm_decode.run`` on the registered bf16
+   config, prompt 512, 32 tokens, twice: prefill ms, decode tok/s, peak
+   memory. Flash attention is then held to its plain version at every
+   signature the LM prefills launched, under every tile at the largest,
+   and timed per prefill beside its bound, plain version and SDPA.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -241,6 +257,15 @@ FRONTEND_SLOTS = 4                        # ... and slabs a bucket (resnet18's b
                                           # slab is 4.8 MB: 72 MB of shared memory)
 FRONTEND_INGEST, FRONTEND_DRIVE = 64, 256  # requests a path: ingest, drive
 UPLOAD_REPS = 20                          # timed uploads of one slab, each way
+# Phase 10: the LM decode path, chatglm3_6b (src/repro/configs/chatglm3_6b.py)
+# at full width and depth, batch 2
+LM_ARCH, LM_BATCH = "chatglm3_6b", 2
+LM_HELD_PROMPT, LM_HELD_STEPS = 4089, 7   # (a): a ragged prompt, then decode to 4,096
+LM_DECODE_TOL = 3e-3                      # tests/test_models.py:102-103, the
+                                          # reference's teacher-forced bound
+LM_CPU_LAYERS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 256, 2   # (b): card vs the CPU port
+LM_CPU_TOL = 1e-3                         # fp32 logits, sum order over 2 layers
+LM_SERVED_PROMPT, LM_SERVED_TOKENS = 512, 32             # (c): the bf16 served run
 
 
 def main() -> int:
@@ -372,6 +397,20 @@ def main() -> int:
     frontend = frontend_phase(torch, nets, weights, launches, serving, rng,
                               smi)
 
+    # -- phase 10: the LM decode path on the card ---------------------------
+    lm, lm_passes = lm_phase(torch, launches, args.seed, smi)
+    lm_seen = set().union(*(set(c) for c in lm_passes.values()))
+    lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
+                               args.reps)
+    fa = report["flash_attention"]             # row 7 gains its LM passes
+    fa["max_abs_err"] = max(fa["max_abs_err"], lm_kernel["max_abs_err"])
+    fa["lm_path"] = {
+        "max_abs_err": lm_kernel["max_abs_err"],
+        "float64_err": lm_kernel["float64_err"],
+        "passes": {p: {key: t[key] for key in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_fp32_ms")} for p, t in lm_kernel["passes"].items()}}
+
     # -- report -----------------------------------------------------------
     summary = {k: {"launches": {p: launches[p][k] for p in launches},
                    "max_abs_err": r["max_abs_err"],
@@ -407,7 +446,7 @@ def main() -> int:
                    max(r["passes"].items(), key=lambda pt: pt[1]["bound_ms"]))
         timed_on = path if path in entry_paths else f"{path} b=8 forward"
         extra = {key: r[key] for key in ("oracle_max_abs_err", "float64_err",
-                                         "plain_float64_err") if key in r}
+                                         "plain_float64_err", "lm_path") if key in r}
         rows.append({"name": k, "route": "cuda", "source": r["source"],
                      "replaces": r["replaces"],
                      "launches": sum(launches[p][k] for p in launches),
@@ -423,6 +462,7 @@ def main() -> int:
     print("transfer: " + json.dumps(transfer))
     print("serving: " + json.dumps(serving))
     print("frontend: " + json.dumps(frontend))
+    print("lm: " + json.dumps(lm))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1660,6 +1700,170 @@ def frontend_phase(torch, nets, weights, launches, serving, rng, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM decode path on the card (phase 10)
+# ---------------------------------------------------------------------------
+
+def lm_phase(torch, launches, seed, smi, device="cuda"):
+    """Phase 10, LM_ARCH's decode path through ``repro_torch.models.
+    transformer`` and ``launch.lm_decode``: (a) at full width and depth in
+    fp32 (TF32 off), weights from a seeded generator on the card: prefill
+    a ragged ``LM_HELD_PROMPT``-token prompt, decode ``LM_HELD_STEPS``
+    tokens teacher-forced, prefill all of them, the last decode logits held
+    to the full prefill's at ``LM_DECODE_TOL``, flash attention launched
+    once a layer in each prefill and no kernel in decode; (b) the config
+    cut to ``LM_CPU_LAYERS`` layers at full width: prefill and decode
+    logits on the card held to the port on the CPU (plain versions) at
+    ``LM_CPU_TOL``; (c) ``lm_decode.run`` on the registered bf16 config:
+    prefill ms, decode tok/s and peak memory, run twice (the first call
+    cold). Launch counters are zeroed before each prefill and decode and
+    read after. Returns (summary, {prefill path: flash attention's
+    signatures and launches}) for ``check_and_time``."""
+    import dataclasses
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import common
+    from repro_torch.launch import lm_decode
+    from repro_torch.models import transformer as T
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    full = cb.get(LM_ARCH)
+    B, L = LM_BATCH, full.n_layers
+    out = {"card": smi, "arch": LM_ARCH, "batch": B, "layers": L}
+    passes = {}
+
+    def run(path, fn, kernel_launches):
+        """fn() with the counters zeroed before and read after; ms on the
+        host clock around a synchronised device."""
+        common.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[path] = dict(common.LAUNCHES)
+        assert launches[path]["flash_attention"] == kernel_launches, (
+            path, launches[path])
+        assert all(n == 0 for k, n in launches[path].items()
+                   if k != "flash_attention"), (path, launches[path])
+        if kernel_launches:
+            passes[path] = dict(common.SEEN["flash_attention"])
+        return result, ms
+
+    # (a) full width and depth, fp32
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(full, param_dtype=torch.float32)
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg)
+    P, N = LM_HELD_PROMPT, LM_HELD_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, P + N))).to(device)
+    (_, cache), prefill_ms = run(
+        f"lm {LM_ARCH} fp32 prefill S={P} B={B}",
+        lambda: T.prefill(params, cfg, tokens[:, :P]), L)
+    cache = lm_decode.grow_cache(cache, N)
+
+    def decode():
+        for i in range(P, P + N):
+            logits, _ = T.decode_step(params, cfg, cache, tokens[:, i:i + 1], i)
+        return logits
+
+    logits, decode_ms = run(f"lm {LM_ARCH} fp32 decode {N} steps B={B}", decode, 0)
+    del cache
+    (full_logits, _), full_ms = run(
+        f"lm {LM_ARCH} fp32 prefill S={P + N} B={B}",
+        lambda: T.prefill(params, cfg, tokens), L)
+    assert logits.shape == full_logits.shape == (B, cfg.vocab)
+    assert torch.isfinite(logits).all() and torch.isfinite(full_logits).all()
+    err = float((logits - full_logits).abs().max())
+    print(f"lm (a): {LM_ARCH} fp32, {L} layers, B={B}: prefill {P} tokens "
+          f"{prefill_ms:.1f} ms, {N} teacher-forced decode steps {decode_ms:.1f} "
+          f"ms, prefill {P + N} tokens {full_ms:.1f} ms; flash attention "
+          f"{L} launches a prefill; max |last decode logits - full prefill "
+          f"logits| {err:.3g} (tolerance {LM_DECODE_TOL}; |logits| up to "
+          f"{float(full_logits.abs().max()):.3g})  ({smi})", flush=True)
+    assert err <= LM_DECODE_TOL, err
+    out["held"] = {"prompt": P, "steps": N, "prefill_ms": prefill_ms,
+                   "decode_ms": decode_ms, "full_prefill_ms": full_ms,
+                   "flash_launches_per_prefill": L, "max_abs_err": err,
+                   "tol": LM_DECODE_TOL}
+    del params, logits, full_logits
+    torch.cuda.empty_cache()
+
+    # (b) two layers at full width: the card against the port on the CPU
+    cfg = dataclasses.replace(full, n_layers=LM_CPU_LAYERS, param_dtype=torch.float32)
+    card = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg)
+    cpu = T.map_params(lambda a: a.to("cpu"), card)
+    P, N = LM_CPU_PROMPT, LM_CPU_STEPS
+    toks = tokens[:, :P + N]
+    (got, gcache), _ = run(f"lm {LM_ARCH} {LM_CPU_LAYERS} layers prefill S={P} B={B}",
+                           lambda: T.prefill(card, cfg, toks[:, :P]), LM_CPU_LAYERS)
+    want, wcache = T.prefill(cpu, cfg, toks[:, :P].cpu())
+    errs = [float((got.cpu() - want).abs().max())]
+    gcache, wcache = lm_decode.grow_cache(gcache, N), lm_decode.grow_cache(wcache, N)
+    for i in range(P, P + N):
+        got, _ = T.decode_step(card, cfg, gcache, toks[:, i:i + 1], i)
+        want, _ = T.decode_step(cpu, cfg, wcache, toks[:, i:i + 1].cpu(), i)
+        errs.append(float((got.cpu() - want).abs().max()))
+    print(f"lm (b): {LM_ARCH} cut to {LM_CPU_LAYERS} layers, fp32, B={B}: card "
+          f"against the CPU port, prefill {P} tokens max |logits err| "
+          f"{errs[0]:.3g}, {N} decode steps {max(errs[1:]):.3g} (tolerance "
+          f"{LM_CPU_TOL})", flush=True)
+    assert max(errs) <= LM_CPU_TOL, errs
+    out["card_vs_cpu"] = {"layers": LM_CPU_LAYERS, "prompt": P, "steps": N,
+                          "prefill_max_abs_err": errs[0],
+                          "decode_max_abs_err": max(errs[1:]), "tol": LM_CPU_TOL}
+    del card, cpu, gcache, wcache, tokens
+    torch.cuda.empty_cache()
+
+    # (c) the registered bf16 config, served through lm_decode.run
+    out["peak_gb_a_b"] = torch.cuda.max_memory_allocated() / 1e9
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed), full)
+    weight_gb = sum(a.numel() * a.element_size() for a in _leaves(params)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    P, N = LM_SERVED_PROMPT, LM_SERVED_TOKENS
+    served = []
+    for r in range(2):
+        res, _ = run(f"lm {LM_ARCH} bf16 run {r} P={P} N={N} B={B}",
+                     lambda: lm_decode.run(full, B, P, N, device=device,
+                                           params=params), L)
+        assert res.tokens.shape == (B, N), res.tokens.shape
+        assert ((res.tokens >= 0) & (res.tokens < full.vocab)).all()
+        served.append(res)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert torch.equal(served[0].tokens, served[1].tokens)
+    for r, res in zip(("cold", "warm"), served):
+        print(f"lm (c): lm_decode.run {LM_ARCH} bf16, {L} layers, B={B}, "
+              f"prompt {P}, {N} tokens ({r}): prefill {res.prefill_ms!r} ms, "
+              f"decode {res.decode_tok_s!r} tok/s ({res.decode_ms!r} ms for "
+              f"{N - 1} steps)  ({smi})", flush=True)
+    print(f"lm (c): weights {weight_gb:.3f} GB bf16, peak device memory "
+          f"{peak_gb:.3f} GB over both runs; (a) and (b) peaked at "
+          f"{out['peak_gb_a_b']:.3f} GB  ({smi})", flush=True)
+    out["served"] = {"prompt": P, "tokens": N, "weights_gb": weight_gb,
+                     "peak_gb": peak_gb,
+                     "runs": [{"prefill_ms": r.prefill_ms, "decode_ms": r.decode_ms,
+                               "decode_tok_s": r.decode_tok_s} for r in served]}
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    lm_paths = [p for p in launches if p.startswith("lm ")]
+    print("phase 10 launches: " + json.dumps(
+        {p: launches[p]["flash_attention"] for p in lm_paths}))
+    print(f"lm: phase 10 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out, passes
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def predictions_card_vs_cpu(torch, models, smi) -> dict:
     """The card's predictions against the CPU's over the arm 60-triplet
     primitive pool and the DLT pool (NaN pattern equal, rtol ``PRED_TOL``),
@@ -2020,9 +2224,14 @@ def kernel_table(torch):
                 + N * K * oh * ow * (hb + hr + relu),
                 4 * (N * n * n * K * T + N * K * oh * ow * (1 + hr) + K * hb))
 
+    def fa_q(n, sq, d, scale):
+        """Queries as the caller gives them: unit scores after ``scale``
+        (the LM path pre-scales q by 1/sqrt(d) and runs at scale 1)."""
+        return rnd(n, sq, d, scale=1.0 / (scale * math.sqrt(d)))
+
     def fa_ops(sig):
         bh, sq, sk, d, causal, bq, bkv, scale = sig
-        q, k, v = rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d)
+        q, k, v = fa_q(bh, sq, d, scale), rnd(bh, sk, d), rnd(bh, sk, d)
         return (lambda: flash_attention(q, k, v, causal=causal, scale=scale,
                                         bq=bq, bkv=bkv),
                 lambda: flash_attention_plain(q, k, v, causal=causal, scale=scale),
@@ -2032,7 +2241,7 @@ def kernel_table(torch):
         """One head of ``sig``: the kernel's and the plain version's largest
         distance from the float64 result."""
         _, sq, sk, d, causal, bq, bkv, scale = sig
-        q, k, v = rnd(1, sq, d), rnd(1, sk, d), rnd(1, sk, d)
+        q, k, v = fa_q(1, sq, d, scale), rnd(1, sk, d), rnd(1, sk, d)
         exact = flash_attention_plain(q.double(), k.double(), v.double(),
                                       causal=causal, scale=scale)
         got = flash_attention(q, k, v, causal=causal, scale=scale, bq=bq, bkv=bkv)

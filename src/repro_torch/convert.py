@@ -2,11 +2,12 @@
 port.
 
 The reference keeps a network's parameters as ``{node: array}`` (conv
-weights ``(k, c, f, f)``, bias vectors ``(c,)``) and an MLP's as a list of
-``{"w": (fan_in, fan_out), "b": (fan_out,)}`` layers; the port keeps the
-same structures of float32 tensors on a device, in the same layouts.
-Arrays cross as numpy (``np.asarray`` of a JAX array), so this module
-imports no JAX.
+weights ``(k, c, f, f)``, bias vectors ``(c,)``), an MLP's as a list of
+``{"w": (fan_in, fan_out), "b": (fan_out,)}`` layers and a language
+model's as nested dicts with each layer's arrays stacked on a leading
+``n_layers`` axis; the port keeps the same structures of tensors on a
+device, in the same layouts. Arrays cross as numpy (``np.asarray`` of a JAX
+array), so this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -44,3 +45,22 @@ def perfmodel_from_state(state: dict, device="cuda"):
         {"header": state["header"],
          "arrays": {k: np.asarray(v) for k, v in state["arrays"].items()}},
         device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array -> a tensor of its own dtype on ``device``. bfloat16
+    (``ml_dtypes``, which plain numpy lacks) crosses bit for bit as uint16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(params, device: Union[str, torch.device] = "cuda"):
+    """The reference's ``transformer.init_params`` tree (nested dicts of
+    numpy or JAX arrays) -> the port's: the same keys and stacked layouts,
+    each array in its own dtype, on ``device``."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_jax(v, device) for k, v in params.items()}
+    return _tensor(params, device)

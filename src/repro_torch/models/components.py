@@ -1,0 +1,347 @@
+"""Transformer building blocks in torch: the port of
+``repro.models.components`` for the dense GQA decoder family.
+
+Parameters are plain nested dicts of tensors, keyed and laid out as the
+reference keys and lays out its pytrees: activations (B, S, D), weights in
+matmul-ready (d_in, d_out) orientation. Initialisers take an explicit
+``torch.Generator`` and draw on its device; they cannot reproduce JAX's
+PRNG, so parity with the reference goes through
+``repro_torch.convert.lm_params_from_jax``, never through a seed.
+
+``attention`` is the reference's function, with one dispatch added: on CUDA
+tensors, a prefill call the hand-written flash attention kernel computes
+exactly (causal, positions shared by queries and keys, no window short of
+the keys, no softcap, a head dim the kernel instantiates) runs on the
+kernel (``_flash_route``); every other call runs the torch port of the
+reference's ``jnp`` code. A kernel that fails to build or launch raises
+``KernelError``; nothing falls back.
+
+Not ported yet: MLA (``mla_*``, only ``MLADims``, which the configs name)
+and ``chunked_ce_loss`` (the training slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,
+                                                                 flash_attention)
+from repro_torch.kernels.flash_attention.ops import cta_tile
+
+Params = Dict[str, Any]
+FLASH_VARIANT = "fa-128x128"         # the kernel tile the LM prefill runs under
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device="cuda") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    """In fp32, cast back to x's dtype; ``plus_one`` scales by (1 + scale)
+    (gemma)."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    scale = params["scale"].float()
+    if plus_one:
+        scale = 1.0 + scale
+    return (x * scale).to(dt)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device="cuda") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In fp32 with the population variance (``jnp.var``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embeddings
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """Normals drawn in fp32 on the generator's device, times ``scale``,
+    cast to ``dtype``."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.bfloat16,
+               scale: Optional[float] = None) -> Params:
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": normal(gen, (d_in, d_out), s, dtype)}
+
+
+def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"]
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.bfloat16) -> Params:
+    return {"emb": normal(gen, (vocab, d), 0.02, dtype)}
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["emb"][tokens]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: (B, S, D) @ (V, D)^T."""
+    return x @ params["emb"].T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, rot_dim: Optional[int] = None,
+               device="cuda") -> torch.Tensor:
+    rd = rot_dim if rot_dim is not None else head_dim
+    return 1.0 / (theta ** (torch.arange(0, rd, 2, dtype=torch.float32,
+                                         device=device) / rd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               rot_dim: Optional[int] = None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,). Rotates the interleaved pairs
+    (x[..., 0::2], x[..., 1::2]) of the first ``rot_dim`` dims (partial
+    rotary: chatglm3 rotates half)."""
+    hd = x.shape[-1]
+    rd = rot_dim if rot_dim is not None else hd
+    freqs = rope_freqs(hd, theta, rd, device=x.device)           # (rd/2,)
+    ang = positions[:, None].float() * freqs                     # (S, rd/2)
+    cos = torch.cos(ang)[None, :, None, :]
+    sin = torch.sin(ang)[None, :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    rot = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([rot, xp], dim=-1) if rd < hd else rot
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) additive fp32 bias: 0 allowed, -inf masked."""
+    d = q_pos[:, None].long() - k_pos[None, :].long()
+    ok = d >= 0 if causal else torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if window is not None:
+        ok = ok & (d < window)
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(ok, zero, zero - math.inf)
+
+
+def flash_routed(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
+                 k_pos: torch.Tensor, *, causal: bool, window: Optional[int],
+                 softcap: Optional[float], vd: int) -> bool:
+    """Whether ``attention`` runs this call on the flash attention kernel:
+    CUDA tensors, a prefill (Sq > 1) over the same positions for queries
+    and keys (one arange in prefill and forward, so the reference's causal
+    mask is the kernel's top-left diagonal), causal, no window shorter than
+    the keys, no softcap, and a head dim the kernel instantiates for both
+    K and V. Decided from the call's semantics before any launch."""
+    Sq, hd, Sk = q.shape[1], q.shape[-1], k.shape[1]
+    return (q.is_cuda and Sq > 1 and Sq == Sk and q_pos is k_pos and causal
+            and (window is None or window >= Sk) and softcap is None
+            and hd in HEAD_DIMS and vd == hd)
+
+
+def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 sc: float) -> torch.Tensor:
+    """The reference's prefill attention on the flash attention kernel:
+    q scaled in its own dtype then upcast (as the reference does), K/V
+    repeated to the query heads (``jnp.repeat``) and upcast, heads folded
+    into the batch dim, the kernel at scale 1 under ``FLASH_VARIANT``'s
+    tile (it masks ragged edges, so any length runs), cast back to q's
+    dtype. On CPU tensors ``flash_attention`` computes its plain version,
+    which is how the CPU tests reach this glue."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+
+    def fold(t: torch.Tensor) -> torch.Tensor:
+        if rep > 1:
+            t = torch.repeat_interleave(t, rep, dim=2)
+        return t.float().transpose(1, 2).reshape(B * Hq, t.shape[1], hd).contiguous()
+
+    qf = (q * sc).float().transpose(1, 2).reshape(B * Hq, Sq, hd).contiguous()
+    bq, bkv = cta_tile(FLASH_VARIANT, hd)
+    out = flash_attention(qf, fold(k), fold(v), causal=True, scale=1.0,
+                          bq=bq, bkv=bkv)
+    return out.reshape(B, Hq, Sq, hd).transpose(1, 2).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, scale: Optional[float] = None,
+              kv_block: int = 1024) -> torch.Tensor:
+    """GQA attention. q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd);
+    q_pos/k_pos: (Sq,)/(Sk,) absolute positions -> (B, Sq, Hq, vd) in q's
+    dtype. Prefill (Sq > 1) attends one shot up to Sk = max(kv_block, 2048)
+    keys and blockwise (online softmax over ``kv_block`` keys) beyond, with
+    K/V broadcast to the query heads; decode (Sq == 1) is a grouped einsum
+    without the broadcast. Calls ``flash_routed`` accepts run on the
+    kernel instead."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    vd = v.shape[-1]
+    rep = Hq // Hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    Sk = k.shape[1]
+
+    if flash_routed(q, k, q_pos, k_pos, causal=causal, window=window,
+                    softcap=softcap, vd=vd):
+        return _flash_route(q, k, v, sc)
+
+    if Sq > 1:
+        qf = (q * sc).float()
+
+        def blk_attend(kc, vc, pc):
+            if rep > 1:
+                kc = torch.repeat_interleave(kc, rep, dim=2)
+                vc = torch.repeat_interleave(vc, rep, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float())
+            logits = _softcap(logits, softcap)
+            logits = logits + _mask_bias(q_pos, pc, causal, window)[None, None]
+            return logits, vc
+
+        if Sk <= max(kv_block, 2048):
+            logits, vc = blk_attend(k, v, k_pos)
+            p = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", p, vc.float())
+            return out.to(q.dtype)
+
+        nblk = Sk // kv_block
+        if nblk * kv_block != Sk:
+            raise ValueError("Sk must divide kv_block for blockwise path")
+        m = torch.full((B, Hq, Sq), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hq, Sq, vd), dtype=torch.float32, device=q.device)
+        for i in range(nblk):
+            blk = slice(i * kv_block, (i + 1) * kv_block)
+            logits, vc = blk_attend(k[:, blk], v[:, blk], k_pos[blk])  # (B, H, Sq, kb)
+            m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.transpose(1, 2).to(q.dtype)                  # (B, Sq, H, vd)
+
+    # ---- decode (Sq == 1): grouped single shot, no K/V broadcast ----
+    qf = (q * sc).float().reshape(B, Sq, Hkv, rep, hd)
+    logits = torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float())
+    logits = _softcap(logits, softcap)
+    logits = logits + _mask_bias(q_pos, k_pos, causal, window)[None, None, None]
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgh->bqgrh", p, v.float())
+    return out.reshape(B, Sq, Hq, vd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int, head_dim: int,
+             dtype=torch.bfloat16, qkv_bias: bool = False) -> Params:
+    p = {
+        "wq": dense_init(gen, d, n_heads * head_dim, dtype),
+        "wk": dense_init(gen, d, n_kv * head_dim, dtype),
+        "wv": dense_init(gen, d, n_kv * head_dim, dtype),
+        "wo": dense_init(gen, n_heads * head_dim, d, dtype),
+    }
+    if qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((n_heads * head_dim,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((n_kv * head_dim,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((n_kv * head_dim,), dtype=dtype, device=dev)
+    return p
+
+
+def gqa_project(params: Params, x: torch.Tensor, n_heads: int, n_kv: int,
+                head_dim: int, positions: torch.Tensor, rope_theta: float,
+                rot_dim: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q = dense(params["wq"], x)
+    k = dense(params["wk"], x)
+    v = dense(params["wv"], x)
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv, head_dim)
+    v = v.reshape(B, S, n_kv, head_dim)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta, rot_dim)
+        k = apply_rope(k, positions, rope_theta, rot_dim)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA dimensions (the layer is a later slice)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    q_lora: int = 768
+    kv_lora: int = 256
+    qk_nope: int = 64
+    qk_rope: int = 32
+    v_head: int = 64
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.bfloat16,
+             gated: bool = True) -> Params:
+    p = {"w_up": dense_init(gen, d, d_ff, dtype),
+         "w_down": dense_init(gen, d_ff, d, dtype)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d, d_ff, dtype)
+    return p
+
+
+def _act(x: torch.Tensor, act: str) -> torch.Tensor:
+    """silu, or GELU in its tanh form (``jax.nn.gelu``'s default)."""
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = dense(params["w_up"], x)
+    if "w_gate" in params:
+        h = _act(dense(params["w_gate"], x), act) * h
+    else:
+        h = _act(h, act)
+    return dense(params["w_down"], h)

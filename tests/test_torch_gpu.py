@@ -9,7 +9,10 @@ its kernels, hot_swap publishing after a device sync, the fallback on the
 card, a two-worker burst against the kernel-free oracle); the process front
 end on the card (``-k frontend``: page-locked slabs uploading the same bytes
 as a pageable copy, unpinned at stop and pinned again by the next front end,
-a kernel error failing a slab batch's tickets and recycling its slab).
+a kernel error failing a slab batch's tickets and recycling its slab);
+the LM decode path on the card (``-k lm``: prefill attention on the flash
+kernel, one launch a layer, against the port on the CPU; a failing kernel
+raising out of ``prefill``; ``lm_decode.run`` on the card by default).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -1139,3 +1142,71 @@ def test_gpu_frontend_kernel_error_fails_the_slab_batch(cuda, monkeypatch):
         assert st["failures"] == {"kernel": st["failed_dispatches"]}
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# The LM decode path: prefill attention on the flash attention kernel
+# ---------------------------------------------------------------------------
+
+def _lm_model(head_dim=64):
+    """chatglm3_6b reduced with head dim 64 (a dim the kernel instantiates,
+    so its prefill attention takes the kernel route), fp32 weights from a
+    CPU generator, on the CPU and on the card."""
+    import dataclasses
+    from repro_torch.configs import base as cb
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cb.get("chatglm3_6b").reduced(), head_dim=head_dim)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg)
+    return cfg, cpu, T.map_params(lambda a: a.to("cuda"), cpu)
+
+
+def test_gpu_lm_prefill_on_the_kernel_matches_cpu(cuda):
+    """Prefill (a ragged 45 tokens) launches flash attention once a layer
+    and gives the CPU port's logits and cache; two decode steps follow on
+    both, within 1e-4."""
+    from repro_torch.launch.lm_decode import grow_cache
+    from repro_torch.models import transformer as T
+    cfg, cpu, card = _lm_model()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 47)))
+    before = common.LAUNCHES["flash_attention"]
+    got, cache = T.prefill(card, cfg, tokens[:, :45].cuda())
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    want, wcache = T.prefill(cpu, cfg, tokens[:, :45])
+    torch.testing.assert_close(got.cpu(), want, **GEMM_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name].cpu(), wcache[name], **GEMM_TOL)
+    cache, wcache = grow_cache(cache, 2), grow_cache(wcache, 2)
+    for i in (45, 46):
+        got, cache = T.decode_step(card, cfg, cache, tokens[:, i:i + 1].cuda(), i)
+        want, wcache = T.decode_step(cpu, cfg, wcache, tokens[:, i:i + 1], i)
+        torch.testing.assert_close(got.cpu(), want, **GEMM_TOL)
+    assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+
+
+def test_gpu_lm_failing_kernel_raises_out_of_prefill(cuda, monkeypatch):
+    """A flash attention launch that fails (its launcher returns a CUDA
+    error) raises KernelError out of prefill; nothing computes the
+    attention another way (the plain version would raise here)."""
+    from repro_torch.kernels.common import KernelError
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import transformer as T
+    cfg, _, card = _lm_model()
+    monkeypatch.setattr(fa_mod, "bind", lambda *a, **k: (lambda *args: 98))
+    monkeypatch.setattr(fa_mod, "flash_attention_plain",
+                        lambda *a, **k: pytest.fail("plain attention ran"))
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(KernelError, match="cudaError 98"):
+        T.prefill(card, cfg, torch.zeros((2, 16), dtype=torch.long, device="cuda"))
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+def test_gpu_lm_decode_run_defaults_to_the_card(cuda):
+    """``lm_decode.run`` with no device runs on cuda, its prefill on the
+    kernel."""
+    from repro_torch.launch import lm_decode
+    cfg, _, card = _lm_model()
+    before = common.LAUNCHES["flash_attention"]
+    r = lm_decode.run(cfg, 2, 16, 4, params=card)
+    assert r.tokens.is_cuda and r.tokens.shape == (2, 4)
+    assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers

@@ -2,6 +2,8 @@
 ``chip_smoke.py`` imports ``jax`` or anything of the ``repro`` package, and
 no function of the port defaults to the CPU."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -54,3 +56,23 @@ def test_port_imports_without_cuda_or_triton():
         parts = [p for p in rel.parts if p != "__init__"]
         importlib.import_module(".".join(parts))
     assert common._LIBS == loaded
+
+
+LM_MODULES = ("repro_torch.models.components", "repro_torch.models.transformer",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.configs.base", "repro_torch.configs.chatglm3_6b",
+              "repro_torch.launch.lm_decode", "repro_torch.convert")
+
+
+def test_lm_modules_load_neither_jax_nor_the_reference():
+    """A fresh interpreter importing the LM path (its modules, every config
+    through the registry) has loaded no ``jax`` and nothing of ``repro``."""
+    code = ("import sys, importlib\n"
+            f"for m in {LM_MODULES!r}: importlib.import_module(m)\n"
+            "from repro_torch.configs import base\n"
+            "base.all_assigned()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=ROOT, env={**__import__("os").environ,
+                                  "PYTHONPATH": str(ROOT / "src")})
