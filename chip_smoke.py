@@ -140,6 +140,31 @@ which asserts:
    memory. Flash attention is then held to its plain version at every
    signature the LM prefills launched, under every tile at the largest,
    and timed per prefill beside its bound, plain version and SDPA.
+11. The LM training path (``launch.steps``, ``launch.train``,
+   ``models.transformer.loss_fn``, ``train.optim``, ``data.lm``,
+   ``ckpt.manager``), chatglm3_6b at full width, data from
+   ``data.lm.make_batch`` with seed 0, weights from a seeded generator on
+   the card: (a) cut to 1 layer in fp32 (TF32 off), B=1, S=256, the card
+   against the CPU port: the loss within 1e-3, each gradient leaf within
+   1e-4 of its own max |g|, and each parameter's step (after minus before)
+   in one AdamW (``optimizer_for``) and one Adafactor update from the CPU's
+   gradients within 1e-2 lr; every attention gradient nonzero, no flash
+   attention launch; (b) 8
+   of 28 layers, bf16, remat, B=2, S=4,096: ten AdamW steps through
+   ``train.train_loop``, every loss finite, step 1 near ln(vocab), step 10
+   below step 1, no kernel launch; step ms (host clock to a device sync),
+   tokens/s, model TFLOP/s (6 N T / step) beside the bf16 peak, the bound
+   from the work the step needs (products 6 T per weight, causal attention
+   forward and backward) and, apart, the remat re-forward and masked score
+   blocks it also runs, peak memory, and one profiled step's device
+   busy share and top device ops; (c) the 1-layer cut in bf16 with its
+   AdamW state after one step, saved by ``CheckpointManager`` and restored
+   onto the card bit for bit, GB written, save and restore s; (d) the CLI
+   ``python -m repro_torch.launch.train`` on the reduced config, device
+   defaulting to cuda: 4 steps, then 6 resuming from step 4, steps 5 and 6
+   within 1e-5 of an uninterrupted run; (e) a 1-layer prefill launches
+   flash attention once under ``torch.no_grad()`` and never with
+   parameters that require grad, and the kernel refuses such operands.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -266,6 +291,18 @@ LM_DECODE_TOL = 3e-3                      # tests/test_models.py:102-103, the
 LM_CPU_LAYERS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 256, 2   # (b): card vs the CPU port
 LM_CPU_TOL = 1e-3                         # fp32 logits, sum order over 2 layers
 LM_SERVED_PROMPT, LM_SERVED_TOKENS = 512, 32             # (c): the bf16 served run
+# Phase 11: the LM training path, LM_ARCH at full width
+TRAIN_CUT_LAYERS = 1                      # (a), (c), (e): cut to 1 layer ...
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 1, 256   # ... at B=1, S=256
+TRAIN_CPU_TOL = 1e-3                      # (a): card vs the CPU port, fp32 (TF32 off): loss
+TRAIN_GRAD_RTOL = 1e-4                    # ... each gradient leaf, of its own max |g|
+TRAIN_STEP_TOL = 1e-2                     # ... each parameter's step, in units of lr,
+                                          # both sides updating from the CPU's gradients
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4096   # (b): train_4k's length, its
+TRAIN_STEPS = 10                                    # global batch of 256 cut to 2
+TRAIN_FIRST_LOSS_SLACK = 1.5              # (b): step 1 within this of ln(vocab)
+TRAIN_RESUME_TOL = 1e-5                   # (d): resumed vs uninterrupted losses
+BF16_FLOPS = 989e12                       # H100 SXM dense bf16 (data sheet, 700 W)
 
 
 def main() -> int:
@@ -399,6 +436,10 @@ def main() -> int:
 
     # -- phase 10: the LM decode path on the card ---------------------------
     lm, lm_passes = lm_phase(torch, launches, args.seed, smi)
+
+    # -- phase 11: the LM training path on the card -------------------------
+    training, train_passes = train_phase(torch, launches, args.seed, smi)
+    lm_passes.update(train_passes)
     lm_seen = set().union(*(set(c) for c in lm_passes.values()))
     lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
                                args.reps)
@@ -463,6 +504,7 @@ def main() -> int:
     print("serving: " + json.dumps(serving))
     print("frontend: " + json.dumps(frontend))
     print("lm: " + json.dumps(lm))
+    print("train: " + json.dumps(training))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -573,12 +615,19 @@ def device_busy(server, opt, rng):
         t0 = time.perf_counter()
         server.serve(opt.net, reqs)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top, launching = profile_summary(prof)
+    return busy_ms, wall_ms, top, launching
+
+
+def profile_summary(prof):
+    """(device-busy ms, the ``TOP_DEVICE_OPS`` device ops by time as (name,
+    ms), the same time by launching op) of one profile."""
     busy_ms, evs = device_events(prof)
     by_op = {}
     for e in evs:
         by_op[e.name[:90]] = by_op.get(e.name[:90], 0.0) + e.time_range.elapsed_us() * 1e-3
     ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
-    return busy_ms, wall_ms, ranked, by_launching_op(prof, evs)
+    return busy_ms, ranked, by_launching_op(prof, evs)
 
 
 def device_events(prof):
@@ -1724,6 +1773,7 @@ def lm_phase(torch, launches, seed, smi, device="cuda"):
     from repro_torch.kernels import common
     from repro_torch.launch import lm_decode
     from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_leaves
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -1821,7 +1871,7 @@ def lm_phase(torch, launches, seed, smi, device="cuda"):
     # (c) the registered bf16 config, served through lm_decode.run
     out["peak_gb_a_b"] = torch.cuda.max_memory_allocated() / 1e9
     params = T.init_params(torch.Generator(device=device).manual_seed(seed), full)
-    weight_gb = sum(a.numel() * a.element_size() for a in _leaves(params)) / 1e9
+    weight_gb = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 1e9
     torch.cuda.reset_peak_memory_stats()
     P, N = LM_SERVED_PROMPT, LM_SERVED_TOKENS
     served = []
@@ -1856,12 +1906,321 @@ def lm_phase(torch, launches, seed, smi, device="cuda"):
     return out, passes
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+def train_phase(torch, launches, seed, smi, device="cuda"):
+    """Phase 11, LM_ARCH's training path (see the module docstring, (a) to
+    (e)). Launch counters are zeroed before each path and read after it;
+    every path but (e)'s no-grad prefill launches no kernel. Returns
+    (summary, {(e)'s no-grad prefill: flash attention's signatures}) for
+    ``check_and_time``."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import base as cb
+    from repro_torch.data.lm import make_batch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim
+    from repro_torch.train.optim import tree_map, tree_named_leaves
+
+    t_phase = time.perf_counter()
+    full = cb.get(LM_ARCH)
+    out = {"card": smi, "arch": LM_ARCH}
+    passes = {}
+
+    def run(path, fn, flash=0):
+        """fn() with the counters zeroed before and read after."""
+        common.reset_launches()
+        torch.cuda.synchronize()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[path] = dict(common.LAUNCHES)
+        assert launches[path]["flash_attention"] == flash, (path, launches[path])
+        assert all(n == 0 for k, n in launches[path].items()
+                   if k != "flash_attention"), (path, launches[path])
+        if flash:
+            passes[path] = dict(common.SEEN["flash_attention"])
+        return result
+
+    def leaves(tree) -> dict:
+        return dict(tree_named_leaves(tree))
+
+    # (a) one layer at full width, fp32: the card against the CPU port
+    cut = dataclasses.replace(full, n_layers=TRAIN_CUT_LAYERS, param_dtype=torch.float32)
+    card = T.init_params(torch.Generator(device=device).manual_seed(seed), cut)
+    cpu = T.map_params(lambda a: a.to("cpu"), card)
+    B, S = TRAIN_CUT_BATCH, TRAIN_CUT_SEQ
+    batch = make_batch(cut, B, S, 1, seed=0, device=device)
+    hbatch = make_batch(cut, B, S, 1, seed=0, device="cpu")
+    path = f"train {LM_ARCH} {TRAIN_CUT_LAYERS} layer fp32 grads B={B} S={S}"
+    loss, grads = run(path, lambda: ST.value_and_grad(card, cut, batch))
+    hloss, hgrads = ST.value_and_grad(cpu, cut, hbatch)
+    loss_err, g_err = abs(float(loss) - float(hloss)), train_grad_err(grads, hgrads)
+    attn = leaves(grads["layers"]["attn"])
+    zero = [k for k, g in attn.items() if not bool((g != 0).any())]
+    assert not zero, zero
+    # Both sides step from the CPU's gradients: AdamW's first step divides
+    # each gradient element by its own magnitude, so where |g| is near eps
+    # the two sides' rounding turns into steps that part by up to ~lr. The
+    # gradients are held above, the step's arithmetic here; the steps from
+    # each side's own gradients are recorded only.
+    lr = ST.DEFAULT_LR
+    shared = tree_map(lambda g: g.to(device), hgrads)
+    steps_err, own_err = {}, {}
+    for name, opt in (("adamw", ST.optimizer_for(cut)[1]),
+                      ("adafactor", optim.make_optimizer("adafactor", lr))):
+        want, _ = opt.update(cpu, hgrads, opt.init(cpu))
+        got, _ = opt.update(card, shared, opt.init(card))
+        steps_err[name] = train_step_err(card, got, cpu, want, lr)
+        got, _ = opt.update(card, grads, opt.init(card))
+        own_err[name] = train_step_err(card, got, cpu, want, lr)
+        del got, want
+    del shared
+    print(f"train (a): {LM_ARCH} cut to {TRAIN_CUT_LAYERS} layer, fp32, B={B}, "
+          f"S={S}: loss {float(loss):.6f}; card against the CPU port: loss "
+          f"|err| {loss_err:.3g} (tolerance {TRAIN_CPU_TOL}), gradients max "
+          f"|err| / the leaf's max |g| {g_err:.3g} (tolerance {TRAIN_GRAD_RTOL}), "
+          "parameter steps from the CPU's gradients max |err| / lr "
+          + ", ".join(f"{k} {e:.3g}" for k, e in steps_err.items())
+          + f" (tolerance {TRAIN_STEP_TOL}; from each side's own gradients, "
+          "recorded only: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in own_err.items()) + "); "
+          f"{len(attn)} attention gradients nonzero; flash attention launches "
+          f"{launches[path]['flash_attention']}", flush=True)
+    assert loss_err <= TRAIN_CPU_TOL, loss_err
+    assert g_err <= TRAIN_GRAD_RTOL, g_err
+    assert max(steps_err.values()) <= TRAIN_STEP_TOL, steps_err
+    out["card_vs_cpu"] = {"layers": TRAIN_CUT_LAYERS, "batch": B, "seq": S,
+                          "loss": float(loss), "loss_abs_err": loss_err,
+                          "grad_rel_err": g_err, "step_err_over_lr": steps_err,
+                          "own_grads_step_err_over_lr": own_err,
+                          "tols": [TRAIN_CPU_TOL, TRAIN_GRAD_RTOL, TRAIN_STEP_TOL],
+                          "attn_grads_nonzero": len(attn)}
+    del grads, hgrads, attn
+
+    # (e) the flash route on the LM path: one 1-layer prefill without grad
+    # launches the kernel once; with parameters that require grad, never
+    tokens = batch["tokens"]
+    nograd = f"train (e) {LM_ARCH} {TRAIN_CUT_LAYERS} layer prefill no grad S={S}"
+    with torch.no_grad():
+        fast, _ = run(nograd, lambda: T.prefill(card, cut, tokens), flash=TRAIN_CUT_LAYERS)
+    trainable = tree_map(lambda a: a.detach().requires_grad_(True), card)
+    plain, _ = run(f"train (e) {LM_ARCH} {TRAIN_CUT_LAYERS} layer prefill grad S={S}",
+                   lambda: T.prefill(trainable, cut, tokens))
+    q = torch.zeros((4, 64, 128), device=device, requires_grad=True)
+    try:
+        flash_attention(q, q, q)
+        raise AssertionError("flash_attention accepted operands that require grad")
+    except common.KernelError as e:
+        refused = str(e)
+    route_err = float((fast - plain.detach()).abs().max())
+    print(f"train (e): {TRAIN_CUT_LAYERS}-layer prefill S={S}: flash attention "
+          f"launches {launches[nograd]['flash_attention']} without grad, 0 with "
+          f"grad; max |logits kernel - plain| {route_err:.3g}; on operands that "
+          f"require grad the kernel raises: {refused}", flush=True)
+    assert route_err <= TRAIN_CPU_TOL, route_err
+    out["flash_route"] = {"launches_no_grad": TRAIN_CUT_LAYERS, "launches_grad": 0,
+                          "max_abs_err": route_err}
+    del card, cpu, trainable, fast, plain, q
+    torch.cuda.empty_cache()
+
+    # (c) one checkpoint at full width: the 1-layer cut in bf16, AdamW state
+    cut16 = dataclasses.replace(cut, param_dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed), cut16)
+    _, opt = ST.optimizer_for(cut16)
+    path = f"train {LM_ARCH} {TRAIN_CUT_LAYERS} layer bf16 step B={B} S={S}"
+    state = run(path, lambda: ST.make_train_step(cut16, opt)(
+        params, opt.init(params), make_batch(cut16, B, S, 1, seed=0, device=device)))[:2]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt.") as td:
+        mgr = CheckpointManager(td)
+        t0 = time.perf_counter()
+        final = mgr.save(1, state)
+        save_s = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(final, f)) for f in os.listdir(final)) / 1e9
+        t0 = time.perf_counter()
+        back = mgr.restore(1, state, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    want, got = leaves(state), leaves(back)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        if isinstance(want[k], int):
+            assert got[k] == want[k], k
+        else:
+            assert got[k].device == want[k].device and got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), k
+    print(f"train (c): {LM_ARCH} cut to {TRAIN_CUT_LAYERS} layer, bf16 + AdamW "
+          f"state ({len(want)} leaves): {gb:.3f} GB written in {save_s:.2f} s, "
+          f"restored onto the card bit for bit in {restore_s:.2f} s  ({smi})",
+          flush=True)
+    out["checkpoint"] = {"leaves": len(want), "gb": gb, "save_s": save_s,
+                         "restore_s": restore_s}
+    del params, state, back, want, got
+    torch.cuda.empty_cache()
+
+    # (b) the main run: 8 layers at full width, bf16, remat, ten AdamW steps
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    assert cfg.remat and cfg.param_dtype == torch.bfloat16
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    path = f"train {LM_ARCH} {TRAIN_LAYERS} layers bf16 {TRAIN_STEPS} steps B={B} S={S}"
+    res = run(path, lambda: TR.train_loop(cfg, B, S, TRAIN_STEPS, ckpt_dir=None,
+                                          device=device, seed=seed,
+                                          log=lines.append))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, step_ms = res.losses, res.step_ms
+    assert len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses), losses
+    ln_v = math.log(cfg.vocab)
+    assert abs(losses[0] - ln_v) <= TRAIN_FIRST_LOSS_SLACK, (losses[0], ln_v)
+    assert losses[-1] < losses[0], losses
+    med_s = float(np.median(step_ms)) / 1e3
+    T_tok = B * S
+    n = cfg.n_params()
+    hd, H = cfg.hd, cfg.n_heads
+    layer = (cfg.d_model * H * hd * 2 + 2 * cfg.d_model * cfg.n_kv_heads * hd
+             + 3 * cfg.d_model * cfg.d_ff)
+    head = cfg.d_model * cfg.vocab
+    # the work a step needs: bf16 products forward 2, backward 4 a weight
+    # and token; fp32 attention einsums (TF32 off) over the causal half of
+    # the scores, 2 B H S^2 hd forward, twice that backward
+    bf16_flops = 6 * T_tok * (cfg.n_layers * layer + head)
+    fp32_flops = 3 * 2 * B * H * S * S * hd * cfg.n_layers
+    bound_ms = (bf16_flops / BF16_FLOPS + fp32_flops / FP32_FLOPS) * 1e3
+    # what the step runs beyond that: the remat re-forward of the layers
+    # and of each CE chunk, and the einsums' masked half in forward,
+    # backward and re-forward plus the re-forward's causal half
+    extra_bf16 = 2 * T_tok * (cfg.n_layers * layer + head)
+    extra_fp32 = 4 * 4 * B * H * S * S * hd * cfg.n_layers - fp32_flops
+    extra_ms = (extra_bf16 / BF16_FLOPS + extra_fp32 / FP32_FLOPS) * 1e3
+    model_tflops = 6 * n * T_tok / med_s / 1e12
+    for line in lines:
+        print(f"  {line}")
+    print(f"train (b): {LM_ARCH} at full width, {TRAIN_LAYERS} of "
+          f"{full.n_layers} layers, bf16, remat, AdamW, B={B}, S={S}: losses "
+          f"{[round(x, 4) for x in losses]} (ln vocab {ln_v:.4f}); step ms "
+          f"median {med_s * 1e3!r}, all {[round(x, 1) for x in step_ms]}; "
+          f"{T_tok / med_s!r} tokens/s; model {model_tflops!r} TFLOP/s "
+          f"(6 N T, N {n}) against the dense bf16 peak {BF16_FLOPS / 1e12:g}; "
+          f"bound {bound_ms!r} ms ({bf16_flops / 1e12:.2f} TFLOP bf16 products, "
+          f"{fp32_flops / 1e12:.2f} TFLOP fp32 causal attention einsums, "
+          f"operations), step / bound {med_s * 1e3 / bound_ms!r}; remat "
+          f"re-forward and masked score blocks add {extra_bf16 / 1e12:.2f} TFLOP "
+          f"bf16 and {extra_fp32 / 1e12:.2f} TFLOP fp32 ({extra_ms!r} ms at the "
+          f"peaks); "
+          f"peak memory {peak_gb!r} GB; launches {launches[path]}  ({smi})",
+          flush=True)
+
+    # one more step under the profiler: device busy share and top device ops
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = ST.make_train_step(cfg, ST.optimizer_for(cfg)[1])
+    b = make_batch(cfg, B, S, TRAIN_STEPS + 1, seed=0, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p2, s2, _ = step_fn(res.params, res.opt_state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del p2, s2, res
+    busy_ms, top, launching = profile_summary(prof)
+    del prof
+    torch.cuda.empty_cache()
+    if busy_ms is None:
+        print(f"train (b): one profiled step: wall {wall_ms!r} ms, device busy not "
+              f"measured (no device events recorded)")
     else:
-        yield tree
+        print(f"train (b): one profiled step: wall {wall_ms!r} ms, device busy "
+              f"{busy_ms!r} ms, busy share {busy_ms / wall_ms!r}")
+        for op, ms in top:
+            print(f"    device {ms:.4f} ms  {op}")
+        print("  by launching op:")
+        for op, ms in launching:
+            print(f"    device {ms:.4f} ms  {op}")
+    out["main_run"] = {
+        "layers": TRAIN_LAYERS, "batch": B, "seq": S, "steps": TRAIN_STEPS,
+        "n_params": n, "losses": losses, "step_ms": step_ms,
+        "step_ms_median": med_s * 1e3, "tokens_s": T_tok / med_s,
+        "model_tflops": model_tflops, "peak_bf16_tflops": BF16_FLOPS / 1e12,
+        "bound_ms": bound_ms, "bound_by": "operations",
+        "bf16_tflop": bf16_flops / 1e12, "fp32_tflop": fp32_flops / 1e12,
+        "extra_bf16_tflop": extra_bf16 / 1e12, "extra_fp32_tflop": extra_fp32 / 1e12,
+        "extra_ms": extra_ms,
+        "peak_gb": peak_gb, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+        "top_device_ops": top}
+
+    # (d) the CLI on the card (device by default), reduced config: 4 steps,
+    # then 6 resuming from 4, against an uninterrupted 6-step run
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+
+    def cli(ckpt_dir, n_steps, every):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+             "--steps", str(n_steps), "--ckpt-every", str(every), "--ckpt-dir",
+             ckpt_dir], cwd=root, env=env, capture_output=True, text=True,
+            timeout=600)
+        assert r.returncode == 0, r.stderr[-4000:]
+        return r.stdout
+
+    small = cb.get(LM_ARCH).reduced()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as td:
+        first = cli(f"{td}/a", 4, 2)
+        resumed = cli(f"{td}/a", 6, 1)
+        assert "[train] resumed from step 4" in resumed, resumed
+        whole = f"train (d) {LM_ARCH} reduced, uninterrupted 6 steps"
+        with contextlib.redirect_stdout(io.StringIO()):
+            run(whole, lambda: TR.main(["--arch", LM_ARCH, "--steps", "6",
+                                        "--ckpt-every", "1", "--ckpt-dir", f"{td}/b"]))
+        loss = {d: {s: CheckpointManager(f"{td}/{d}/{small.name}").manifest(s)["extra"]["loss"]
+                    for s in (5, 6)} for d in ("a", "b")}
+    err = max(abs(loss["a"][s] - loss["b"][s]) for s in (5, 6))
+    print(f"train (d): python -m repro_torch.launch.train --arch {LM_ARCH} "
+          f"(reduced, cuda by default): 4 steps, then resumed from step 4 to 6; "
+          f"steps 5, 6 losses {[loss['a'][s] for s in (5, 6)]} against an "
+          f"uninterrupted run's {[loss['b'][s] for s in (5, 6)]}, max |diff| "
+          f"{err:.3g} (tolerance {TRAIN_RESUME_TOL})", flush=True)
+    print("  " + "\n  ".join((first + resumed).strip().splitlines()))
+    assert err <= TRAIN_RESUME_TOL, err
+    out["cli_resume"] = {"losses_resumed": loss["a"], "losses_whole": loss["b"],
+                         "max_abs_err": err, "tol": TRAIN_RESUME_TOL}
+
+    out["seconds"] = time.perf_counter() - t_phase
+    train_paths = [p for p in launches if p.startswith("train ")]
+    print("phase 11 launches: " + json.dumps(
+        {p: launches[p]["flash_attention"] for p in train_paths}))
+    print(f"train: phase 11 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out, passes
+
+
+def train_grad_err(got, want) -> float:
+    """Max over the leaves of two gradient trees of max |got - want| over
+    the leaf's max |want| (``want`` on the CPU)."""
+    from repro_torch.train.optim import tree_named_leaves
+    g, w = dict(tree_named_leaves(got)), dict(tree_named_leaves(want))
+    assert sorted(g) == sorted(w)
+    worst = 0.0
+    for k in g:
+        assert g[k].shape == w[k].shape and bool(g[k].isfinite().all()), k
+        scale = float(w[k].abs().max())
+        err = float((g[k].cpu() - w[k]).abs().max())
+        assert scale > 0 or err == 0, (k, err)
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    return worst
+
+
+def train_step_err(before, after, before_ref, after_ref, lr) -> float:
+    """The max over every parameter element of |its step (after - before)
+    minus the reference's (``*_ref``, on the CPU)| in units of ``lr``."""
+    from repro_torch.train.optim import tree_named_leaves
+    b, a, br, ar = (dict(tree_named_leaves(t))
+                    for t in (before, after, before_ref, after_ref))
+    assert sorted(b) == sorted(a) == sorted(br) == sorted(ar)
+    return max(float(((a[k] - b[k]).cpu() - (ar[k] - br[k])).abs().max()) / lr
+               for k in b)
 
 
 def predictions_card_vs_cpu(torch, models, smi) -> dict:

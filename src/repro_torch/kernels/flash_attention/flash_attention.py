@@ -8,7 +8,10 @@ accuracy (3xTF32), scores, running max, sum and output accumulator in fp32
 registers — and computes ``flash_attention_plain`` (the full score matrix,
 masked, softmax, times V) for CPU tensors. The CTA tile ``(bq, bkv)`` is one
 of the Hopper tiles in ``TILES``, not the TPU block; the kernel masks ragged
-edges, so the sequence lengths need not divide it.
+edges, so the sequence lengths need not divide it. The kernel has no
+backward (the reference's Pallas kernel has no VJP): a call on CUDA tensors
+through which autograd would need a gradient raises ``KernelError`` instead
+of returning an output with no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (bind, check_launch, count_launch,
-                                        on_cpu, ptr, stream_of)
+from repro_torch.kernels.common import (KernelError, bind, check_launch,
+                                        count_launch, on_cpu, ptr, stream_of)
 
 NEG_INF = -1e30                      # the reference's mask value
 HEAD_DIMS = (32, 64, 128)            # head dims the CUDA kernel instantiates
@@ -57,6 +60,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if on_cpu("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise KernelError("flash_attention: the kernel has no backward; "
+                          "operands require grad")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: no kernel for head dim {d} "
                          f"(instantiated: {HEAD_DIMS})")

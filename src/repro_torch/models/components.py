@@ -11,13 +11,17 @@ PRNG, so parity with the reference goes through
 ``attention`` is the reference's function, with one dispatch added: on CUDA
 tensors, a prefill call the hand-written flash attention kernel computes
 exactly (causal, positions shared by queries and keys, no window short of
-the keys, no softcap, a head dim the kernel instantiates) runs on the
-kernel (``_flash_route``); every other call runs the torch port of the
-reference's ``jnp`` code. A kernel that fails to build or launch raises
-``KernelError``; nothing falls back.
+the keys, no softcap, a head dim the kernel instantiates) and through which
+no gradient is needed runs on the kernel (``_flash_route``); every other
+call runs the torch port of the reference's ``jnp`` code. The kernel has no
+backward, as the reference's Pallas kernel has no VJP, so training
+attention is the reference's plain code under autograd. A kernel that fails
+to build or launch raises ``KernelError``; nothing falls back.
 
-Not ported yet: MLA (``mla_*``, only ``MLADims``, which the configs name)
-and ``chunked_ce_loss`` (the training slice).
+``chunked_ce_loss`` is the training loss: each sequence chunk's fp32 logits
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+the full (B, S, vocab) logits never exist. Not ported yet: MLA (``mla_*``,
+only ``MLADims``, which the configs name).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,
                                                                  flash_attention)
@@ -159,19 +164,21 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return torch.where(ok, zero, zero - math.inf)
 
 
-def flash_routed(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
-                 k_pos: torch.Tensor, *, causal: bool, window: Optional[int],
-                 softcap: Optional[float], vd: int) -> bool:
+def flash_routed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                 window: Optional[int], softcap: Optional[float]) -> bool:
     """Whether ``attention`` runs this call on the flash attention kernel:
     CUDA tensors, a prefill (Sq > 1) over the same positions for queries
     and keys (one arange in prefill and forward, so the reference's causal
     mask is the kernel's top-left diagonal), causal, no window shorter than
-    the keys, no softcap, and a head dim the kernel instantiates for both
-    K and V. Decided from the call's semantics before any launch."""
-    Sq, hd, Sk = q.shape[1], q.shape[-1], k.shape[1]
+    the keys, no softcap, a head dim the kernel instantiates for both K and
+    V, and no gradient needed through q, k or v (the kernel has no
+    backward). Decided from the call's semantics before any launch."""
+    Sq, hd, Sk, vd = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return (q.is_cuda and Sq > 1 and Sq == Sk and q_pos is k_pos and causal
             and (window is None or window >= Sk) and softcap is None
-            and hd in HEAD_DIMS and vd == hd)
+            and hd in HEAD_DIMS and vd == hd and not grad)
 
 
 def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -218,8 +225,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
     Sk = k.shape[1]
 
-    if flash_routed(q, k, q_pos, k_pos, causal=causal, window=window,
-                    softcap=softcap, vd=vd):
+    if flash_routed(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                    softcap=softcap):
         return _flash_route(q, k, v, sc)
 
     if Sq > 1:
@@ -345,3 +352,42 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = _act(h, act)
     return dense(params["w_down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy (sequence-chunked: never materialises (B, S, V) at once)
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(emb: torch.Tensor, hc: torch.Tensor, lc: torch.Tensor,
+              mc: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """Summed masked CE of one chunk: fp32 logits, softcap, logsumexp minus
+    the gold logit."""
+    logits = _softcap(unembed({"emb": emb}, hc).float(), softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def chunked_ce_loss(emb_params: Params, h: torch.Tensor, labels: torch.Tensor,
+                    n_chunks: int = 8, softcap: Optional[float] = None,
+                    label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h: (B, S, D) final hidden; labels: (B, S). Mean CE over ``n_chunks``
+    slabs of the sequence (lowered until it divides S), each slab's logits
+    recomputed in backward instead of stored, so the (B, S, V) logits never
+    exist at once."""
+    B, S, D = h.shape
+    n_chunks = min(n_chunks, S)
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+    emb = emb_params["emb"]
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        mc = (torch.ones((B, c), dtype=torch.float32, device=h.device)
+              if label_mask is None else label_mask[:, sl].float())
+        tot = tot + checkpoint(_ce_chunk, emb, h[:, sl], labels[:, sl], mc,
+                               softcap, use_reentrant=False)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -7,10 +7,12 @@ Parameters are the reference's nested dicts, each layer's tensors stacked
 on a leading ``n_layers`` axis as its ``_stack`` does; the decode cache
 keeps its ``(n_layers, B, S, Hkv, hd)`` layout. What differs:
 
-- A Python loop over layers takes the place of ``lax.scan``.
-- ``ActShard``/``_cst`` (activation sharding constraints) and ``remat``
-  (rematerialisation for training) have no meaning on one device and are
-  dropped; ``cfg.remat`` is read by nothing.
+- A Python loop over layers takes the place of ``lax.scan``; with
+  ``cfg.remat`` and grad enabled, ``forward`` runs each layer under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``), so
+  backward keeps one layer's activations at a time.
+- ``ActShard``/``_cst`` (activation sharding constraints) have no meaning
+  on one device and are dropped.
 - ``decode_step`` writes the new token's K/V into the cache in place and
   returns the same cache (the reference returns a new one); ``pos`` is a
   Python int. A position past a linear cache's last slot raises (the
@@ -19,7 +21,8 @@ keeps its ``(n_layers, B, S, Hkv, hd)`` layout. What differs:
   ``NotImplementedError`` naming the family: later slices.
 
 Prefill attention of causal, unwindowed, uncapped layers runs on the
-hand-written flash attention kernel on the card (``components.attention``).
+hand-written flash attention kernel on the card when no gradient is needed
+(``components.attention``); ``loss_fn`` under autograd runs the plain code.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import components as C
@@ -197,17 +201,40 @@ def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _block_hidden(cfg: ArchConfig, p: Params, h: torch.Tensor,
+                  positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    return _dense_block(cfg, p, h, positions, window)[0]
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden (B, S, D), aux loss: 0 for dense layers)."""
+    """Returns (final hidden (B, S, D), aux loss: 0 for dense layers). With
+    ``cfg.remat`` and grad enabled each layer is recomputed in backward."""
     _dense_gqa_only(cfg)
     h, positions = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        h, _, _ = _dense_block(cfg, _layer(params["layers"], i), h, positions,
-                               _layer_window(cfg, i))
+        args = (cfg, _layer(params["layers"], i), h, positions, _layer_window(cfg, i))
+        h = (checkpoint(_block_hidden, *args, use_reentrant=False) if remat
+             else _block_hidden(*args))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _norm(cfg, params["final_norm"], h), aux
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B, S_text), labels (B, S_text) and optionally
+    prefix_embeds / label_mask -> (ce + aux, {"ce", "aux"}). The prefix's
+    positions carry no loss; the head is the tied embedding or ``lm_head``."""
+    prefix = batch.get("prefix_embeds")
+    h, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
+    emb = params["embed"] if cfg.tie_embeddings else {"emb": params["lm_head"]["w"].T}
+    ce = C.chunked_ce_loss(emb, h, batch["labels"], cfg.loss_chunks,
+                           softcap=cfg.final_softcap, label_mask=batch.get("label_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -1210,3 +1210,129 @@ def test_gpu_lm_decode_run_defaults_to_the_card(cuda):
     r = lm_decode.run(cfg, 2, 16, 4, params=card)
     assert r.tokens.is_cuda and r.tokens.shape == (2, 4)
     assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The LM training path on the card
+# ---------------------------------------------------------------------------
+
+def _full_width_cut(dtype=torch.float32):
+    """chatglm3_6b at full width cut to 1 layer, its weights from a seeded
+    generator on the card."""
+    import dataclasses
+    from repro_torch.configs import base as cb
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cb.get("chatglm3_6b"), n_layers=1, param_dtype=dtype)
+    return cfg, T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+def test_gpu_lm_train_step_full_width_matches_cpu(cuda):
+    """One train step of chatglm3_6b at full width (1 layer, fp32, TF32
+    off, B=1, S=256) on the card and on the CPU port, held as
+    ``chip_smoke.py`` phase 11 (a) holds it: the loss within 1e-3, each
+    gradient leaf within 1e-4 of its own max |g|, and each parameter's step
+    under AdamW (``optimizer_for``) and Adafactor from the CPU's gradients
+    within 1e-2 lr; every attention gradient nonzero; ``make_train_step``
+    on the card launches no flash attention (its kernel has no backward)."""
+    from repro_torch.data.lm import make_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim
+    smoke = _smoke()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, card = _full_width_cut()
+        cpu = T.map_params(lambda a: a.to("cpu"), card)
+        batch, hbatch = (make_batch(cfg, 1, 256, 1, device=d) for d in ("cuda", "cpu"))
+        before = common.LAUNCHES["flash_attention"]
+        _, grads = ST.value_and_grad(card, cfg, batch)
+        wloss, wgrads = ST.value_and_grad(cpu, cfg, hbatch)
+        assert all(bool((g != 0).any()) for g in optim.tree_leaves(grads["layers"]["attn"]))
+        assert smoke.train_grad_err(grads, wgrads) <= smoke.TRAIN_GRAD_RTOL
+        del grads
+        shared = optim.tree_map(lambda g: g.cuda(), wgrads)
+        errs = {}
+        for name, opt in (("adamw", ST.optimizer_for(cfg)[1]),
+                          ("adafactor", optim.make_optimizer("adafactor", ST.DEFAULT_LR))):
+            got, _ = opt.update(card, shared, opt.init(card))
+            want, _ = opt.update(cpu, wgrads, opt.init(cpu))
+            errs[name] = smoke.train_step_err(card, got, cpu, want, ST.DEFAULT_LR)
+            del got, want
+        del shared
+        _, opt = ST.optimizer_for(cfg)
+        stepped, _, loss = ST.make_train_step(cfg, opt)(card, opt.init(card), batch)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["flash_attention"] == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert abs(float(loss) - float(wloss)) <= smoke.TRAIN_CPU_TOL
+    assert all(bool(p.isfinite().all()) for p in optim.tree_leaves(stepped))
+    assert max(errs.values()) <= smoke.TRAIN_STEP_TOL, errs
+
+
+def test_gpu_lm_train_flash_launches_only_without_grad(cuda):
+    """A prefill launches flash attention once a layer under
+    ``torch.no_grad()`` and never when the parameters require grad; the
+    two agree."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_map
+    cfg, card = _lm_model()[::2]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).cuda()
+    before = common.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        fast, _ = T.prefill(card, cfg, tokens)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    plain, _ = T.prefill(tree_map(lambda a: a.detach().requires_grad_(True), card), cfg, tokens)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert plain.requires_grad
+    torch.testing.assert_close(fast, plain.detach(), **GEMM_TOL)
+
+
+def test_gpu_lm_train_flash_kernel_refuses_grad_operands(cuda):
+    """The kernel has no backward: operands that require grad raise
+    KernelError with grad enabled and launch under ``torch.no_grad()``."""
+    from repro_torch.kernels.common import KernelError
+    q = torch.randn((2, 64, 64), device="cuda", requires_grad=True)
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(KernelError, match="no backward"):
+        flash_attention(q, q, q)
+    assert common.LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        out = flash_attention(q, q, q)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out, flash_attention_plain(q.detach(), q.detach(), q.detach()),
+                               **GEMM_TOL)
+
+
+def test_gpu_lm_train_launcher_defaults_to_the_card(cuda, tmp_path):
+    """``launch.train.main`` with no device trains on cuda, and resumes."""
+    from repro_torch.launch import train
+    args = ["--arch", "chatglm3_6b", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
+    run = train.main(args + ["--steps", "2"])
+    assert run.params["embed"]["emb"].is_cuda and len(run.losses) == 2
+    again = train.main(args + ["--steps", "3"])
+    assert again.start == 2 and again.steps == [3]
+    assert again.opt_state["m"]["embed"]["emb"].is_cuda
+
+
+def test_gpu_lm_train_full_width_checkpoint_round_trip(cuda, tmp_path):
+    """chatglm3_6b at full width (1 layer, bf16) with its AdamW state saved
+    and restored onto the card bit for bit."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import steps as ST
+    cfg, params = _full_width_cut(torch.bfloat16)
+    _, opt = ST.optimizer_for(cfg)
+    state = (params, opt.init(params))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    back = mgr.restore(1, state)
+    assert back[1]["step"] == 0
+    from repro_torch.train.optim import tree_named_leaves
+    for (k, a), (_, b) in zip(tree_named_leaves(state), tree_named_leaves(back)):
+        if isinstance(a, int):
+            assert a == b, k
+        else:
+            assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b), k

@@ -61,17 +61,21 @@ def test_port_imports_without_cuda_or_triton():
 LM_MODULES = ("repro_torch.models.components", "repro_torch.models.transformer",
               "repro_torch.models.moe", "repro_torch.models.ssm",
               "repro_torch.configs.base", "repro_torch.configs.chatglm3_6b",
-              "repro_torch.launch.lm_decode", "repro_torch.convert")
+              "repro_torch.launch.lm_decode", "repro_torch.convert",
+              "repro_torch.train.optim", "repro_torch.data.lm",
+              "repro_torch.ckpt.manager", "repro_torch.launch.steps",
+              "repro_torch.launch.shapes", "repro_torch.launch.train")
 
 
 def test_lm_modules_load_neither_jax_nor_the_reference():
-    """A fresh interpreter importing the LM path (its modules, every config
-    through the registry) has loaded no ``jax`` and nothing of ``repro``."""
+    """A fresh interpreter importing the LM path (decode and training
+    modules, every config through the registry) has loaded no ``jax``,
+    nothing of ``repro`` and no ``ml_dtypes``."""
     code = ("import sys, importlib\n"
             f"for m in {LM_MODULES!r}: importlib.import_module(m)\n"
             "from repro_torch.configs import base\n"
             "base.all_assigned()\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT, env={**__import__("os").environ,

@@ -169,19 +169,19 @@ def test_flash_route_matches_reference_attention(hd):
     _close(got, want)
     tp = torch.from_numpy(pos).long()
 
-    class OnCard:                      # a CUDA operand's flag and shape, no card
-        is_cuda, shape = True, tq.shape
+    class OnCard:                      # a CUDA operand's flags and shape, no card
+        is_cuda, shape, requires_grad = True, tq.shape, False
 
-    def routed(kp, **kw):
-        kw = {**dict(causal=True, window=None, softcap=None, vd=hd), **kw}
-        return C.flash_routed(OnCard, tk, tp, kp, **kw)
+    def routed(kp, v=tv, **kw):
+        kw = {**dict(causal=True, window=None, softcap=None), **kw}
+        return C.flash_routed(OnCard, tk, v, tp, kp, **kw)
 
-    assert not C.flash_routed(tq, tk, tp, tp, causal=True, window=None,
-                              softcap=None, vd=hd)          # CPU tensors
+    assert not C.flash_routed(tq, tk, tv, tp, tp, causal=True, window=None,
+                              softcap=None)                 # CPU tensors
     assert routed(tp) and routed(tp, window=S)
     for kp, kw in [(tp.clone(), {}), (tp, dict(causal=False)),
                    (tp, dict(window=S - 1)), (tp, dict(softcap=50.0)),
-                   (tp, dict(vd=hd // 2))]:
+                   (tp, dict(v=tv[..., :hd // 2]))]:
         assert not routed(kp, **kw)
 
 
