@@ -10,8 +10,8 @@ Winograd point-GEMM with its input and inverse transforms), and the ``ops``
 entry points of the four kernels no plan reaches (batched matmul,
 single-image im2col conv, single-image Winograd point-GEMM, which runs the
 two transforms too, flash attention), and the LM decode path, whose
-prefill attention runs on the flash attention kernel. Phases, each of
-which asserts:
+prefill attention runs on the flash attention kernel, for the dense GQA
+decoders and every other LM family. Phases, each of which asserts:
 
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / nvcc
    versions, and the kernel build (one ``nvcc`` per source, in parallel,
@@ -165,6 +165,27 @@ which asserts:
    within 1e-5 of an uninterrupted run; (e) a 1-layer prefill launches
    flash attention once under ``torch.no_grad()`` and never with
    parameters that require grad, and the kernel refuses such operands.
+12. The serving path of the other LM families (``models.{components,moe,
+   ssm,transformer}``, ``launch.lm_decode``): minicpm3_4b (MLA),
+   mixtral_8x7b and qwen3_moe_30b_a3b (MoE), mamba2_2_7b (SSM),
+   zamba2_2_7b (hybrid) and whisper_medium (encoder-decoder over 1,500
+   frames), at full width, B=2, weights and frames from a seeded generator
+   on the card: (a) fp32, TF32 off, at the depths and lengths of
+   ``FAMILY_HELD``: prefill, decode teacher-forced, prefill all of it, the
+   last decode logits within 3e-3 of the full prefill's; MoE dropless
+   (capacity E / K), with the (token, k) pairs the registered 1.25 would
+   drop in that prefill printed; (b) each cut to 2 layers (zamba2 to 2
+   groups): prefill (256 tokens) and two decode steps on the card within
+   1e-3 of the port on the CPU, and for MoE the tokens whose top-k expert
+   sets differ between the two printed; (c) ``lm_decode.run`` on the
+   registered bf16 configs (mixtral cut to 16 of 32 layers), prompt 512,
+   32 tokens, twice: prefill ms, decode tok/s, peak memory. Flash
+   attention runs once a layer in a MoE prefill, 48 times in a Whisper
+   prefill (its non-causal encoder and its causal decoder), never for MLA,
+   SSM or zamba2 (head dim 80) and never in decode. Its new signatures are
+   held to its plain version with phases 10 and 11's, and each prefill
+   pass of (a) and (c)'s warm runs is timed beside its bound, plain
+   version and SDPA.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -303,6 +324,22 @@ TRAIN_STEPS = 10                                    # global batch of 256 cut to
 TRAIN_FIRST_LOSS_SLACK = 1.5              # (b): step 1 within this of ln(vocab)
 TRAIN_RESUME_TOL = 1e-5                   # (d): resumed vs uninterrupted losses
 BF16_FLOPS = 989e12                       # H100 SXM dense bf16 (data sheet, 700 W)
+# Phase 12: the LM families' serving path at full width, batch LM_BATCH.
+# (a), fp32: layers (None: full depth), prompt, teacher-forced steps
+FAMILY_HELD = {
+    "minicpm3_4b": (None, 2040, 8),        # <= 2,048 tokens: one-shot attention
+    "mixtral_8x7b": (4, 4089, 7),          # 5.8 GB a layer in fp32; the grown
+                                           # 4,096 slots are its window: a ring
+    "qwen3_moe_30b_a3b": (8, 4089, 7),
+    "mamba2_2_7b": (None, 1792, 256),      # multiples of the 256-token chunk
+    "zamba2_2_7b": (None, 1792, 256),
+    "whisper_medium": (None, 440, 8),      # within the 448-token decoder context
+}
+WHISPER_FRAMES = 1500                      # 30 s of audio at 50 frames a second
+FAMILY_SERVED_CUT = {                      # (c): depth cuts of the bf16 runs
+    "mixtral_8x7b": (16, "its 32 layers' 93.1 GB of bf16 weights do not fit "
+                         "one 80 GB card"),
+}
 
 
 def main() -> int:
@@ -440,7 +477,12 @@ def main() -> int:
     # -- phase 11: the LM training path on the card -------------------------
     training, train_passes = train_phase(torch, launches, args.seed, smi)
     lm_passes.update(train_passes)
-    lm_seen = set().union(*(set(c) for c in lm_passes.values()))
+
+    # -- phase 12: the LM families' serving path on the card ---------------
+    families, family_passes, family_seen = families_phase(
+        torch, launches, args.seed, smi)
+    lm_passes.update(family_passes)
+    lm_seen = set().union(family_seen, *(set(c) for c in lm_passes.values()))
     lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
                                args.reps)
     fa = report["flash_attention"]             # row 7 gains its LM passes
@@ -505,6 +547,7 @@ def main() -> int:
     print("frontend: " + json.dumps(frontend))
     print("lm: " + json.dumps(lm))
     print("train: " + json.dumps(training))
+    print("families: " + json.dumps(families))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2221,6 +2264,274 @@ def train_step_err(before, after, before_ref, after_ref, lr) -> float:
     assert sorted(b) == sorted(a) == sorted(br) == sorted(ar)
     return max(float(((a[k] - b[k]).cpu() - (ar[k] - br[k])).abs().max()) / lr
                for k in b)
+
+
+# ---------------------------------------------------------------------------
+# The LM families' serving path on the card (phase 12)
+# ---------------------------------------------------------------------------
+
+def family_config(arch, layers=None, dtype=None, dropless=False):
+    """The registered config of ``arch`` cut to ``layers`` (a hybrid's in
+    groups of its period), in ``dtype``; MoE ``dropless`` at capacity E / K
+    (the reference's own remedy, ``configs/base.py``'s ``reduced``)."""
+    import dataclasses
+    from repro_torch.configs import base as cb
+    cfg = cb.get(arch)
+    kw = {}
+    if layers is not None:
+        kw["n_layers"] = layers * (cfg.hybrid_attn_every or 1)
+        if cfg.kind == "encdec":
+            kw["n_enc_layers"] = layers
+    if dtype is not None:
+        kw["param_dtype"] = dtype
+    if dropless and cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_flash(cfg) -> int:
+    """Flash attention launches a prefill of ``cfg`` takes: one per
+    routed self-attention (causal MoE decoders at head dim 128, Whisper's
+    non-causal encoder and causal decoder at 64); MLA (qk 96 against v 64),
+    SSM and zamba2's head dim 80 run none."""
+    if cfg.kind == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers
+    return cfg.n_layers if cfg.moe is not None else 0
+
+
+class RouteRecorder:
+    """Records the expert ids of every MoE routing (``moe._route``) while
+    entered, in call order, to compare routings and count drops."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self._route = route = M._route
+
+        def recorded(params, x, cfg):
+            out = route(params, x, cfg)
+            self.calls.append(out[0])
+            return out
+        M._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M._route = self._route
+
+
+def dropped_pairs(torch, gate_idx, n_experts, cap) -> int:
+    """(token, k) pairs a capacity of ``cap`` slots an expert and batch row
+    drops from the routing ``gate_idx`` (B, S, K)."""
+    B = gate_idx.shape[0]
+    counts = torch.zeros((B, n_experts), dtype=torch.long, device=gate_idx.device)
+    counts.scatter_add_(1, gate_idx.reshape(B, -1), torch.ones_like(gate_idx.reshape(B, -1)))
+    return int(torch.clamp(counts - cap, min=0).sum())
+
+
+def families_phase(torch, launches, seed, smi, device="cuda"):
+    """Phase 12, the serving path of the MLA, MoE, SSM, hybrid and
+    encoder-decoder families (see the module docstring, (a) to (c)). Launch
+    counters are zeroed before each prefill, decode and run and read after:
+    flash attention ``family_flash(cfg)`` times a prefill, never in decode,
+    no other kernel. Returns (summary, {prefill path: flash attention's
+    signatures}) for ``check_and_time``, and every prefill's signatures
+    apart, to be held to the plain version."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import lm_decode
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    out = {"card": smi, "batch": LM_BATCH, "held": {}, "card_vs_cpu": {}, "served": {}}
+    timed, seen = {}, set()
+    B = LM_BATCH
+
+    def run(path, fn, flash, time_it=False):
+        """fn() with the counters zeroed before and read after; ms on the
+        host clock around a synchronised device."""
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[path] = dict(common.LAUNCHES)
+        assert launches[path]["flash_attention"] == flash, (path, launches[path])
+        assert all(n == 0 for k, n in launches[path].items()
+                   if k != "flash_attention"), (path, launches[path])
+        if flash:
+            seen.update(common.SEEN["flash_attention"])
+            if time_it:
+                timed[path] = dict(common.SEEN["flash_attention"])
+        return result, ms
+
+    def frames(cfg, gen):
+        """Whisper's encoder input: ``WHISPER_FRAMES`` unit-normal frame
+        embeddings a row, from the seeded generator."""
+        if cfg.kind != "encdec":
+            return None
+        return torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                           device=device)
+
+    # (a) teacher-forced decode against a full prefill, fp32
+    for arch, (layers, P, N) in FAMILY_HELD.items():
+        cfg = family_config(arch, layers, torch.float32, dropless=True)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = T.init_params(gen, cfg)
+        enc = frames(cfg, gen)
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (B, P + N))).to(device)
+        flash = family_flash(cfg)
+        with RouteRecorder() as routes:
+            (_, cache), prefill_ms = run(
+                f"lm {arch} fp32 prefill S={P} B={B}",
+                lambda: T.prefill(params, cfg, tokens[:, :P], enc_embeds=enc),
+                flash, time_it=True)
+        cache = lm_decode.grow_cache(cache, N)
+
+        def decode():
+            for i in range(P, P + N):
+                logits, _ = T.decode_step(params, cfg, cache, tokens[:, i:i + 1], i)
+            return logits
+
+        logits, decode_ms = run(f"lm {arch} fp32 decode {N} steps B={B}", decode, 0)
+        del cache
+        (full_logits, _), full_ms = run(
+            f"lm {arch} fp32 prefill S={P + N} B={B}",
+            lambda: T.prefill(params, cfg, tokens, enc_embeds=enc), flash)
+        assert logits.shape == full_logits.shape == (B, cfg.vocab)
+        assert torch.isfinite(logits).all() and torch.isfinite(full_logits).all()
+        err = float((logits - full_logits).abs().max())
+        held = {"layers": cfg.n_layers, "prompt": P, "steps": N,
+                "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                "full_prefill_ms": full_ms, "flash_launches_per_prefill": flash,
+                "max_abs_err": err, "tol": LM_DECODE_TOL}
+        drops = ""
+        if cfg.moe is not None:
+            cap = M.capacity(family_config(arch).moe, P)
+            n = sum(dropped_pairs(torch, g, cfg.moe.n_experts, cap) for g in routes.calls)
+            pairs = len(routes.calls) * B * P * cfg.moe.top_k
+            held["dropped_at_registered_capacity"] = {"capacity": cap, "pairs": n,
+                                                      "of": pairs}
+            drops = (f"; at the registered capacity factor 1.25 ({cap} slots an "
+                     f"expert) this prefill would drop {n} of {pairs} (token, k) "
+                     f"pairs")
+        out["held"][arch] = held
+        print(f"lm families (a): {arch} fp32, {cfg.n_layers} of "
+              f"{family_config(arch).n_layers} layers, B={B}"
+              f"{', dropless' if cfg.moe is not None else ''}: prefill {P} tokens "
+              f"{prefill_ms:.1f} ms, {N} teacher-forced decode steps {decode_ms:.1f} ms, "
+              f"prefill {P + N} tokens {full_ms:.1f} ms; flash attention {flash} "
+              f"launches a prefill; max |last decode logits - full prefill logits| "
+              f"{err:.3g} (tolerance {LM_DECODE_TOL}; |logits| up to "
+              f"{float(full_logits.abs().max()):.3g}){drops}  ({smi})", flush=True)
+        assert err <= LM_DECODE_TOL, (arch, err)
+        del params, logits, full_logits, enc
+        torch.cuda.empty_cache()
+
+    # (b) 2 layers (2 groups) at full width: the card against the CPU port
+    P, N = LM_CPU_PROMPT, LM_CPU_STEPS
+    for arch in FAMILY_HELD:
+        cfg = family_config(arch, LM_CPU_LAYERS, torch.float32)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        card = T.init_params(gen, cfg)
+        enc = frames(cfg, gen)
+        cpu = T.map_params(lambda a: a.to("cpu"), card)
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (B, P + N))).to(device)
+        flash = family_flash(cfg)
+        with RouteRecorder() as card_routes:
+            (got, gcache), _ = run(
+                f"lm {arch} {LM_CPU_LAYERS} layers prefill S={P} B={B}",
+                lambda: T.prefill(card, cfg, toks[:, :P], enc_embeds=enc), flash)
+            gcache = lm_decode.grow_cache(gcache, N)
+            gots = [got]
+            for i in range(P, P + N):
+                got, _ = run(f"lm {arch} {LM_CPU_LAYERS} layers decode pos {i}",
+                             lambda: T.decode_step(card, cfg, gcache, toks[:, i:i + 1], i),
+                             0)[0]
+                gots.append(got)
+        hcpu = None if enc is None else enc.cpu()
+        with RouteRecorder() as cpu_routes:
+            want, wcache = T.prefill(cpu, cfg, toks[:, :P].cpu(), enc_embeds=hcpu)
+            wcache = lm_decode.grow_cache(wcache, N)
+            wants = [want]
+            for i in range(P, P + N):
+                wants.append(T.decode_step(cpu, cfg, wcache, toks[:, i:i + 1].cpu(), i)[0])
+        errs = [float((g.cpu() - w).abs().max()) for g, w in zip(gots, wants)]
+        res = {"layers": cfg.n_layers, "prompt": P, "steps": N,
+               "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
+               "tol": LM_CPU_TOL, "flash_launches": flash}
+        routing = ""
+        if cfg.moe is not None:
+            assert len(card_routes.calls) == len(cpu_routes.calls)
+            differ = sum(int((torch.sort(g, -1).values.cpu()
+                              != torch.sort(w, -1).values).any(-1).sum())
+                         for g, w in zip(card_routes.calls, cpu_routes.calls))
+            tokens_routed = sum(g.shape[0] * g.shape[1] for g in card_routes.calls)
+            res["topk_sets_differ"] = {"tokens": differ, "of": tokens_routed}
+            routing = (f"; top-k expert sets differ between card and CPU for {differ} "
+                       f"of {tokens_routed} routed tokens")
+        out["card_vs_cpu"][arch] = res
+        print(f"lm families (b): {arch} cut to {cfg.n_layers} layers, fp32, B={B}: "
+              f"card against the CPU port, prefill {P} tokens max |logits err| "
+              f"{errs[0]:.3g}, {N} decode steps {max(errs[1:]):.3g} (tolerance "
+              f"{LM_CPU_TOL}){routing}", flush=True)
+        assert max(errs) <= LM_CPU_TOL, (arch, errs)
+        del card, cpu, gcache, wcache, enc
+        torch.cuda.empty_cache()
+
+    # (c) the registered bf16 configs, served through lm_decode.run
+    P, N = LM_SERVED_PROMPT, LM_SERVED_TOKENS
+    for arch in FAMILY_HELD:
+        layers, why = FAMILY_SERVED_CUT.get(arch, (None, ""))
+        cfg = family_config(arch, layers)
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated() / 1e9     # what earlier phases hold
+        params = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg)
+        weight_gb = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        flash = family_flash(cfg)
+        served = []
+        for r in range(2):
+            res, _ = run(f"lm {arch} bf16 run {r} P={P} N={N} B={B}",
+                         lambda: lm_decode.run(cfg, B, P, N, device=device,
+                                               params=params), flash, time_it=r == 1)
+            assert res.tokens.shape == (B, N), res.tokens.shape
+            assert ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
+            served.append(res)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert torch.equal(served[0].tokens, served[1].tokens)
+        cut = (f", cut to {cfg.n_layers} of {family_config(arch).n_layers} "
+               f"layers: {why}" if layers else "")
+        for r, res in zip(("cold", "warm"), served):
+            print(f"lm families (c): lm_decode.run {arch} bf16, {cfg.n_layers} layers"
+                  f"{cut}, B={B}, prompt {P}, {N} tokens ({r}): prefill "
+                  f"{res.prefill_ms!r} ms, decode {res.decode_tok_s!r} tok/s "
+                  f"({res.decode_ms!r} ms for {N - 1} steps)  ({smi})", flush=True)
+        print(f"lm families (c): {arch} weights {weight_gb:.3f} GB bf16, peak device "
+              f"memory {peak_gb:.3f} GB over both runs, {held_gb:.3f} GB of it held "
+              f"before the weights were made  ({smi})", flush=True)
+        out["served"][arch] = {
+            "layers": cfg.n_layers, "cut": why or None, "prompt": P, "tokens": N,
+            "weights_gb": weight_gb, "peak_gb": peak_gb, "held_gb": held_gb,
+            "flash_launches": flash,
+            "runs": [{"prefill_ms": r.prefill_ms, "decode_ms": r.decode_ms,
+                      "decode_tok_s": r.decode_tok_s} for r in served]}
+        del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    lm_paths = [p for p in launches if p.startswith("lm ") and
+                any(p.startswith(f"lm {a} ") for a in FAMILY_HELD)]
+    print("phase 12 launches: " + json.dumps(
+        {p: launches[p]["flash_attention"] for p in lm_paths}))
+    print(f"lm families: phase 12 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out, timed, seen
 
 
 def predictions_card_vs_cpu(torch, models, smi) -> dict:

@@ -1,16 +1,18 @@
 """LM decode: prefill a prompt, then greedy single-token steps from the
-cache. The port of ``repro.launch.lm_decode`` for the dense GQA decoders.
+cache. The port of ``repro.launch.lm_decode``, for every assigned
+architecture.
 
-    python -m repro_torch.launch.lm_decode --arch chatglm3_6b --tokens 16
+    python -m repro_torch.launch.lm_decode --arch mixtral_8x7b --tokens 16
     python -m repro_torch.launch.lm_decode --device cpu      # no card
 
 ``main`` runs the architecture's reduced config, as the reference's does;
-``run`` takes any config (``chip_smoke.py`` runs chatglm3_6b at full width
-on the card). One divergence: with a stub prefix (internvl2), the cache is
-grown past the prefill's whole length (prefix + prompt) and decode steps
-sit at the positions after it; the reference grows only a cache exactly
-the prompt long and steps from the prompt's length, which lands its first
-steps on the prompt's own slots.
+``run`` takes any config (``chip_smoke.py`` runs the registered configs on
+the card). An encoder-decoder config attends over zero frame embeddings as
+long as the prompt, as the reference's demo does. One divergence: with a
+stub prefix (internvl2), the cache is grown past the prefill's whole length
+(prefix + prompt) and decode steps sit at the positions after it; the
+reference grows only a cache exactly the prompt long and steps from the
+prompt's length, which lands its first steps on the prompt's own slots.
 """
 from __future__ import annotations
 
@@ -35,18 +37,26 @@ class DecodeRun:
     decode_tok_s: float               # B * (N - 1) / decode seconds
 
 
+GROWN = ("k", "v", "ckv", "kr")       # the cache leaves decode appends to
+
+
 def grow_cache(cache: T.Params, extra: int) -> T.Params:
-    """The prefill's K/V caches with ``extra`` zero slots appended."""
-    return {k: torch.cat([a, a.new_zeros((*a.shape[:2], extra, *a.shape[3:]))], dim=2)
+    """The prefill's cache with ``extra`` zero slots appended to the
+    self-attention leaves (``GROWN``) along their sequence axis (axis 2);
+    SSM states and the cross-attention's keys and values are kept as
+    they are."""
+    return {k: (torch.cat([a, a.new_zeros((*a.shape[:2], extra, *a.shape[3:]))], dim=2)
+                if k in GROWN else a)
             for k, a in cache.items()}
 
 
 def run(cfg: cb.ArchConfig, batch: int, prompt_len: int, tokens: int, *,
         device="cuda", seed: int = 0, params: Optional[T.Params] = None) -> DecodeRun:
-    """Prefill the prompt ``(arange * 11 + 1) % vocab`` of ``batch`` rows,
-    grow the cache by ``tokens``, decode ``tokens - 1`` greedy steps.
-    ``params`` default to ``init_params`` from a ``seed``-ed generator on
-    ``device``."""
+    """Prefill the prompt ``(arange * 11 + 1) % vocab`` of ``batch`` rows
+    (after a zero prefix for a config with prefix tokens; over zero frame
+    embeddings as long as the prompt for an encoder-decoder), grow the
+    cache by ``tokens``, decode ``tokens - 1`` greedy steps. ``params``
+    default to ``init_params`` from a ``seed``-ed generator on ``device``."""
     device = torch.device(device)
     if params is None:
         params = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg)
@@ -54,6 +64,8 @@ def run(cfg: cb.ArchConfig, batch: int, prompt_len: int, tokens: int, *,
     prompt = (torch.arange(B * P, device=device).reshape(B, P) * 11 + 1) % cfg.vocab
     prefix = (torch.zeros((B, PREFIX_LEN, cfg.d_model), device=device)
               if cfg.prefix_tokens else None)
+    enc = (torch.zeros((B, P, cfg.d_model), device=device)
+           if cfg.kind == "encdec" else None)
 
     def sync():
         if device.type == "cuda":
@@ -61,10 +73,11 @@ def run(cfg: cb.ArchConfig, batch: int, prompt_len: int, tokens: int, *,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = T.prefill(params, cfg, prompt, prefix_embeds=prefix)
+    logits, cache = T.prefill(params, cfg, prompt, prefix_embeds=prefix,
+                              enc_embeds=enc)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    S = cache["k"].shape[2]
+    S = P + (PREFIX_LEN if prefix is not None else 0)
     cache = grow_cache(cache, N)
     tok = torch.argmax(logits, dim=-1)[:, None]
     out = [tok]
@@ -80,7 +93,7 @@ def run(cfg: cb.ArchConfig, batch: int, prompt_len: int, tokens: int, *,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="chatglm3_6b")
+    ap.add_argument("--arch", default="chatglm3_6b", choices=cb.ASSIGNED_ARCHS)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)

@@ -89,7 +89,8 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch):
         with torch.no_grad():
             return T.prefill(params, cfg, batch["tokens"],
-                             prefix_embeds=batch.get("prefix_embeds"))
+                             prefix_embeds=batch.get("prefix_embeds"),
+                             enc_embeds=batch.get("enc_embeds"))
     return prefill_step
 
 

@@ -1,5 +1,5 @@
 """Transformer building blocks in torch: the port of
-``repro.models.components`` for the dense GQA decoder family.
+``repro.models.components``.
 
 Parameters are plain nested dicts of tensors, keyed and laid out as the
 reference keys and lays out its pytrees: activations (B, S, D), weights in
@@ -10,22 +10,31 @@ PRNG, so parity with the reference goes through
 
 ``attention`` is the reference's function, with one dispatch added: on CUDA
 tensors, a prefill call the hand-written flash attention kernel computes
-exactly (causal, positions shared by queries and keys, no window short of
-the keys, no softcap, a head dim the kernel instantiates) and through which
-no gradient is needed runs on the kernel (``_flash_route``); every other
-call runs the torch port of the reference's ``jnp`` code. The kernel has no
+exactly (causal or not, positions shared by queries and keys, no window
+short of the keys, no softcap, a head dim the kernel instantiates) and
+through which no gradient is needed runs on the kernel (``_flash_route``);
+every other call runs the torch port of the reference's ``jnp`` code. The kernel has no
 backward, as the reference's Pallas kernel has no VJP, so training
 attention is the reference's plain code under autograd. A kernel that fails
 to build or launch raises ``KernelError``; nothing falls back.
 
+MLA (``mla_*``, MiniCPM3 / DeepSeek-V2 multi-head latent attention) expands
+the cached latent to per-head K/V in prefill and runs decode in the latent
+space (the absorbed path). Its prefill attention stays on the plain path:
+the kernel needs equal q/k and v head dims.
+
 ``chunked_ce_loss`` is the training loss: each sequence chunk's fp32 logits
 under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
-the full (B, S, vocab) logits never exist. Not ported yet: MLA (``mla_*``,
-only ``MLADims``, which the configs name).
+the full (B, S, vocab) logits never exist.
+
+torch's matmul and einsum refuse mixed float dtypes where ``jnp`` promotes
+them; ``promoted`` casts operands to their common dtype first, as
+``jnp.result_type`` would.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -39,6 +48,13 @@ from repro_torch.kernels.flash_attention.ops import cta_tile
 
 Params = Dict[str, Any]
 FLASH_VARIANT = "fa-128x128"         # the kernel tile the LM prefill runs under
+
+
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common dtype (``jnp.result_type``: bf16
+    with fp32 is fp32); a tensor already of it is returned as is."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -168,21 +184,23 @@ def flash_routed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
                  window: Optional[int], softcap: Optional[float]) -> bool:
     """Whether ``attention`` runs this call on the flash attention kernel:
-    CUDA tensors, a prefill (Sq > 1) over the same positions for queries
-    and keys (one arange in prefill and forward, so the reference's causal
-    mask is the kernel's top-left diagonal), causal, no window shorter than
-    the keys, no softcap, a head dim the kernel instantiates for both K and
-    V, and no gradient needed through q, k or v (the kernel has no
-    backward). Decided from the call's semantics before any launch."""
+    CUDA tensors, a prefill (Sq > 1) self-attention over the same positions
+    for queries and keys (one arange in prefill and forward, so the
+    reference's causal mask is the kernel's top-left diagonal), causal or
+    not (an encoder), no window shorter than the keys, no softcap, a head
+    dim the kernel instantiates for both K and V, and no gradient needed
+    through q, k or v (the kernel has no backward). Cross-attention
+    (``k_pos`` another tensor) and decode stay plain. Decided from the
+    call's semantics before any launch."""
     Sq, hd, Sk, vd = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return (q.is_cuda and Sq > 1 and Sq == Sk and q_pos is k_pos and causal
+    return (q.is_cuda and Sq > 1 and Sq == Sk and q_pos is k_pos
             and (window is None or window >= Sk) and softcap is None
             and hd in HEAD_DIMS and vd == hd and not grad)
 
 
 def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 sc: float) -> torch.Tensor:
+                 sc: float, causal: bool = True) -> torch.Tensor:
     """The reference's prefill attention on the flash attention kernel:
     q scaled in its own dtype then upcast (as the reference does), K/V
     repeated to the query heads (``jnp.repeat``) and upcast, heads folded
@@ -201,7 +219,7 @@ def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qf = (q * sc).float().transpose(1, 2).reshape(B * Hq, Sq, hd).contiguous()
     bq, bkv = cta_tile(FLASH_VARIANT, hd)
-    out = flash_attention(qf, fold(k), fold(v), causal=True, scale=1.0,
+    out = flash_attention(qf, fold(k), fold(v), causal=causal, scale=1.0,
                           bq=bq, bkv=bkv)
     return out.reshape(B, Hq, Sq, hd).transpose(1, 2).to(q.dtype)
 
@@ -227,7 +245,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if flash_routed(q, k, v, q_pos, k_pos, causal=causal, window=window,
                     softcap=softcap):
-        return _flash_route(q, k, v, sc)
+        return _flash_route(q, k, v, sc, causal)
 
     if Sq > 1:
         qf = (q * sc).float()
@@ -315,7 +333,7 @@ def gqa_project(params: Params, x: torch.Tensor, n_heads: int, n_kv: int,
 
 
 # ---------------------------------------------------------------------------
-# MLA dimensions (the layer is a later slice)
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -325,6 +343,76 @@ class MLADims:
     qk_nope: int = 64
     qk_rope: int = 32
     v_head: int = 64
+
+
+def mla_init(gen: torch.Generator, d: int, n_heads: int, dims: MLADims,
+             dtype=torch.bfloat16) -> Params:
+    qk_head = dims.qk_nope + dims.qk_rope
+    return {
+        "wdq": dense_init(gen, d, dims.q_lora, dtype),
+        "q_norm": rmsnorm_init(dims.q_lora, device=gen.device),
+        "wuq": dense_init(gen, dims.q_lora, n_heads * qk_head, dtype),
+        "wdkv": dense_init(gen, d, dims.kv_lora, dtype),
+        "kv_norm": rmsnorm_init(dims.kv_lora, device=gen.device),
+        "wkr": dense_init(gen, d, dims.qk_rope, dtype),
+        "wukv": dense_init(gen, dims.kv_lora, n_heads * (dims.qk_nope + dims.v_head), dtype),
+        "wo": dense_init(gen, n_heads * dims.v_head, d, dtype),
+    }
+
+
+def mla_project(params: Params, x: torch.Tensor, n_heads: int, dims: MLADims,
+                positions: torch.Tensor, rope_theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (q (B, S, H, qk_nope + qk_rope) with its rope dims
+    rotated, c_kv (B, S, kv_lora), k_rope (B, S, qk_rope) rotated): the
+    latent (c_kv, k_rope) is what decode caches."""
+    B, S, _ = x.shape
+    cq = rmsnorm(params["q_norm"], dense(params["wdq"], x))
+    q = dense(params["wuq"], cq).reshape(B, S, n_heads, dims.qk_nope + dims.qk_rope)
+    q_nope, q_rope = q[..., :dims.qk_nope], q[..., dims.qk_nope:]
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, rope_theta)], dim=-1)
+    c_kv = rmsnorm(params["kv_norm"], dense(params["wdkv"], x))
+    k_rope = dense(params["wkr"], x).reshape(B, S, 1, dims.qk_rope)
+    k_rope = apply_rope(k_rope, positions, rope_theta)
+    return q, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_attend(params: Params, q: torch.Tensor, c_kv: torch.Tensor,
+               k_rope: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+               n_heads: int, dims: MLADims, *, causal: bool = True,
+               kv_block: int = 1024) -> torch.Tensor:
+    """q (B, Sq, H, qk); c_kv (B, Sk, kv_lora); k_rope (B, Sk, qk_rope) ->
+    the layer's output (B, Sq, D) after ``wo``.
+
+    Prefill (Sq > 1) expands the latent to per-head K (qk_nope + qk_rope
+    dims) and V (v_head dims) and runs ``attention``. Decode (Sq == 1) is
+    the absorbed path, in fp32: W_uk folded into the query, attention over
+    the latent itself, W_uv applied to its output, cast to q's dtype before
+    ``wo``; the (B, Sk, H, .) expansion never exists."""
+    B, Sk, _ = c_kv.shape
+    Sq = q.shape[1]
+    scale = 1.0 / math.sqrt(dims.qk_nope + dims.qk_rope)
+
+    if Sq == 1:
+        w = params["wukv"]["w"].reshape(-1, n_heads, dims.qk_nope + dims.v_head).float()
+        w_uk, w_uv = w[..., :dims.qk_nope], w[..., dims.qk_nope:]
+        q_nope, q_rope = q[..., :dims.qk_nope].float(), q[..., dims.qk_nope:].float()
+        ckv = c_kv.float()
+        q_lat = torch.einsum("bqhn,chn->bqhc", q_nope, w_uk)
+        logits = (torch.einsum("bqhc,bkc->bhqk", q_lat, ckv)
+                  + torch.einsum("bqhr,bkr->bhqk", q_rope, k_rope.float())) * scale
+        logits = logits + _mask_bias(q_pos, k_pos, causal, None)[None, None]
+        p = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bhqk,bkc->bqhc", p, ckv)
+        out = torch.einsum("bqhc,chv->bqhv", o_lat, w_uv)
+        return dense(params["wo"], out.to(q.dtype).reshape(B, 1, n_heads * dims.v_head))
+
+    kv = dense(params["wukv"], c_kv).reshape(B, Sk, n_heads, dims.qk_nope + dims.v_head)
+    k_nope, v = kv[..., :dims.qk_nope], kv[..., dims.qk_nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, n_heads, dims.qk_rope)],
+                  dim=-1)
+    out = attention(q, k, v, q_pos, k_pos, causal=causal, scale=scale, kv_block=kv_block)
+    return dense(params["wo"], out.reshape(B, Sq, n_heads * dims.v_head))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Model assembly in torch for the dense GQA decoder family: the port of
-``repro.models.transformer`` for llama3, chatglm3, gemma2 (local/global
-alternation, softcaps, post-norms, (1 + scale) RMSNorm, GELU) and internvl2
-(a stubbed vision prefix).
+"""Model assembly in torch: the port of ``repro.models.transformer`` for
+every assigned family. Dense GQA decoders (llama3, chatglm3, gemma2 with
+local/global alternation, softcaps, post-norms, (1 + scale) RMSNorm, GELU,
+and internvl2 with a stubbed vision prefix), MLA (minicpm3), MoE (mixtral,
+qwen3-moe), pure SSM (mamba2), hybrid SSM + shared attention (zamba2) and
+encoder-decoder (whisper: LayerNorm, learned positions, GELU MLPs).
 
 Parameters are the reference's nested dicts, each layer's tensors stacked
-on a leading ``n_layers`` axis as its ``_stack`` does; the decode cache
-keeps its ``(n_layers, B, S, Hkv, hd)`` layout. What differs:
+on a leading ``n_layers`` axis as its ``_stack`` does (the hybrid's SSM
+blocks on (groups, per group), its shared attention block unstacked); the
+decode cache keeps the reference's layouts. What differs:
 
 - A Python loop over layers takes the place of ``lax.scan``; with
   ``cfg.remat`` and grad enabled, ``forward`` runs each layer under
@@ -13,16 +16,22 @@ keeps its ``(n_layers, B, S, Hkv, hd)`` layout. What differs:
   backward keeps one layer's activations at a time.
 - ``ActShard``/``_cst`` (activation sharding constraints) have no meaning
   on one device and are dropped.
-- ``decode_step`` writes the new token's K/V into the cache in place and
+- ``decode_step`` writes the new token's cache entries in place and
   returns the same cache (the reference returns a new one); ``pos`` is a
   Python int. A position past a linear cache's last slot raises (the
   reference's ``dynamic_update_slice`` clamps it onto the last slot).
-- MLA, MoE, SSM, hybrid and encoder-decoder configs raise
-  ``NotImplementedError`` naming the family: later slices.
+- The serving path (``init_params``, ``prefill``, ``init_cache``,
+  ``decode_step``) takes every family; ``forward`` and ``loss_fn`` take the
+  dense GQA decoders only and raise ``NotImplementedError`` naming any
+  other family.
 
-Prefill attention of causal, unwindowed, uncapped layers runs on the
+Prefill self-attention that is unwindowed (or windowed no shorter than the
+sequence) and uncapped, at a head dim the kernel instantiates, runs on the
 hand-written flash attention kernel on the card when no gradient is needed
-(``components.attention``); ``loss_fn`` under autograd runs the plain code.
+(``components.attention``): the dense and MoE decoders' and Whisper's
+causal decoder and non-causal encoder. MLA (qk 96 != v 64) and zamba2's
+shared block (head dim 80) run the plain code, as does every decode step
+and cross-attention; ``loss_fn`` under autograd runs the plain code.
 """
 from __future__ import annotations
 
@@ -34,22 +43,30 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import components as C
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 _BIG_WINDOW = 1 << 30
 
 
-def _dense_gqa_only(cfg: ArchConfig) -> None:
+def _family(cfg: ArchConfig) -> Optional[str]:
+    """The family of a config outside the dense GQA decoders, else None."""
+    return ("encoder-decoder" if cfg.kind == "encdec" else
+            "hybrid SSM + attention" if cfg.hybrid_attn_every else
+            "SSM" if cfg.ssm is not None else
+            "MLA" if cfg.attn_kind == "mla" else
+            "MoE" if cfg.moe is not None else None)
+
+
+def _dense_gqa_only(cfg: ArchConfig, what: str) -> None:
     """Raise for a config outside the dense GQA decoder family."""
-    family = ("encoder-decoder" if cfg.kind == "encdec" else
-              "hybrid SSM + attention" if cfg.hybrid_attn_every else
-              "SSM" if cfg.ssm is not None else
-              "MLA" if cfg.attn_kind == "mla" else
-              "MoE" if cfg.moe is not None else None)
-    if family is not None:
+    fam = _family(cfg)
+    if fam is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {family} family is not ported yet "
-            f"(repro_torch runs the dense GQA decoders)")
+            f"{cfg.name}: {what} of the {fam} family is not ported yet "
+            f"(repro_torch serves every family and trains the dense GQA "
+            f"decoders)")
 
 
 def map_params(fn: Callable, tree):
@@ -59,8 +76,9 @@ def map_params(fn: Callable, tree):
             else fn(tree))
 
 
-def _layer(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+def _layer(layers: Params, *i: int) -> Params:
+    """The parameters at index ``i`` of the stacked axes (one index a
+    layer; two for the hybrid's (group, block)): views into the stack."""
     return map_params(lambda a: a[i], layers)
 
 
@@ -85,6 +103,8 @@ def _norm(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attn_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    if cfg.attn_kind == "mla":
+        return C.mla_init(gen, cfg.d_model, cfg.n_heads, cfg.mla, cfg.param_dtype)
     return C.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                       cfg.param_dtype, qkv_bias=cfg.qkv_bias)
 
@@ -94,12 +114,44 @@ def _dense_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
         "ln_attn": _norm_init(cfg, cfg.d_model, gen.device),
         "attn": _attn_init(gen, cfg),
         "ln_mlp": _norm_init(cfg, cfg.d_model, gen.device),
-        "mlp": C.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = M.moe_init(gen, cfg.d_model, cfg.moe, cfg.param_dtype)
+    else:
+        p["mlp"] = C.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
     if cfg.post_norms:
         p["ln_attn_post"] = _norm_init(cfg, cfg.d_model, gen.device)
         p["ln_mlp_post"] = _norm_init(cfg, cfg.d_model, gen.device)
     return p
+
+
+def _ssm_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return {"ln": _norm_init(cfg, cfg.d_model, gen.device),
+            "ssm": S.ssm_init(gen, cfg.d_model, cfg.ssm, cfg.param_dtype)}
+
+
+def _enc_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return {
+        "ln_attn": _norm_init(cfg, cfg.d_model, gen.device),
+        "attn": C.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.param_dtype),
+        "ln_mlp": _norm_init(cfg, cfg.d_model, gen.device),
+        "mlp": C.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype, gated=False),
+    }
+
+
+def _dec_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Encoder-decoder decoder block: self-attention, cross-attention, MLP."""
+    gqa = lambda: C.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, cfg.param_dtype)
+    return {
+        "ln_self": _norm_init(cfg, cfg.d_model, gen.device),
+        "self_attn": gqa(),
+        "ln_cross": _norm_init(cfg, cfg.d_model, gen.device),
+        "cross_attn": gqa(),
+        "ln_mlp": _norm_init(cfg, cfg.d_model, gen.device),
+        "mlp": C.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype, gated=False),
+    }
 
 
 def _stack(init_fn: Callable[[], Params], n: int) -> Params:
@@ -123,14 +175,28 @@ def _stack(init_fn: Callable[[], Params], n: int) -> Params:
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random parameters drawn from ``gen`` on its device (a CUDA generator
-    for the card), in ``cfg.param_dtype`` (norm scales in fp32, as in the
-    reference)."""
-    _dense_gqa_only(cfg)
+    for the card), in ``cfg.param_dtype`` (norm scales, the MoE router and
+    the SSM's A_log, D and dt_bias in fp32, as in the reference)."""
     params: Params = {"embed": C.embed_init(gen, cfg.vocab, cfg.d_model, cfg.param_dtype),
                       "final_norm": _norm_init(cfg, cfg.d_model, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = C.dense_init(gen, cfg.d_model, cfg.vocab, cfg.param_dtype)
-    params["layers"] = _stack(lambda: _dense_block_init(gen, cfg), cfg.n_layers)
+    if cfg.pos == "learned":
+        params["pos_emb"] = C.embed_init(gen, cfg.max_position, cfg.d_model,
+                                         cfg.param_dtype)
+    if cfg.kind == "encdec":
+        params["enc_layers"] = _stack(lambda: _enc_block_init(gen, cfg), cfg.n_enc_layers)
+        params["enc_final_norm"] = _norm_init(cfg, cfg.d_model, gen.device)
+        params["layers"] = _stack(lambda: _dec_block_init(gen, cfg), cfg.n_layers)
+    elif cfg.hybrid_attn_every:
+        per = cfg.hybrid_attn_every
+        params["layers"] = _stack(lambda: _stack(lambda: _ssm_block_init(gen, cfg), per),
+                                  cfg.n_layers // per)
+        params["shared"] = _dense_block_init(gen, cfg)
+    elif cfg.ssm is not None:
+        params["layers"] = _stack(lambda: _ssm_block_init(gen, cfg), cfg.n_layers)
+    else:
+        params["layers"] = _stack(lambda: _dense_block_init(gen, cfg), cfg.n_layers)
     return params
 
 
@@ -150,26 +216,46 @@ def _layer_window(cfg: ArchConfig, layer: int) -> Optional[int]:
     return cfg.window
 
 
+def _self_attn(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               window: Optional[int], causal: bool = True
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Self-attention over a full sequence -> (output (B, S, D) after
+    ``wo``, what decode caches: GQA's (k, v) (B, S, Hkv, hd) after RoPE,
+    MLA's latent (c_kv, k_rope))."""
+    B, Sq, _ = x.shape
+    if cfg.attn_kind == "mla":
+        q, ckv, kr = C.mla_project(p, x, cfg.n_heads, cfg.mla, positions, cfg.rope_theta)
+        return C.mla_attend(p, q, ckv, kr, positions, positions, cfg.n_heads,
+                            cfg.mla, causal=causal), (ckv, kr)
+    q, k, v = C.gqa_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            positions, cfg.rope_theta, _rot_dim(cfg))
+    o = C.attention(q, k, v, positions, positions, causal=causal, window=window,
+                    softcap=cfg.attn_softcap)
+    return C.dense(p["wo"], o.reshape(B, Sq, cfg.n_heads * cfg.hd)), (k, v)
+
+
+def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP or MoE layer -> (output, aux loss: 0 for an MLP)."""
+    if cfg.moe is not None:
+        return M.moe_apply(p["moe"], x, cfg.moe)
+    return C.mlp(p["mlp"], x, cfg.act), torch.zeros((), dtype=torch.float32,
+                                                     device=x.device)
+
+
 def _dense_block(cfg: ArchConfig, p: Params, h: torch.Tensor,
                  positions: torch.Tensor, window: Optional[int]
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One decoder block over a full sequence -> (h, k, v), k and v the
-    layer's (B, S, Hkv, hd) keys and values after RoPE (prefill caches
-    them)."""
-    B, Sq, _ = h.shape
-    x = _norm(cfg, p["ln_attn"], h)
-    q, k, v = C.gqa_project(p["attn"], x, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                            positions, cfg.rope_theta, _rot_dim(cfg))
-    o = C.attention(q, k, v, positions, positions, causal=True, window=window,
-                    softcap=cfg.attn_softcap)
-    a = C.dense(p["attn"]["wo"], o.reshape(B, Sq, cfg.n_heads * cfg.hd))
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """One decoder block over a full sequence -> (h, the layer's cache
+    entries, aux loss)."""
+    a, kv = _self_attn(cfg, p["attn"], _norm(cfg, p["ln_attn"], h), positions, window)
     if cfg.post_norms:
         a = _norm(cfg, p["ln_attn_post"], a)
     h = h + a
-    m = C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+    m, aux = _ffn(cfg, p, _norm(cfg, p["ln_mlp"], h))
     if cfg.post_norms:
         m = _norm(cfg, p["ln_mlp_post"], m)
-    return h + m, k, v
+    return h + m, kv, aux
 
 
 def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -182,12 +268,15 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tenso
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   prefix_embeds: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, D) input embeddings, a prefix prepended, and their positions
-    0..S-1."""
+    """(B, S, D) input embeddings, a prefix prepended and learned positions
+    0..S-1 added, and those positions."""
     h = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
-    return h, torch.arange(h.shape[1], device=h.device)
+    Sq = h.shape[1]
+    if cfg.pos == "learned":
+        h = h + params["pos_emb"]["emb"][:Sq][None]
+    return h, torch.arange(Sq, device=h.device)
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -210,8 +299,9 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final hidden (B, S, D), aux loss: 0 for dense layers). With
-    ``cfg.remat`` and grad enabled each layer is recomputed in backward."""
-    _dense_gqa_only(cfg)
+    ``cfg.remat`` and grad enabled each layer is recomputed in backward.
+    Dense GQA decoders only."""
+    _dense_gqa_only(cfg, "forward (training)")
     h, positions = _embed_inputs(params, cfg, tokens, prefix_embeds)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
@@ -226,7 +316,8 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S_text), labels (B, S_text) and optionally
     prefix_embeds / label_mask -> (ce + aux, {"ce", "aux"}). The prefix's
-    positions carry no loss; the head is the tied embedding or ``lm_head``."""
+    positions carry no loss; the head is the tied embedding or ``lm_head``.
+    Dense GQA decoders only."""
     prefix = batch.get("prefix_embeds")
     h, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
     if prefix is not None:
@@ -237,22 +328,109 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+def _stacked(cache: Params, name: str, i, a: torch.Tensor, n) -> None:
+    """Write ``a`` at index ``i`` of the cache leaf ``name``, made on first
+    use with the leading stacked axes ``n`` (a tuple)."""
+    if name not in cache:
+        cache[name] = a.new_empty((*n, *a.shape))
+    cache[name][i] = a
+
+
+def _encode(params: Params, cfg: ArchConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over (B, Se, D) frame embeddings: learned positions,
+    non-causal self-attention and GELU MLP blocks, the final norm."""
+    Se = enc_embeds.shape[1]
+    h = enc_embeds.to(cfg.param_dtype)
+    if cfg.pos == "learned":
+        h = h + params["pos_emb"]["emb"][:Se][None]
+    positions = torch.arange(Se, device=h.device)
+    for i in range(cfg.n_enc_layers):
+        p = _layer(params["enc_layers"], i)
+        a, _ = _self_attn(cfg, p["attn"], _norm(cfg, p["ln_attn"], h), positions,
+                          None, causal=False)
+        h = h + a
+        h = h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+    return _norm(cfg, params["enc_final_norm"], h)
+
+
+def _cross_attn(cfg: ArchConfig, p: Params, x: torch.Tensor, q_pos: torch.Tensor,
+                ke: torch.Tensor, ve: torch.Tensor, enc_pos: torch.Tensor,
+                kv_block: int = 1024) -> torch.Tensor:
+    """Cross-attention of x's queries over the encoder's keys and values
+    (no RoPE, not causal) -> (B, Sq, D) after ``wo``."""
+    B, Sq, _ = x.shape
+    q, _, _ = C.gqa_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd, q_pos, 0.0)
+    o = C.attention(q, ke, ve, q_pos, enc_pos, causal=False, kv_block=kv_block)
+    return C.dense(p["wo"], o.reshape(B, Sq, cfg.n_heads * cfg.hd))
+
+
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            prefix_embeds: Optional[torch.Tensor] = None
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Full-context forward pass that also collects the decode cache.
-    Returns (last-position logits (B, vocab) fp32, {"k", "v"} each
-    (n_layers, B, S, Hkv, hd), S the input length with the prefix)."""
-    _dense_gqa_only(cfg)
+    Returns (last-position logits (B, vocab) fp32, cache), the cache's
+    sequence axes as long as the input with the prefix:
+
+    - dense and MoE: {"k", "v"} (n_layers, B, S, Hkv, hd);
+    - MLA: {"ckv" (n_layers, B, S, kv_lora), "kr" (n_layers, B, S, qk_rope)};
+    - SSM: {"ssm" (n_layers, B, H, P, N) fp32, "conv" (n_layers, B,
+      d_conv - 1, conv_dim)};
+    - hybrid: "ssm", "conv" on (groups, per group, ...) and the shared
+      block's {"k", "v"} (groups, B, S, Hkv, hd);
+    - encoder-decoder (``enc_embeds`` (B, Se, D) required): the decoder's
+      {"k", "v"} and the cross-attention's {"ck", "cv"} (n_layers, B, Se,
+      Hkv, hd)."""
     h, positions = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    L = cfg.n_layers
     cache: Params = {}
-    for i in range(cfg.n_layers):
-        h, k, v = _dense_block(cfg, _layer(params["layers"], i), h, positions,
-                               _layer_window(cfg, i))
-        if i == 0:
-            cache = {"k": k.new_empty((cfg.n_layers, *k.shape)),
-                     "v": v.new_empty((cfg.n_layers, *v.shape))}
-        cache["k"][i], cache["v"][i] = k, v
+
+    if cfg.kind == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: prefill needs enc_embeds")
+        enc = _encode(params, cfg, enc_embeds)
+        enc_pos = torch.arange(enc.shape[1], device=h.device)
+        for i in range(L):
+            p = _layer(params["layers"], i)
+            a, (k, v) = _self_attn(cfg, p["self_attn"], _norm(cfg, p["ln_self"], h),
+                                   positions, None)
+            h = h + a
+            _, ke, ve = C.gqa_project(p["cross_attn"], enc, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.hd, enc_pos, 0.0)
+            h = h + _cross_attn(cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], h),
+                                positions, ke, ve, enc_pos)
+            h = h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+            for name, a in zip(("k", "v", "ck", "cv"), (k, v, ke, ve)):
+                _stacked(cache, name, i, a, (L,))
+
+    elif cfg.ssm is not None:
+        # the hybrid's SSM blocks in groups of ``per``, the shared attention
+        # block after each group; a pure SSM stack is one group
+        hybrid = bool(cfg.hybrid_attn_every)
+        per = cfg.hybrid_attn_every or L
+        lead = (L // per, per) if hybrid else (L,)
+        for g in range(L // per):
+            for j in range(per):
+                at = (g, j) if hybrid else (j,)
+                p = _layer(params["layers"], *at)
+                y, st, cs = S.ssm_block(p["ssm"], _norm(cfg, p["ln"], h), cfg.ssm,
+                                        cfg.d_model, return_state=True)
+                h = h + y
+                _stacked(cache, "ssm", at, st, lead)
+                _stacked(cache, "conv", at, cs, lead)
+            if hybrid:
+                h, (k, v), _ = _dense_block(cfg, params["shared"], h, positions,
+                                            cfg.window)
+                _stacked(cache, "k", g, k, lead[:1])
+                _stacked(cache, "v", g, v, lead[:1])
+
+    else:
+        names = ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
+        for i in range(L):
+            h, kv, _ = _dense_block(cfg, _layer(params["layers"], i), h, positions,
+                                    _layer_window(cfg, i))
+            for name, a in zip(names, kv):
+                _stacked(cache, name, i, a, (L,))
     return _logits(params, cfg, h[:, -1:]), cache
 
 
@@ -260,31 +438,71 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # Decode: cache init + single-token step
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, enc_len: int = 0,
                dtype=torch.bfloat16, device="cuda") -> Params:
-    """Zero K/V caches (n_layers, B, S, Hkv, hd). An all-windowed config
-    decodes from a window-long ring; alternating local/global configs keep
-    the full length for their global layers."""
-    _dense_gqa_only(cfg)
+    """Zero caches in ``prefill``'s layouts, ``max_len`` slots long
+    (``enc_len`` for the cross-attention's), the SSM states in fp32. An
+    all-windowed config (and the hybrid's shared block) decodes from a
+    window-long ring; alternating local/global configs keep the full length
+    for their global layers."""
+    B, L = batch_size, cfg.n_layers
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if cfg.kind == "encdec":
+        kv = (L, B, max_len, cfg.n_kv_heads, cfg.hd)
+        ckv = (L, B, enc_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": z(*kv), "v": z(*kv), "ck": z(*ckv), "cv": z(*ckv)}
+    if cfg.ssm is not None:
+        ssm = cfg.ssm
+        H = ssm.n_heads(cfg.d_model)
+        conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.n_groups * ssm.d_state
+        lead = ((L // cfg.hybrid_attn_every, cfg.hybrid_attn_every)
+                if cfg.hybrid_attn_every else (L,))
+        cache = {"ssm": z(*lead, B, H, ssm.headdim, ssm.d_state, dt=torch.float32),
+                 "conv": z(*lead, B, ssm.d_conv - 1, conv_dim)}
+        if cfg.hybrid_attn_every:
+            kv_len = min(max_len, cfg.window) if cfg.window else max_len
+            kv = (lead[0], B, kv_len, cfg.n_kv_heads, cfg.hd)
+            cache.update(k=z(*kv), v=z(*kv))
+        return cache
+    if cfg.attn_kind == "mla":
+        return {"ckv": z(L, B, max_len, cfg.mla.kv_lora),
+                "kr": z(L, B, max_len, cfg.mla.qk_rope)}
     if cfg.window is not None and cfg.layer_pattern == "global":
         kv_len = min(max_len, cfg.window)
     else:
         kv_len = max_len
-    shape = (cfg.n_layers, batch_size, kv_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    kv = (L, B, kv_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": z(*kv), "v": z(*kv)}
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
                 tokens: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Params]:
     """One-token decode. tokens: (B, 1); pos: the current length. Returns
     (logits (B, vocab) fp32, the cache, updated in place)."""
-    _dense_gqa_only(cfg)
     pos = int(pos)
     h = _embed(params, cfg, tokens)
+    if cfg.pos == "learned":
+        h = h + params["pos_emb"]["emb"][pos][None, None]
     q_pos = torch.tensor([pos], device=h.device)
-    h = _decode_step_dense(params, cfg, cache, h, q_pos, pos)
+    if cfg.kind == "encdec":
+        h = _decode_step_encdec(params, cfg, cache, h, q_pos, pos)
+    elif cfg.hybrid_attn_every:
+        h = _decode_step_hybrid(params, cfg, cache, h, q_pos, pos)
+    elif cfg.ssm is not None:
+        h = _decode_step_ssm(params, cfg, cache, h)
+    else:
+        h = _decode_step_dense(params, cfg, cache, h, q_pos, pos)
     return _logits(params, cfg, h), cache
+
+
+def _slot(cfg: ArchConfig, S: int, pos: int) -> Tuple[int, bool]:
+    """(the cache slot of position ``pos``, whether the cache is a ring):
+    a ring when the cache is exactly the sliding window, else linear slots,
+    a position past the last one refused."""
+    ring = cfg.window is not None and S == cfg.window
+    if not ring and pos >= S:
+        raise ValueError(f"decode position {pos} is past the cache's {S} slots")
+    return (pos % S if ring else pos), ring
 
 
 def _cached_attn(cfg: ArchConfig, p: Params, h: torch.Tensor, ck: torch.Tensor,
@@ -296,11 +514,7 @@ def _cached_attn(cfg: ArchConfig, p: Params, h: torch.Tensor, ck: torch.Tensor,
     q, k, v = C.gqa_project(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, q_pos,
                             cfg.rope_theta, _rot_dim(cfg))
     S = ck.shape[1]
-    # a ring when the cache is exactly the sliding window; else linear slots
-    ring = cfg.window is not None and S == cfg.window
-    if not ring and pos >= S:
-        raise ValueError(f"decode position {pos} is past the cache's {S} slots")
-    slot = pos % S if ring else pos
+    slot, ring = _slot(cfg, S, pos)
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
     idx = torch.arange(S, device=h.device)
@@ -317,18 +531,79 @@ def _cached_attn(cfg: ArchConfig, p: Params, h: torch.Tensor, ck: torch.Tensor,
     return C.dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd))
 
 
+def _cached_mla(cfg: ArchConfig, p: Params, h: torch.Tensor, ckv: torch.Tensor,
+                kr: torch.Tensor, q_pos: torch.Tensor, pos: int) -> torch.Tensor:
+    """Project one token, write its latent into the layer's cache (in
+    place), attend over the cache by the absorbed path."""
+    q, new_ckv, new_kr = C.mla_project(p, h, cfg.n_heads, cfg.mla, q_pos, cfg.rope_theta)
+    S = ckv.shape[1]
+    slot, _ = _slot(cfg, S, pos)
+    ckv[:, slot] = new_ckv[:, 0].to(ckv.dtype)
+    kr[:, slot] = new_kr[:, 0].to(kr.dtype)
+    return C.mla_attend(p, q, ckv, kr, q_pos, torch.arange(S, device=h.device),
+                        cfg.n_heads, cfg.mla, kv_block=2048)
+
+
 def _decode_step_dense(params: Params, cfg: ArchConfig, cache: Params,
                        h: torch.Tensor, q_pos: torch.Tensor, pos: int) -> torch.Tensor:
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
-        a = _cached_attn(cfg, p["attn"], _norm(cfg, p["ln_attn"], h),
-                         cache["k"][i], cache["v"][i], q_pos, pos,
-                         _layer_window(cfg, i))
+        x = _norm(cfg, p["ln_attn"], h)
+        if cfg.attn_kind == "mla":
+            a = _cached_mla(cfg, p["attn"], x, cache["ckv"][i], cache["kr"][i], q_pos, pos)
+        else:
+            a = _cached_attn(cfg, p["attn"], x, cache["k"][i], cache["v"][i], q_pos,
+                             pos, _layer_window(cfg, i))
         if cfg.post_norms:
             a = _norm(cfg, p["ln_attn_post"], a)
         h = h + a
-        m = C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+        m, _ = _ffn(cfg, p, _norm(cfg, p["ln_mlp"], h))
         if cfg.post_norms:
             m = _norm(cfg, p["ln_mlp_post"], m)
         h = h + m
+    return h
+
+
+def _ssm_step(cfg: ArchConfig, p: Params, h: torch.Tensor, st: torch.Tensor,
+              cs: torch.Tensor) -> torch.Tensor:
+    """One SSM block's decode step, its states written back in place."""
+    y, new_st, new_cs = S.ssm_decode_step(p["ssm"], _norm(cfg, p["ln"], h), cfg.ssm,
+                                          cfg.d_model, st, cs)
+    st.copy_(new_st)
+    cs.copy_(new_cs)
+    return h + y
+
+
+def _decode_step_ssm(params: Params, cfg: ArchConfig, cache: Params,
+                     h: torch.Tensor) -> torch.Tensor:
+    for i in range(cfg.n_layers):
+        h = _ssm_step(cfg, _layer(params["layers"], i), h, cache["ssm"][i],
+                      cache["conv"][i])
+    return h
+
+
+def _decode_step_hybrid(params: Params, cfg: ArchConfig, cache: Params,
+                        h: torch.Tensor, q_pos: torch.Tensor, pos: int) -> torch.Tensor:
+    shared = params["shared"]
+    per = cfg.hybrid_attn_every
+    for g in range(cfg.n_layers // per):
+        for j in range(per):
+            h = _ssm_step(cfg, _layer(params["layers"], g, j), h, cache["ssm"][g, j],
+                          cache["conv"][g, j])
+        h = h + _cached_attn(cfg, shared["attn"], _norm(cfg, shared["ln_attn"], h),
+                             cache["k"][g], cache["v"][g], q_pos, pos, cfg.window)
+        h = h + C.mlp(shared["mlp"], _norm(cfg, shared["ln_mlp"], h), cfg.act)
+    return h
+
+
+def _decode_step_encdec(params: Params, cfg: ArchConfig, cache: Params,
+                        h: torch.Tensor, q_pos: torch.Tensor, pos: int) -> torch.Tensor:
+    enc_pos = torch.arange(cache["ck"].shape[2], device=h.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        h = h + _cached_attn(cfg, p["self_attn"], _norm(cfg, p["ln_self"], h),
+                             cache["k"][i], cache["v"][i], q_pos, pos, None)
+        h = h + _cross_attn(cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], h), q_pos,
+                            cache["ck"][i], cache["cv"][i], enc_pos, kv_block=2048)
+        h = h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
     return h

@@ -12,7 +12,9 @@ as a pageable copy, unpinned at stop and pinned again by the next front end,
 a kernel error failing a slab batch's tickets and recycling its slab);
 the LM decode path on the card (``-k lm``: prefill attention on the flash
 kernel, one launch a layer, against the port on the CPU; a failing kernel
-raising out of ``prefill``; ``lm_decode.run`` on the card by default).
+raising out of ``prefill``; ``lm_decode.run`` on the card by default; ``-k
+families``: the MLA, MoE, SSM, hybrid and encoder-decoder families' prefill
+and decode against the CPU, with their flash launches).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -1210,6 +1212,64 @@ def test_gpu_lm_decode_run_defaults_to_the_card(cuda):
     r = lm_decode.run(cfg, 2, 16, 4, params=card)
     assert r.tokens.is_cuda and r.tokens.shape == (2, 4)
     assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The LM families' serving path on the card
+# ---------------------------------------------------------------------------
+
+# each family's reduced config at its registered head dim, cut to 2 layers
+# (zamba2: 2 groups); flash attention launches a prefill: one a routed
+# self-attention layer (MoE at head dim 128; Whisper's 2 encoder and 2
+# decoder layers at 64), none for MLA, SSM and zamba2's head dim 80
+FAMILY_FLASH = {"minicpm3_4b": 0, "mixtral_8x7b": 2, "qwen3_moe_30b_a3b": 2,
+                "mamba2_2_7b": 0, "zamba2_2_7b": 0, "whisper_medium": 4}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_FLASH))
+def test_gpu_lm_families_card_matches_cpu(arch, cuda):
+    """Prefill 16 tokens (Whisper over 16 frames) on the card with its
+    flash launches, then two decode steps launching nothing: logits and
+    every cache leaf within 1e-4 of the port on the CPU, and for MoE the
+    same expert choices."""
+    import dataclasses
+    from repro_torch.configs import base as cb
+    from repro_torch.launch.lm_decode import grow_cache
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    full = cb.get(arch)
+    red = full.reduced()
+    cfg = dataclasses.replace(red, n_layers=2 * (red.hybrid_attn_every or 1),
+                              head_dim=full.head_dim or red.head_dim)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg)
+    card = T.map_params(lambda a: a.to("cuda"), cpu)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 18)))
+    enc = (torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(1))
+           if cfg.kind == "encdec" else None)
+    card_enc = None if enc is None else enc.cuda()
+    before = common.LAUNCHES["flash_attention"]
+    got, cache = T.prefill(card, cfg, tokens[:, :16].cuda(), enc_embeds=card_enc)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + FAMILY_FLASH[arch]
+    want, wcache = T.prefill(cpu, cfg, tokens[:, :16], enc_embeds=enc)
+    torch.testing.assert_close(got.cpu(), want, **GEMM_TOL)
+    assert sorted(cache) == sorted(wcache)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), wcache[name], **GEMM_TOL)
+    cache, wcache = grow_cache(cache, 2), grow_cache(wcache, 2)
+    for i in (16, 17):
+        got, cache = T.decode_step(card, cfg, cache, tokens[:, i:i + 1].cuda(), i)
+        want, wcache = T.decode_step(cpu, cfg, wcache, tokens[:, i:i + 1], i)
+        torch.testing.assert_close(got.cpu(), want, **GEMM_TOL)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + FAMILY_FLASH[arch]
+    if cfg.moe is not None:
+        x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(2))
+        layer = T.map_params(lambda a: a[0], card["layers"])["moe"]
+        idx = M._route(layer, x.cuda(), cfg.moe)[0]
+        want_idx = M._route(T.map_params(lambda a: a[0], cpu["layers"])["moe"], x,
+                            cfg.moe)[0]
+        assert torch.equal(idx.cpu(), want_idx)
 
 
 # ---------------------------------------------------------------------------
