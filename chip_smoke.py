@@ -186,6 +186,34 @@ decoders and every other LM family. Phases, each of which asserts:
    held to its plain version with phases 10 and 11's, and each prefill
    pass of (a) and (c)'s warm runs is timed beside its bound, plain
    version and SDPA.
+13. The training path of the other LM families (``models.transformer.
+   {forward,loss_fn}`` under autograd, ``models.{moe,ssm,components}``,
+   ``launch.{steps,train}``), the six configs of phase 12 at full width,
+   data from ``data.lm.make_batch`` with seed 0, weights from a seeded
+   generator on the card: (a) each cut to one unit (a layer; zamba2 a group
+   of 6 SSM blocks and the shared block; whisper an encoder and a decoder
+   layer) in fp32 (TF32 off), B=1, S=256, MoE at the registered capacity
+   1.25: the card against the CPU port, the loss within 1e-3, each
+   gradient leaf within 1e-4 of its own max |g|, each parameter's step in
+   one AdamW update from the CPU's gradients within 1e-2 lr, every leaf
+   nonzero on the CPU nonzero on the card (the router, the SSM's A_log, D
+   and dt_bias, MLA's latent projections, the shared block), for MoE the
+   aux loss and 0 tokens whose top-k expert sets differ; (b)
+   ``train.train_loop`` in bf16 with remat, B=2, S=4,096, at the depths of
+   ``FAMILY_TRAIN_CUT`` (full width always), five AdamW steps a family and
+   ten for MoE: every loss finite, step 1 near ln(vocab), step 5 below step
+   1; for MoE the loss split into its language part and its aux loss each
+   step and the language loss falling below step 1's within the ten (the
+   total need not fall: AdamW's first steps move every router weight by
+   ~lr, at full width the routing collapses and the aux loss climbs, and
+   mixtral's loss spikes at steps 2-5); step ms (host clock to a device sync), tokens/s, model
+   TFLOP/s (6 N T, N the cut's active parameters) beside the bf16 peak,
+   peak memory, and one profiled step's device busy share and top device
+   ops; (c) the CLI
+   ``python -m repro_torch.launch.train`` on the reduced mixtral_8x7b and
+   mamba2_2_7b, device defaulting to cuda: 4 steps, then 6 resuming from
+   step 4, steps 5 and 6 within 1e-5 of an uninterrupted run. No path
+   launches a kernel (the flash kernel has no backward).
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -340,6 +368,29 @@ FAMILY_SERVED_CUT = {                      # (c): depth cuts of the bf16 runs
     "mixtral_8x7b": (16, "its 32 layers' 93.1 GB of bf16 weights do not fit "
                          "one 80 GB card"),
 }
+# Phase 13: the LM families' training path at full width. (b): train_loop,
+# bf16, remat, AdamW, B=TRAIN_BATCH at S=TRAIN_SEQ (train_4k's length, its
+# global batch of 256 cut to 2). Units trained (layers; zamba2 groups of 6;
+# whisper encoder and decoder layers each; None: full depth) and why. AdamW
+# keeps bf16 weights and gradients and fp32 m and v (12 bytes a parameter);
+# its update builds the new weights, m and v beside the old ones and makes
+# fp32 temporaries of each stacked leaf, so a step peaks near 2 x (weights,
+# m, v) + gradients + 16 bytes an element of the largest leaf.
+FAMILY_TRAIN_CUT = {
+    "minicpm3_4b": (32, "full depth is 41 GB of weights and moments, ~106 GB at "
+                        "the update"),
+    "mixtral_8x7b": (1, "2 layers (~82 GB at the update) ran out of memory"),
+    "qwen3_moe_30b_a3b": (3, "4 layers (~75 GB at the update) ran out of memory"),
+    "mamba2_2_7b": (48, "64 and 56 layers (~87, ~77 GB at the update: the 1.7 and "
+                        "1.5 B-element stacked in_proj) ran out of memory"),
+    "zamba2_2_7b": (6, "9 and 8 groups (~75, ~67 GB at the update) ran out of "
+                       "memory; 7 ran out after the earlier phases, 28 GB of the "
+                       "allocator's cache fragmented"),
+    "whisper_medium": (None, ""),
+}
+FAMILY_TRAIN_STEPS = 5                    # (b): AdamW steps a family; MoE takes
+                                          # TRAIN_STEPS (mixtral spikes at steps 2-5)
+FAMILY_TRAIN_CLI = ("mixtral_8x7b", "mamba2_2_7b")   # (c): the CLI resumed
 
 
 def main() -> int:
@@ -482,6 +533,9 @@ def main() -> int:
     families, family_passes, family_seen = families_phase(
         torch, launches, args.seed, smi)
     lm_passes.update(family_passes)
+
+    # -- phase 13: the LM families' training path on the card --------------
+    families_train = families_train_phase(torch, launches, args.seed, smi)
     lm_seen = set().union(family_seen, *(set(c) for c in lm_passes.values()))
     lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
                                args.reps)
@@ -548,6 +602,7 @@ def main() -> int:
     print("lm: " + json.dumps(lm))
     print("train: " + json.dumps(training))
     print("families: " + json.dumps(families))
+    print("families_train: " + json.dumps(families_train))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1377,8 +1432,8 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     sm = drill.stats("edge_cnn_mix")
     # the corrupt output failed validation and the retry served the batch
     assert ("edge_cnn_mix", 0, 0, "corrupt") in inj.injected
-    assert sm["retries"] == 1 and not sm["failures"]
-    assert sm["fallback_images"] == 0 and sm["images"] == 8
+    assert sm["retries"] == 1 and not sm["failures"], (sm, drill._pool.restarts)
+    assert sm["fallback_images"] == 0 and sm["images"] == 8, sm
     hang = images(rng, mix.spec, 8)
     t0 = time.perf_counter()
     hung = [drill.submit("edge_cnn_mix", x) for x in hang]
@@ -2301,11 +2356,12 @@ def family_flash(cfg) -> int:
 
 
 class RouteRecorder:
-    """Records the expert ids of every MoE routing (``moe._route``) while
-    entered, in call order, to compare routings and count drops."""
+    """Records the expert ids (``calls``) and the aux loss (``aux``, detached)
+    of every MoE routing (``moe._route``) while entered, in call order, to
+    compare routings and count drops."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.aux = [], []
 
     def __enter__(self):
         from repro_torch.models import moe as M
@@ -2314,6 +2370,7 @@ class RouteRecorder:
         def recorded(params, x, cfg):
             out = route(params, x, cfg)
             self.calls.append(out[0])
+            self.aux.append(out[2].detach())
             return out
         M._route = recorded
         return self
@@ -2532,6 +2589,272 @@ def families_phase(torch, launches, seed, smi, device="cuda"):
         {p: launches[p]["flash_attention"] for p in lm_paths}))
     print(f"lm families: phase 12 took {out['seconds']:.1f} s  ({smi})", flush=True)
     return out, timed, seen
+
+
+# ---------------------------------------------------------------------------
+# The LM families' training path on the card (phase 13)
+# ---------------------------------------------------------------------------
+
+def family_grad_check(torch, arch, seed, run, device="cuda") -> dict:
+    """Phase 13 (a) for one family: ``arch`` at full width cut to one unit
+    (``family_config(arch, 1)``: a layer, zamba2 a group, whisper an encoder
+    and a decoder layer) in fp32 at its registered MoE capacity;
+    ``steps.value_and_grad`` of one ``make_batch`` batch (seed 0, B=1,
+    S=256) on the card, through ``run(path, fn)`` (which holds the launch
+    counters), and on the CPU port. Returns the loss's |card - CPU|, the
+    gradients' (``train_grad_err``), one AdamW (``optimizer_for``) step
+    from the CPU's gradients on both sides in units of lr
+    (``train_step_err``), the leaves nonzero on the CPU and zero on the
+    card, and for MoE the aux loss and the tokens whose top-k expert sets
+    differ. Asserts nothing; the caller holds the numbers."""
+    from repro_torch.data.lm import make_batch
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_map, tree_named_leaves
+
+    cut = family_config(arch, 1, torch.float32)
+    card = T.init_params(torch.Generator(device=device).manual_seed(seed), cut)
+    cpu = T.map_params(lambda a: a.to("cpu"), card)
+    B, S = TRAIN_CUT_BATCH, TRAIN_CUT_SEQ
+    batch = make_batch(cut, B, S, 1, seed=0, device=device)
+    hbatch = make_batch(cut, B, S, 1, seed=0, device="cpu")
+    with RouteRecorder() as card_routes:
+        loss, grads = run(f"train {arch} 1 unit fp32 grads B={B} S={S}",
+                          lambda: ST.value_and_grad(card, cut, batch))
+    with RouteRecorder() as cpu_routes:
+        hloss, hgrads = ST.value_and_grad(cpu, cut, hbatch)
+    g, h = dict(tree_named_leaves(grads)), dict(tree_named_leaves(hgrads))
+    nonzero = {k: bool((a != 0).any()) for k, a in h.items()}
+    out = {"layers": cut.n_layers, "enc_layers": cut.n_enc_layers, "batch": B,
+           "seq": S, "loss": float(loss),
+           "loss_abs_err": abs(float(loss) - float(hloss)),
+           "grad_rel_err": train_grad_err(grads, hgrads), "leaves": len(h),
+           "nonzero_leaves": sum(nonzero.values()),
+           "lost_on_card": sorted(k for k in h if nonzero[k]
+                                  and not bool((g[k] != 0).any()))}
+    del grads, g
+    if cut.moe is not None:
+        # remat re-runs each layer's routing in backward: the first
+        # n_layers calls are the forward's
+        assert len(card_routes.calls) == len(cpu_routes.calls)
+        out["aux"] = float(sum(card_routes.aux[:cut.n_layers]))
+        out["cpu_aux"] = float(sum(cpu_routes.aux[:cut.n_layers]))
+        out["capacity"] = cut.moe.capacity_factor
+        out["topk_sets_differ"] = {
+            "tokens": sum(int((torch.sort(a, -1).values.cpu()
+                               != torch.sort(b, -1).values).any(-1).sum())
+                          for a, b in zip(card_routes.calls, cpu_routes.calls)),
+            "of": sum(a.shape[0] * a.shape[1] for a in card_routes.calls)}
+    _, opt = ST.optimizer_for(cut)
+    shared = tree_map(lambda a: a.to(device), hgrads)
+    want, _ = opt.update(cpu, hgrads, opt.init(cpu))
+    got, _ = opt.update(card, shared, opt.init(card))
+    out["step_err_over_lr"] = train_step_err(card, got, cpu, want, ST.DEFAULT_LR)
+    return out
+
+
+def families_train_phase(torch, launches, seed, smi, device="cuda") -> dict:
+    """Phase 13, the training path of the MLA, MoE, SSM, hybrid and
+    encoder-decoder families (see the module docstring, (a) to (c)). Launch
+    counters are zeroed before each path and read after it: no path
+    launches a kernel (the flash kernel has no backward)."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import base as cb
+    from repro_torch.data.lm import make_batch
+    from repro_torch.kernels import common
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    out = {"card": smi, "unit_card_vs_cpu": {}, "trained": {}, "cli_resume": {}}
+
+    def run(path, fn):
+        """fn() with the counters zeroed before and read after: none may
+        launch."""
+        common.reset_launches()
+        torch.cuda.synchronize()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[path] = dict(common.LAUNCHES)
+        assert not any(launches[path].values()), (path, launches[path])
+        return result
+
+    # (a) one unit at full width, fp32: the card against the CPU port
+    for arch in FAMILY_HELD:
+        r = family_grad_check(torch, arch, seed, run, device)
+        moe = ""
+        if "aux" in r:
+            d = r["topk_sets_differ"]
+            moe = (f"; aux loss {r['aux']!r} (CPU {r['cpu_aux']!r}) at capacity "
+                   f"{r['capacity']}; top-k expert sets differ for {d['tokens']} of "
+                   f"{d['of']} routed tokens")
+        print(f"families train (a): {arch} cut to 1 unit ({r['layers']} layers"
+              f"{' + ' + str(r['enc_layers']) + ' encoder' if r['enc_layers'] else ''}), "
+              f"fp32, B={r['batch']}, S={r['seq']}: loss {r['loss']:.6f}; card "
+              f"against the CPU port: loss |err| {r['loss_abs_err']:.3g} (tolerance "
+              f"{TRAIN_CPU_TOL}), gradients max |err| / the leaf's max |g| "
+              f"{r['grad_rel_err']:.3g} (tolerance {TRAIN_GRAD_RTOL}), AdamW step "
+              f"from the CPU's gradients max |err| / lr {r['step_err_over_lr']:.3g} "
+              f"(tolerance {TRAIN_STEP_TOL}); {r['nonzero_leaves']} of {r['leaves']} "
+              f"gradient leaves nonzero on the CPU, {len(r['lost_on_card'])} of them "
+              f"zero on the card{moe}; no kernel launched", flush=True)
+        assert r["loss_abs_err"] <= TRAIN_CPU_TOL, (arch, r)
+        assert r["grad_rel_err"] <= TRAIN_GRAD_RTOL, (arch, r)
+        assert r["step_err_over_lr"] <= TRAIN_STEP_TOL, (arch, r)
+        assert not r["lost_on_card"], (arch, r["lost_on_card"])
+        assert r.get("topk_sets_differ", {"tokens": 0})["tokens"] == 0, (arch, r)
+        out["unit_card_vs_cpu"][arch] = r
+        torch.cuda.empty_cache()
+
+    # (b) train_loop at full width, bf16, remat, at FAMILY_TRAIN_CUT's depths
+    from torch.profiler import ProfilerActivity, profile
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    for arch, (units, why) in FAMILY_TRAIN_CUT.items():
+        cfg = family_config(arch, units)
+        n_steps = FAMILY_TRAIN_STEPS if cfg.moe is None else TRAIN_STEPS
+        full = family_config(arch)
+        assert cfg.remat and cfg.param_dtype == torch.bfloat16
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        lines = []
+        path = f"train {arch} {cfg.n_layers} layers bf16 {n_steps} steps B={B} S={S}"
+        with RouteRecorder() as routes:
+            res = run(path, lambda: TR.train_loop(cfg, B, S, n_steps, ckpt_dir=None,
+                                                  device=device, seed=seed,
+                                                  log=lines.append))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses, step_ms = res.losses, res.step_ms
+        aux = None
+        if cfg.moe is not None:
+            # a step routes each layer twice (its forward, then remat's
+            # recompute in backward); the first n_layers calls are the forward's
+            per = len(routes.aux) // n_steps
+            aux = [float(sum(routes.aux[k * per:k * per + cfg.n_layers]))
+                   for k in range(n_steps)]
+        del routes
+        ln_v = math.log(cfg.vocab)
+        med_s = float(np.median(step_ms)) / 1e3
+        tokens = B * S
+        n = cfg.n_active_params()
+        n_tree = sum(a.numel() for a in tree_leaves(res.params))
+        model_tflops = 6 * n * tokens / med_s / 1e12
+        # one more step under the profiler: device busy share, top device ops
+        step_fn = ST.make_train_step(cfg, ST.optimizer_for(cfg)[1])
+        b = make_batch(cfg, B, S, n_steps + 1, seed=0, device=device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p2, s2, _ = run(f"{path} profiled step",
+                            lambda: step_fn(res.params, res.opt_state, b))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        del p2, s2, res, b
+        busy_ms, top, _ = profile_summary(prof)
+        del prof
+        cut = (f"{cfg.n_layers} of {full.n_layers} layers"
+               + (f" + {cfg.n_enc_layers} of {full.n_enc_layers} encoder layers"
+                  if cfg.kind == "encdec" else "") + (f" ({why})" if why else ""))
+        moe = (f", MoE at capacity {cfg.moe.capacity_factor} (the experts run "
+               f"{cfg.moe.capacity_factor}x the routed slots)" if cfg.moe else "")
+        split = ("" if aux is None else
+                 f" = ce {[round(x - a, 4) for x, a in zip(losses, aux)]} + aux "
+                 f"{[round(a, 4) for a in aux]}")
+        for line in lines:
+            print(f"  {line}")
+        print(f"families train (b): {arch} at full width, {cut}, bf16, remat, AdamW"
+              f"{moe}, B={B}, S={S}: losses {[round(x, 4) for x in losses]}{split} (ln vocab "
+              f"{ln_v:.4f}); step ms median {med_s * 1e3!r}, all "
+              f"{[round(x, 1) for x in step_ms]}; {tokens / med_s!r} tokens/s; model "
+              f"{model_tflops!r} TFLOP/s (6 N T, N {n} {'active ' if cfg.moe else ''}"
+              f"parameters by the config's formula, {n_tree} in the tree) against the "
+              f"dense bf16 peak {BF16_FLOPS / 1e12:g}; peak memory {peak_gb!r} GB "
+              f"({held_gb:.3f} GB of it held before); no kernel launched  ({smi})",
+              flush=True)
+        if busy_ms is None:
+            print(f"  one profiled step: wall {wall_ms!r} ms, device busy not measured "
+                  f"(no device events recorded)")
+        else:
+            print(f"  one profiled step: wall {wall_ms!r} ms, device busy {busy_ms!r} "
+                  f"ms, busy share {busy_ms / wall_ms!r}")
+            for op, ms in top:
+                print(f"    device {ms:.4f} ms  {op}")
+        assert len(losses) == n_steps and all(math.isfinite(x) for x in losses), losses
+        assert abs(losses[0] - ln_v) <= TRAIN_FIRST_LOSS_SLACK, (arch, losses[0], ln_v)
+        if aux is None:
+            assert losses[-1] < losses[0], (arch, losses)
+        else:
+            # AdamW's first steps at the constant lr move every router weight
+            # by ~lr: at full width the routing collapses, the aux loss
+            # climbs and the total need not fall; the language loss must
+            # fall below its start within the run
+            ce = [x - a for x, a in zip(losses, aux)]
+            assert min(ce[1:]) < ce[0], (arch, ce)
+        out["trained"][arch] = {
+            "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers, "cut": why or None,
+            "batch": B, "seq": S, "steps": n_steps, "n_params": n, "n_tree": n_tree,
+            "losses": losses, "aux": aux, "step_ms": step_ms,
+            "step_ms_median": med_s * 1e3,
+            "tokens_s": tokens / med_s, "model_tflops": model_tflops,
+            "peak_bf16_tflops": BF16_FLOPS / 1e12, "peak_gb": peak_gb,
+            "held_gb": held_gb, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+            "top_device_ops": top}
+        torch.cuda.empty_cache()
+
+    # (c) the CLI on the card (device by default), reduced configs: 4 steps,
+    # then 6 resuming from 4, against an uninterrupted 6-step run; the two
+    # archs' subprocesses run side by side
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+
+    def cli(arch, ckpt_dir, n, every):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--steps", str(n), "--ckpt-every", str(every), "--ckpt-dir", ckpt_dir],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def done(procs):
+        outs = []
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0, stderr[-4000:]
+            outs.append(stdout)
+        return outs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as td:
+        first = done([cli(a, f"{td}/{a}/a", 4, 2) for a in FAMILY_TRAIN_CLI])
+        resumed = done([cli(a, f"{td}/{a}/a", 6, 1) for a in FAMILY_TRAIN_CLI])
+        for arch, f, r in zip(FAMILY_TRAIN_CLI, first, resumed):
+            assert "[train] resumed from step 4" in r, r
+            with contextlib.redirect_stdout(io.StringIO()):
+                run(f"train (c) {arch} reduced, uninterrupted 6 steps",
+                    lambda: TR.main(["--arch", arch, "--steps", "6", "--ckpt-every", "1",
+                                     "--ckpt-dir", f"{td}/{arch}/b"]))
+            name = cb.get(arch).reduced().name
+            loss = {d: {s: CheckpointManager(f"{td}/{arch}/{d}/{name}").manifest(s)
+                        ["extra"]["loss"] for s in (5, 6)} for d in ("a", "b")}
+            err = max(abs(loss["a"][s] - loss["b"][s]) for s in (5, 6))
+            print(f"families train (c): python -m repro_torch.launch.train --arch {arch} "
+                  f"(reduced, cuda by default): 4 steps, then resumed from step 4 to 6; "
+                  f"steps 5, 6 losses {[loss['a'][s] for s in (5, 6)]} against an "
+                  f"uninterrupted run's {[loss['b'][s] for s in (5, 6)]}, max |diff| "
+                  f"{err:.3g} (tolerance {TRAIN_RESUME_TOL})", flush=True)
+            print("  " + "\n  ".join((f + r).strip().splitlines()))
+            assert err <= TRAIN_RESUME_TOL, (arch, err)
+            out["cli_resume"][arch] = {"losses_resumed": loss["a"],
+                                       "losses_whole": loss["b"], "max_abs_err": err,
+                                       "tol": TRAIN_RESUME_TOL}
+
+    out["seconds"] = time.perf_counter() - t_phase
+    paths = [p for p in launches if p.startswith("train ") and
+             any(p.startswith(f"train {a} ") or p.startswith(f"train (c) {a} ")
+                 for a in FAMILY_HELD)]
+    print("phase 13 launches: " + json.dumps({p: sum(launches[p].values()) for p in paths}))
+    print(f"families train: phase 13 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out
 
 
 def predictions_card_vs_cpu(torch, models, smi) -> dict:

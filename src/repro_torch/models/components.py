@@ -121,7 +121,9 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["emb"][tokens]
+    """Rows of the table (``emb[tokens]``); ``F.embedding`` sums a repeated
+    token's gradient in a fixed order, where indexing's backward does not."""
+    return F.embedding(tokens, params["emb"])
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -65,12 +65,16 @@ def ssm_init(gen: torch.Generator, d_model: int, cfg: SSMConfig,
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """(..., L) -> (..., L, L): out[..., i, j] = x[j+1] + ... + x[i] for
-    j <= i, -inf above the diagonal."""
+    j <= i, -inf above the diagonal. Each segment is summed directly (a
+    cumsum down the columns of x masked to k > j), not as a difference of
+    two prefix sums as the reference does: the same values, but backward
+    then sums each x[k]'s block of gradients instead of subtracting two
+    large sums that share the diagonal's mass, which in fp32 costs the
+    gradients of A and dt most of their precision at a 256-token chunk."""
     L = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
-    d = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    return d.masked_fill(~mask, -math.inf)
+    ones = torch.ones((L, L), dtype=torch.bool, device=x.device)
+    below = torch.where(torch.tril(ones, -1), x[..., :, None], 0.0)   # [k, j] = x[k], k > j
+    return torch.cumsum(below, dim=-2).masked_fill(~torch.tril(ones), -math.inf)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -97,9 +101,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA_cum = torch.cumsum(dA, dim=-1)
 
     # 1. intra-chunk (diagonal blocks)
+    # out of place: exp's backward reads its own output; the -inf above
+    # the diagonal gives exp 0 there, and the zeroed cells pass back 0
     Lmat = torch.exp(_segsum(dA))                                  # (b, nc, h, l, l)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    Lmat = Lmat.masked_fill_(~causal, 0.0)
+    Lmat = torch.where(causal, Lmat, 0.0)
     xw = xs * dts[..., None]                                       # promoted by dt
     scores = torch.einsum("bcigs,bcjgs->bcgij", Cs, Bs)            # (b, nc, g, l, l)
     scores = torch.repeat_interleave(scores, rep, dim=2)           # (b, nc, h, l, l)

@@ -10,20 +10,24 @@ on a leading ``n_layers`` axis as its ``_stack`` does (the hybrid's SSM
 blocks on (groups, per group), its shared attention block unstacked); the
 decode cache keeps the reference's layouts. What differs:
 
-- A Python loop over layers takes the place of ``lax.scan``; with
-  ``cfg.remat`` and grad enabled, ``forward`` runs each layer under
-  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body)``), so
-  backward keeps one layer's activations at a time.
+- A Python loop over layers takes the place of ``lax.scan``. With
+  ``cfg.remat`` and grad enabled, ``forward`` runs each of the reference's
+  ``jax.checkpoint`` bodies under ``torch.utils.checkpoint``: a decoder
+  layer, an SSM block, an encoder layer, an encoder-decoder's decoder
+  layer, and for the hybrid a whole group of SSM blocks with the shared
+  block after it. Backward keeps one such unit's activations at a time.
+- ``forward`` takes each layer's parameters by one ``torch.unbind`` of
+  every stacked leaf, so backward stacks a leaf's layer gradients once
+  (indexing one layer at a time adds a full-stack gradient a layer).
 - ``ActShard``/``_cst`` (activation sharding constraints) have no meaning
   on one device and are dropped.
 - ``decode_step`` writes the new token's cache entries in place and
   returns the same cache (the reference returns a new one); ``pos`` is a
   Python int. A position past a linear cache's last slot raises (the
   reference's ``dynamic_update_slice`` clamps it onto the last slot).
-- The serving path (``init_params``, ``prefill``, ``init_cache``,
-  ``decode_step``) takes every family; ``forward`` and ``loss_fn`` take the
-  dense GQA decoders only and raise ``NotImplementedError`` naming any
-  other family.
+- Every function takes every family: the serving path (``init_params``,
+  ``prefill``, ``init_cache``, ``decode_step``) and the training path
+  (``forward``, ``loss_fn``; the MoE aux loss summed over the layers).
 
 Prefill self-attention that is unwindowed (or windowed no shorter than the
 sequence) and uncapped, at a head dim the kernel instantiates, runs on the
@@ -31,12 +35,13 @@ hand-written flash attention kernel on the card when no gradient is needed
 (``components.attention``): the dense and MoE decoders' and Whisper's
 causal decoder and non-causal encoder. MLA (qk 96 != v 64) and zamba2's
 shared block (head dim 80) run the plain code, as does every decode step
-and cross-attention; ``loss_fn`` under autograd runs the plain code.
+and cross-attention. ``forward`` and ``loss_fn`` under autograd run the
+plain code for every family (the kernel has no backward).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -50,25 +55,6 @@ Params = Dict[str, Any]
 _BIG_WINDOW = 1 << 30
 
 
-def _family(cfg: ArchConfig) -> Optional[str]:
-    """The family of a config outside the dense GQA decoders, else None."""
-    return ("encoder-decoder" if cfg.kind == "encdec" else
-            "hybrid SSM + attention" if cfg.hybrid_attn_every else
-            "SSM" if cfg.ssm is not None else
-            "MLA" if cfg.attn_kind == "mla" else
-            "MoE" if cfg.moe is not None else None)
-
-
-def _dense_gqa_only(cfg: ArchConfig, what: str) -> None:
-    """Raise for a config outside the dense GQA decoder family."""
-    fam = _family(cfg)
-    if fam is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} of the {fam} family is not ported yet "
-            f"(repro_torch serves every family and trains the dense GQA "
-            f"decoders)")
-
-
 def map_params(fn: Callable, tree):
     """``fn`` applied to every tensor of a parameter (or cache) tree, the
     tree's structure kept (e.g. ``map_params(lambda a: a.to("cpu"), p)``)."""
@@ -80,6 +66,14 @@ def _layer(layers: Params, *i: int) -> Params:
     """The parameters at index ``i`` of the stacked axes (one index a
     layer; two for the hybrid's (group, block)): views into the stack."""
     return map_params(lambda a: a[i], layers)
+
+
+def _unstack(layers: Params, n: int) -> List[Params]:
+    """The ``n`` layers' parameters along the leading stacked axis, by one
+    ``torch.unbind`` a leaf: under autograd a leaf's layer gradients are
+    stacked once in backward."""
+    parts = map_params(torch.unbind, layers)
+    return [map_params(lambda t: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -290,36 +284,67 @@ def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _block_hidden(cfg: ArchConfig, p: Params, h: torch.Tensor,
-                  positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    return _dense_block(cfg, p, h, positions, window)[0]
+def _remat(on: bool, fn: Callable, *args):
+    """``fn(*args)``; with ``on``, under ``torch.utils.checkpoint``, so
+    backward recomputes what ``fn`` saved instead of keeping it."""
+    return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
+
+
+def _ssm_hidden(cfg: ArchConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """An SSM block with its residual."""
+    return h + S.ssm_block(p["ssm"], _norm(cfg, p["ln"], h), cfg.ssm, cfg.d_model)
+
+
+def _hybrid_group(cfg: ArchConfig, group: Params, shared: Params, h: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """One hybrid group: its SSM blocks, then the shared attention block
+    (a dense block: its aux is 0)."""
+    for p in _unstack(group, cfg.hybrid_attn_every):
+        h = _ssm_hidden(cfg, p, h)
+    return _dense_block(cfg, shared, h, positions, cfg.window)[0]
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            prefix_embeds: Optional[torch.Tensor] = None
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden (B, S, D), aux loss: 0 for dense layers). With
-    ``cfg.remat`` and grad enabled each layer is recomputed in backward.
-    Dense GQA decoders only."""
-    _dense_gqa_only(cfg, "forward (training)")
+    """Returns (final hidden (B, S, D), aux loss: the MoE layers' summed, 0
+    for every other family). An encoder-decoder needs ``enc_embeds`` (B,
+    Se, D). With ``cfg.remat`` and grad enabled each layer (the hybrid: each
+    group) is recomputed in backward."""
     h, positions = _embed_inputs(params, cfg, tokens, prefix_embeds)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        args = (cfg, _layer(params["layers"], i), h, positions, _layer_window(cfg, i))
-        h = (checkpoint(_block_hidden, *args, use_reentrant=False) if remat
-             else _block_hidden(*args))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.kind == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: forward needs enc_embeds")
+        enc = _encode(params, cfg, enc_embeds)
+        enc_pos = torch.arange(enc.shape[1], device=h.device)
+        for p in _unstack(params["layers"], cfg.n_layers):
+            h = _remat(remat, _dec_layer, cfg, p, h, positions, enc, enc_pos)[0]
+    elif cfg.hybrid_attn_every:
+        for group in _unstack(params["layers"], cfg.n_layers // cfg.hybrid_attn_every):
+            h = _remat(remat, _hybrid_group, cfg, group, params["shared"], h, positions)
+    elif cfg.ssm is not None:
+        for p in _unstack(params["layers"], cfg.n_layers):
+            h = _remat(remat, _ssm_hidden, cfg, p, h)
+    else:
+        for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            h, _, a = _remat(remat, _dense_block, cfg, p, h, positions,
+                             _layer_window(cfg, i))
+            aux = aux + a
     return _norm(cfg, params["final_norm"], h), aux
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S_text), labels (B, S_text) and optionally
-    prefix_embeds / label_mask -> (ce + aux, {"ce", "aux"}). The prefix's
-    positions carry no loss; the head is the tied embedding or ``lm_head``.
-    Dense GQA decoders only."""
+    prefix_embeds / enc_embeds / label_mask -> (ce + aux, {"ce", "aux"}).
+    The prefix's positions carry no loss; the head is the tied embedding or
+    ``lm_head``."""
     prefix = batch.get("prefix_embeds")
-    h, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+    h, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
+                     enc_embeds=batch.get("enc_embeds"))
     if prefix is not None:
         h = h[:, prefix.shape[1]:]
     emb = params["embed"] if cfg.tie_embeddings else {"emb": params["lm_head"]["w"].T}
@@ -336,21 +361,44 @@ def _stacked(cache: Params, name: str, i, a: torch.Tensor, n) -> None:
     cache[name][i] = a
 
 
+def _enc_layer(cfg: ArchConfig, p: Params, h: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """An encoder layer: non-causal self-attention, then the GELU MLP."""
+    a, _ = _self_attn(cfg, p["attn"], _norm(cfg, p["ln_attn"], h), positions, None,
+                      causal=False)
+    h = h + a
+    return h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+
+
 def _encode(params: Params, cfg: ArchConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
-    """The encoder over (B, Se, D) frame embeddings: learned positions,
-    non-causal self-attention and GELU MLP blocks, the final norm."""
+    """The encoder over (B, Se, D) frame embeddings (cast to
+    ``param_dtype``): learned positions, its layers (each recomputed in
+    backward under ``cfg.remat``), the final norm."""
     Se = enc_embeds.shape[1]
     h = enc_embeds.to(cfg.param_dtype)
     if cfg.pos == "learned":
         h = h + params["pos_emb"]["emb"][:Se][None]
     positions = torch.arange(Se, device=h.device)
-    for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_layers"], i)
-        a, _ = _self_attn(cfg, p["attn"], _norm(cfg, p["ln_attn"], h), positions,
-                          None, causal=False)
-        h = h + a
-        h = h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        h = _remat(remat, _enc_layer, cfg, p, h, positions)
     return _norm(cfg, params["enc_final_norm"], h)
+
+
+def _dec_layer(cfg: ArchConfig, p: Params, h: torch.Tensor, positions: torch.Tensor,
+               enc: torch.Tensor, enc_pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """An encoder-decoder's decoder layer: causal self-attention, cross
+    attention over K/V projected from the encoder output, the MLP -> (h,
+    the layer's cache entries (k, v, ck, cv))."""
+    a, (k, v) = _self_attn(cfg, p["self_attn"], _norm(cfg, p["ln_self"], h), positions,
+                           None)
+    h = h + a
+    _, ke, ve = C.gqa_project(p["cross_attn"], enc, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                              enc_pos, 0.0)
+    h = h + _cross_attn(cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], h), positions,
+                        ke, ve, enc_pos)
+    return h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act), (k, v, ke, ve)
 
 
 def _cross_attn(cfg: ArchConfig, p: Params, x: torch.Tensor, q_pos: torch.Tensor,
@@ -391,16 +439,9 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         enc = _encode(params, cfg, enc_embeds)
         enc_pos = torch.arange(enc.shape[1], device=h.device)
         for i in range(L):
-            p = _layer(params["layers"], i)
-            a, (k, v) = _self_attn(cfg, p["self_attn"], _norm(cfg, p["ln_self"], h),
-                                   positions, None)
-            h = h + a
-            _, ke, ve = C.gqa_project(p["cross_attn"], enc, cfg.n_heads, cfg.n_kv_heads,
-                                      cfg.hd, enc_pos, 0.0)
-            h = h + _cross_attn(cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], h),
-                                positions, ke, ve, enc_pos)
-            h = h + C.mlp(p["mlp"], _norm(cfg, p["ln_mlp"], h), cfg.act)
-            for name, a in zip(("k", "v", "ck", "cv"), (k, v, ke, ve)):
+            h, entries = _dec_layer(cfg, _layer(params["layers"], i), h, positions,
+                                    enc, enc_pos)
+            for name, a in zip(("k", "v", "ck", "cv"), entries):
                 _stacked(cache, name, i, a, (L,))
 
     elif cfg.ssm is not None:

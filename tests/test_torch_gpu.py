@@ -14,7 +14,8 @@ the LM decode path on the card (``-k lm``: prefill attention on the flash
 kernel, one launch a layer, against the port on the CPU; a failing kernel
 raising out of ``prefill``; ``lm_decode.run`` on the card by default; ``-k
 families``: the MLA, MoE, SSM, hybrid and encoder-decoder families' prefill
-and decode against the CPU, with their flash launches).
+and decode against the CPU, with their flash launches; ``-k families_train``:
+a full-width one-layer MoE and SSM training step against the CPU).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use). They carry the ``gpu`` marker and skip where no card is present;
@@ -1396,3 +1397,34 @@ def test_gpu_lm_train_full_width_checkpoint_round_trip(cuda, tmp_path):
             assert a == b, k
         else:
             assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b), k
+
+
+# ---------------------------------------------------------------------------
+# The LM families' training path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "mamba2_2_7b"])
+def test_gpu_lm_families_train_unit_full_width_matches_cpu(arch, cuda):
+    """One MoE and one SSM config at full width cut to one layer (fp32,
+    TF32 off, B=1, S=256, MoE at the registered capacity 1.25), held as
+    ``chip_smoke.py`` phase 13 (a) holds it: ``steps.value_and_grad`` on the
+    card against the CPU port, the loss within 1e-3, each gradient leaf
+    within 1e-4 of its own max |g|, every leaf nonzero on the CPU nonzero on
+    the card, one AdamW step from the CPU's gradients within 1e-2 lr, the
+    same top-k expert sets, and no kernel launched."""
+    smoke = _smoke()
+
+    def run(path, fn):
+        before = dict(common.LAUNCHES)
+        result = fn()
+        torch.cuda.synchronize()
+        assert dict(common.LAUNCHES) == before, path
+        return result
+
+    r = smoke.family_grad_check(torch, arch, 0, run)
+    assert r["loss_abs_err"] <= smoke.TRAIN_CPU_TOL, r
+    assert r["grad_rel_err"] <= smoke.TRAIN_GRAD_RTOL, r
+    assert r["step_err_over_lr"] <= smoke.TRAIN_STEP_TOL, r
+    assert not r["lost_on_card"] and r["nonzero_leaves"] > 0, r
+    if arch == "mixtral_8x7b":
+        assert r["aux"] > 0 and r["topk_sets_differ"]["tokens"] == 0, r

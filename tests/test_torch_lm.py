@@ -31,8 +31,6 @@ from repro_torch.models import transformer as T
 _TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=3e-3, atol=3e-3)     # tests/test_models.py's own bound
 DENSE = ("chatglm3_6b", "llama3_405b", "internvl2_1b", "gemma2_27b")
-LATER = {"mixtral_8x7b": "MoE", "minicpm3_4b": "MLA", "mamba2_2_7b": "SSM",
-         "zamba2_2_7b": "hybrid", "whisper_medium": "encoder-decoder"}
 
 
 def _np(x):
@@ -385,14 +383,3 @@ def test_lm_decode_run_defaults_to_the_card():
             lm_decode.run(cfg, 1, 4, 2)
     else:
         assert lm_decode.run(cfg, 1, 4, 2).tokens.is_cuda
-
-
-@pytest.mark.parametrize("arch", sorted(LATER))
-def test_later_families_refuse(arch):
-    """MoE, MLA, SSM, hybrid and encoder-decoder configs are served
-    (tests/test_torch_lm_families.py) but not trained yet: ``forward``
-    raises, naming the family, never a silent other path."""
-    cfg = cb.get(arch).reduced()
-    params = T.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=LATER[arch]):
-        T.forward(params, cfg, torch.zeros((1, 4), dtype=torch.long))
