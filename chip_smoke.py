@@ -11,7 +11,9 @@ entry points of the four kernels no plan reaches (batched matmul,
 single-image im2col conv, single-image Winograd point-GEMM, which runs the
 two transforms too, flash attention), and the LM decode path, whose
 prefill attention runs on the flash attention kernel, for the dense GQA
-decoders and every other LM family. Phases, each of which asserts:
+decoders and every other LM family, and the example scripts and the
+matmul-site autotune, which times the matmul kernel at the LM GEMM sites.
+Phases, each of which asserts:
 
 1. The card (``nvidia-smi`` name and power limit), the torch / CUDA / nvcc
    versions, and the kernel build (one ``nvcc`` per source, in parallel,
@@ -214,6 +216,23 @@ decoders and every other LM family. Phases, each of which asserts:
    mamba2_2_7b, device defaulting to cuda: 4 steps, then 6 resuming from
    step 4, steps 5 and 6 within 1e-5 of an uninterrupted run. No path
    launches a kernel (the flash kernel has no backward).
+14. The examples, the matmul-site autotune and the memory table: (a)
+   ``examples/torch_quickstart.py`` and ``torch_transfer_learning.py`` at
+   the reference's values (intel, 60 triplets, NN2 4,000 iterations, arm
+   at 1%), the latter run again on its store and warm for all five models;
+   ``torch_serve_optimized_cnn.py`` with two workers (``GpuPlatform``
+   profiling the card), every sampled response held to the kernel-free
+   oracle at 1e-3; ``torch_train_lm.py`` on the reduced mixtral_8x7b, 6
+   steps, and 4 then 6 resumed, the resumed losses equal; (b)
+   ``core.autotune``: ``build_dataset`` timing the 8 ``mm-*`` variants
+   through the matmul kernel at the 39 distinct LM sites and a seeded
+   sample (``MeasuredCost``), the NN2's held-out MdRAE, ``autotune_arch``
+   for each config (predicted, default, oracle seconds), and per site the
+   chosen variant's ms beside ``torch.matmul``'s (TF32 off), the kernel held
+   to its plain version at that shape (rtol 1e-4 of the largest output);
+   (c) ``launch.dryrun --all``, the bytes of every cell against the card.
+   The autotune must launch the matmul kernel; the other paths' launches
+   are recorded.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -391,6 +410,9 @@ FAMILY_TRAIN_CUT = {
 FAMILY_TRAIN_STEPS = 5                    # (b): AdamW steps a family; MoE takes
                                           # TRAIN_STEPS (mixtral spikes at steps 2-5)
 FAMILY_TRAIN_CLI = ("mixtral_8x7b", "mamba2_2_7b")   # (c): the CLI resumed
+EXAMPLE_SERVE = dict(requests=16, batch=8, workers=2)  # phase 14 (a): the served example
+EXAMPLE_TRAIN = ("mixtral_8x7b", 6, 4)    # (a): train_lm arch, steps, resumed from
+EXAMPLE_TRAIN_TOL = 0.0                   # (a): resumed vs uninterrupted losses, bit for bit
 
 
 def main() -> int:
@@ -398,6 +420,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed launches per call")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -536,6 +559,9 @@ def main() -> int:
 
     # -- phase 13: the LM families' training path on the card --------------
     families_train = families_train_phase(torch, launches, args.seed, smi)
+    # -- phase 14: the examples, the matmul-site autotune, the memory table
+    examples = examples_phase(torch, launches, args.seed, smi)
+
     lm_seen = set().union(family_seen, *(set(c) for c in lm_passes.values()))
     lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
                                args.reps)
@@ -603,6 +629,8 @@ def main() -> int:
     print("train: " + json.dumps(training))
     print("families: " + json.dumps(families))
     print("families_train: " + json.dumps(families_train))
+    print("examples: " + json.dumps(examples))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2854,6 +2882,175 @@ def families_train_phase(torch, launches, seed, smi, device="cuda") -> dict:
                  for a in FAMILY_HELD)]
     print("phase 13 launches: " + json.dumps({p: sum(launches[p].values()) for p in paths}))
     print(f"families train: phase 13 took {out['seconds']:.1f} s  ({smi})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The examples, the matmul-site autotune and the memory table (phase 14)
+# ---------------------------------------------------------------------------
+
+def example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
+    """Phase 14 (see the module docstring): (a) the four torch examples on
+    the card, (b) the matmul-site autotune on measured card costs, (c) the
+    single-card memory table. Launch counters are zeroed before each path
+    and read after it; the autotune must launch the matmul kernel."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core import autotune as AT
+    from repro_torch.kernels import common
+    from repro_torch.kernels.matmul.matmul import matmul_plain
+    from repro_torch.kernels.matmul.ops import matmul_op
+    from repro_torch.launch import dryrun
+    from repro_torch.profiler.device import time_callable
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+
+    def run(path, fn, kernels=()):
+        """fn() with the counters zeroed before and read after; each kernel
+        in ``kernels`` must have launched, and no other."""
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[path] = dict(common.LAUNCHES)
+        assert all(launches[path][k] > 0 for k in kernels), (path, launches[path])
+        return result, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.examples.") as td:
+        td = Path(td)
+        # (a) the examples at the reference's values
+        qs, s = run("example quickstart", lambda: example("quickstart").run(device=device))
+        assert np.isfinite([qs["prim_mdrae"], qs["dlt_mdrae"]]).all()
+        assert qs["model_selected_s"] >= qs["measured_optimal_s"] * (1 - 1e-9)
+        out["quickstart"] = {k: qs[k] for k in (
+            "n_configs", "prim_mdrae", "dlt_mdrae", "train_s", "select_ms",
+            "model_selected_s", "measured_optimal_s")} | {"seconds": s}
+        print(f"examples (a) quickstart: {s:.1f} s, MdRAE prim {qs['prim_mdrae']!r} "
+              f"DLT {qs['dlt_mdrae']!r}, model-selected {qs['model_selected_s']!r} s "
+              f"vs measured-optimal {qs['measured_optimal_s']!r} s  ({smi})", flush=True)
+
+        transfer = example("transfer_learning")
+        cold, s_cold = run("example transfer", lambda: transfer.run(str(td / "store"), device=device))
+        warm, s_warm = run("example transfer warm", lambda: transfer.run(str(td / "store"), device=device))
+        assert not cold["warm"] and warm["warm"] and warm["n_models"] == cold["n_models"]
+        keys = ("intel", "direct", "factor", "finetune", "scratch", "native")
+        out["transfer"] = {"mdrae": {k: cold[k]["mdrae"] for k in keys},
+                           "train_s": {k: cold[k]["seconds"] for k in keys if k != "direct"},
+                           "cold_s": s_cold, "warm_s": s_warm}
+        print(f"examples (a) transfer_learning: cold {s_cold:.1f} s, warm rerun "
+              f"{s_warm:.2f} s (all five models warm); MdRAE "
+              f"{json.dumps(out['transfer']['mdrae'])}  ({smi})", flush=True)
+
+        serve, s = run("example serve", lambda: example("serve_optimized_cnn").run(
+            **EXAMPLE_SERVE, device=device))
+        want = routed_kernels(serve["opt"].assignment)
+        assert all(launches["example serve"][k] > 0 for k in want), launches["example serve"]
+        err = max(check_responses(net, serve["weights"], [xs], [ys])
+                  for net, xs, ys in serve["samples"])
+        assert serve["concurrent"]["failed"] == 0
+        out["serve"] = {"img_s": serve["img_s"], "speedup": serve["speedup"],
+                        "concurrent": serve["concurrent"], "assignment": serve["assignment"],
+                        "profile_optimise_s": serve["profile_optimise_s"],
+                        "max_abs_err": err, "seconds": s}
+        print(f"examples (a) serve_optimized_cnn --workers {EXAMPLE_SERVE['workers']}: "
+              f"{s:.1f} s, img/s baseline {serve['img_s']['baseline']!r} optimised "
+              f"{serve['img_s']['optimised']!r} concurrent "
+              f"{serve['concurrent']['img_s']!r}; {len(serve['samples'])} sampled "
+              f"bursts, max |served - oracle| {err:.3g} (tolerance "
+              f"{SERVE_TOL['atol']}); kernels routed {sorted(want)}  ({smi})", flush=True)
+
+        arch, steps, cut = EXAMPLE_TRAIN
+        lm = example("train_lm")
+        whole, s = run("example train_lm", lambda: lm.run(arch, steps, ckpt_dir=str(td / "a"),
+                                                                device=device))
+        lm.run(arch, cut, ckpt_dir=str(td / "b"), device=device)
+        resumed = lm.run(arch, steps, ckpt_dir=str(td / "b"), device=device)
+        assert resumed["start"] == cut and np.isfinite(whole["losses"]).all()
+        err = float(np.abs(np.subtract(resumed["losses"], whole["losses"][cut:])).max())
+        assert err <= EXAMPLE_TRAIN_TOL, err
+        out["train_lm"] = {"arch": arch, "losses": whole["losses"],
+                           "resumed_losses": resumed["losses"], "max_abs_err": err,
+                           "seconds": s}
+        print(f"examples (a) train_lm --arch {arch} (reduced): {steps} steps in {s:.1f} s, "
+              f"losses {[round(x, 4) for x in whole['losses']]}; resumed from step "
+              f"{cut}: max |diff| {err:.3g} against the uninterrupted run", flush=True)
+
+    # (b) the matmul-site autotune on measured card costs
+    cost = AT.MeasuredCost(device, seed)
+
+    def autotune():
+        data = AT.build_dataset(cost, seed=seed)
+        model = AT.train_cost_model(data, seed=seed, device=device)
+        tuned = {c.name: AT.autotune_arch(c, model, cost_fn=cost) for c in cb.all_assigned()}
+        return data, model, tuned
+
+    (data, model, tuned), s = run("autotune", autotune, kernels=("matmul",))
+    mdrae = AT.mdrae_held_out(model, data, seed)
+    print(f"autotune (b): dataset {data.feats.shape[0]} GEMMs ({data.n_sites} sites, "
+          f"{data.feats.shape[0] - data.n_sites} sampled) x {len(data.names)} variants, "
+          f"{data.seconds:.1f} s of timing; NN2 held-out MdRAE {mdrae!r} on "
+          f"{len(data.split(seed)[2])} rows; phase (b) {s:.1f} s; "
+          f"{launches['autotune']['matmul']} matmul launches  ({smi})", flush=True)
+    out["autotune"] = {"rows": int(data.feats.shape[0]), "sites": data.n_sites,
+                       "timing_s": data.seconds, "seconds": s, "mdrae_held_out": mdrae,
+                       "archs": {}, "sites_ms": []}
+    for name, r in tuned.items():
+        print(f"autotune (b) {name}: predicted {r.predicted_s * 1e3:.4f} ms, default "
+              f"{r.default_s * 1e3:.4f} ms, oracle {r.oracle_s * 1e3:.4f} ms; "
+              f"{json.dumps(r.assignment)}")
+        out["autotune"]["archs"][name] = dataclasses.asdict(r)
+    # per site: the chosen variant's time beside torch.matmul's (TF32 off),
+    # and the kernel held to its plain version at that shape
+    print("autotune (b) per site: arch site M K N | chosen variant ms | "
+          "torch.matmul ms | max |kernel - plain| / max |plain|")
+    seen = {}
+    for c in cb.all_assigned():
+        for site, m, k, n in AT.matmul_sites(c):
+            v = tuned[c.name].assignment[site]
+            if (m, k, n, v) not in seen:
+                g = torch.Generator(device=device).manual_seed(seed)
+                x = torch.randn(m, k, generator=g, device=device)
+                y = torch.randn(k, n, generator=g, device=device)
+                lib = time_callable(torch.matmul, x, y, repeats=AT.GEMM_REPEATS,
+                                    warmup=AT.GEMM_WARMUP, device=device).device
+                want = matmul_plain(x, y)
+                rel = float((matmul_op(x, y, v) - want).abs().max() / want.abs().max())
+                assert rel <= KERNEL_TOL["rtol"], (c.name, site, v, rel)
+                seen[(m, k, n, v)] = (lib, rel)
+                del x, y, want
+            lib, rel = seen[(m, k, n, v)]
+            ms = cost(m, k, n, v) * 1e3
+            print(f"  {c.name} {site} {m} {k} {n} | {v} {ms:.4f} | {lib * 1e3:.4f} | {rel:.3g}")
+            out["autotune"]["sites_ms"].append(
+                {"arch": c.name, "site": site, "M": m, "K": k, "N": n, "variant": v,
+                 "ms": ms, "torch_matmul_ms": lib * 1e3, "rel_err": rel})
+    torch.cuda.empty_cache()
+
+    # (c) the single-card memory table (meta tensors, no card work)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke.dryrun.") as td:
+        (_, s) = run("dryrun", lambda: dryrun.main(["--all", "--out", td]))
+        out["dryrun"] = {f.stem: json.loads(f.read_text())["memory"]
+                         for f in sorted(Path(td).glob("*.json"))
+                         if json.loads(f.read_text())["status"] == "ok"}
+    assert not any(launches["dryrun"].values())
+    print(f"dryrun (c): {len(out['dryrun'])} cells in {s:.1f} s", flush=True)
+
+    out["seconds"] = time.perf_counter() - t_phase
+    paths = ("example quickstart", "example transfer", "example transfer warm",
+             "example serve", "example train_lm", "autotune", "dryrun")
+    print("phase 14 launches: " + json.dumps({p: launches[p] for p in paths}))
+    print(f"examples: phase 14 took {out['seconds']:.1f} s  ({smi})", flush=True)
     return out
 
 

@@ -1,29 +1,69 @@
-"""Tile columns of the conv kernels — the port's copy of the part of
-``repro.core.autotune`` that names them: ``PALLAS_CONV_BASES`` and
-``pallas_columns``.
+"""Kernel-variant selection: the port of ``repro.core.autotune``.
 
-A tile column ``<base>@<variant>`` is a runnable base primitive executed
-under one tile variant of a hand-written kernel (``primitives/variants.py``);
-selection treats each pair as its own column. The reference's columns take
-the matmul variants only; the port's take every variant family its kernels
-have (``mm-*``, ``conv-bk*``, ``wino-*``), filtered to the pairs the plan
-can run: 55 columns over the five bases, of which the 40 ``mm-*`` ones are
-the reference's.
+Two parts.
 
-The reference's analytic TPU surface (``conv_tile_time_batch``,
-``pallas_dlt_time_batch``, ``PallasTileProvider``) does not apply on the
-card: there the tile columns are measured (``profiler/device.py``,
-``service.platforms.GpuPlatform``). The LM matmul-site autotune comes with
-the LM slice.
+**Tile columns of the conv kernels** (``PALLAS_CONV_BASES``,
+``pallas_columns``). A tile column ``<base>@<variant>`` is a runnable base
+primitive executed under one tile variant of a hand-written kernel
+(``primitives/variants.py``); selection treats each pair as its own column.
+The reference's columns take the matmul variants only; the port's take every
+variant family its kernels have (``mm-*``, ``conv-bk*``, ``wino-*``),
+filtered to the pairs the plan can run: 55 columns over the five bases, of
+which the 40 ``mm-*`` ones are the reference's.
+
+**The matmul-site autotune** (``matmul_sites``, ``build_dataset``,
+``train_cost_model``, ``autotune_arch``): the paper's technique applied to
+the matmul kernel at the GEMM sites of the LM configs. The "primitives" are
+the 8 ``mm-*`` variants of ``kernels/matmul/ops.VARIANTS``, the "layers" the
+per-device GEMMs of one layer of a config (QKV and output projections, MLP
+up and down, expert GEMMs, SSM projections). An NN2 learns a GEMM's time
+under each variant from (M, K, N); a chain PBQP with zero edges (a variant
+switch moves no layout) picks a variant per site.
+
+The costs are measured on the card: ``MeasuredCost`` times each variant
+through ``matmul_op`` in fp32 (the kernel's dtype on the served path) with
+``profiler/device.time_callable`` (CUDA events, the median of
+``GEMM_REPEATS`` after ``GEMM_WARMUP``). The cost source is an argument
+(``cost_fn(M, K, N, variant) -> seconds``), so the CPU tests inject the
+reference's analytic surface instead. Sampling design of ``build_dataset``
+(the reference prices 3,000 log-uniform GEMMs of up to 2^17 x 2^15 x 2^15,
+one of them ~2.8e14 FLOPs, on an analytic surface; measured, that takes
+hours):
+
+1. the distinct sites of the ten configs at the reference's
+   ``batch_tokens=65536, tp=16`` (``SITE_BATCH_TOKENS``, ``SITE_TP``), all of
+   them, whatever their size;
+2. then a sample seeded by ``seed``: M log-uniform in [2^7, 2^17], K and N in
+   [2^7, 2^15] (the reference's ranges), a draw over ``SAMPLE_MAX_FLOPS``
+   (2·M·K·N) redrawn, up to ``SAMPLE_ROWS`` rows, stopped early once the
+   dataset's measuring time passes ``BUDGET_S`` seconds.
+
+``AutotuneResult.oracle_s`` is the best of the measured (or injected) costs
+per site, not the analytic surface.
+
+The reference's analytic TPU surface (``analytic_cost``,
+``conv_tile_time_batch``, ``pallas_dlt_time_batch``, ``PallasTileProvider``)
+is not ported: on the card tile columns and GEMMs are measured
+(``profiler/device.py``, ``service.platforms.GpuPlatform``, ``MeasuredCost``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from repro_torch.configs import base as cb
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import pbqp
+from repro_torch.core.perfmodel import PerfModel, fit_perf_model
 from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
-from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
+from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS, matmul_op
 from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
 from repro_torch.primitives.conv import tile_columns
+from repro_torch.profiler.device import time_callable
 
 # Kernel-backed base primitives: im2col lowerings ride the matmul or the
 # implicit-GEMM conv kernel, winograd the Winograd point-GEMM, 1x1 the
@@ -38,6 +78,16 @@ PALLAS_CONV_BASES: Tuple[str, ...] = (
 
 TILE_VARIANTS: Tuple[str, ...] = (*MM_VARIANTS, *CONV_VARIANTS, *WINO_VARIANTS)
 
+SITE_BATCH_TOKENS = 65536           # the reference's autotune defaults
+SITE_TP = 16
+SAMPLE_ROWS = 400                   # sampled GEMMs beyond the sites, at most
+SAMPLE_MAX_FLOPS = 2e11             # 2·M·K·N of one sampled GEMM, at most
+BUDGET_S = 45.0                     # measuring seconds after which sampling stops
+GEMM_WARMUP = 1                     # MeasuredCost: untimed calls ...
+GEMM_REPEATS = 3                    # ... and timed ones (median) a variant
+
+CostFn = Callable[[int, int, int, str], float]
+
 
 def pallas_columns(bases: Sequence[str] = PALLAS_CONV_BASES,
                    variants: Optional[Sequence[str]] = None) -> List[str]:
@@ -45,3 +95,186 @@ def pallas_columns(bases: Sequence[str] = PALLAS_CONV_BASES,
     run only; ``variants`` defaults to every variant of the three kernels."""
     return tile_columns(bases, list(variants) if variants is not None
                         else list(TILE_VARIANTS))
+
+
+def matmul_sites(cfg: ArchConfig, seq: int = 4096, batch_tokens: int = SITE_BATCH_TOKENS,
+                 tp: int = SITE_TP) -> List[Tuple[str, int, int, int]]:
+    """(name, M, K, N) matmul sites for one layer of ``cfg``, after TP
+    sharding by ``tp`` (the per-device GEMM the kernel actually runs)."""
+    d, hd = cfg.d_model, cfg.hd
+    M = batch_tokens
+    sites = []
+    if cfg.attn_kind == "gqa":
+        sites += [("wq", M, d, max(cfg.n_heads * hd // tp, 128)),
+                  ("wk", M, d, max(cfg.n_kv_heads * hd // tp, 128)),
+                  ("wo", M, max(cfg.n_heads * hd // tp, 128), d)]
+    elif cfg.attn_kind == "mla":
+        m = cfg.mla
+        sites += [("wdq", M, d, m.q_lora),
+                  ("wuq", M, m.q_lora, max(cfg.n_heads * (m.qk_nope + m.qk_rope) // tp, 128)),
+                  ("wo", M, max(cfg.n_heads * m.v_head // tp, 128), d)]
+    if cfg.moe is not None:
+        ff = cfg.moe.d_ff
+        tokens_per_expert = int(1.25 * M * cfg.moe.top_k / cfg.moe.n_experts)
+        sites += [("expert_up", max(tokens_per_expert, 128), d, ff),
+                  ("expert_down", max(tokens_per_expert, 128), ff, d)]
+    elif cfg.d_ff:
+        sites += [("mlp_up", M, d, max(cfg.d_ff // tp, 128)),
+                  ("mlp_down", M, max(cfg.d_ff // tp, 128), d)]
+    if cfg.ssm is not None:
+        din = cfg.ssm.d_inner(d)
+        sites += [("ssm_in", M, d, max((2 * din) // tp, 128)),
+                  ("ssm_out", M, max(din // tp, 128), d)]
+    return sites
+
+
+class MeasuredCost:
+    """``cost(M, K, N, variant) -> seconds`` of ``matmul_op`` on the card:
+    fp32 unit-normal operands drawn from ``seed``, the median CUDA-event
+    time of ``GEMM_REPEATS`` calls after ``GEMM_WARMUP``. Each (M, K, N,
+    variant) is timed once and remembered in ``times``, so the dataset and
+    ``autotune_arch`` share their site timings."""
+
+    def __init__(self, device="cuda", seed: int = 0):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError("MeasuredCost times the card; pass cost_fn= for "
+                             "any other cost source")
+        self.seed = seed
+        self.times: Dict[Tuple[int, int, int, str], float] = {}
+
+    def __call__(self, M: int, K: int, N: int, variant: str) -> float:
+        key = (int(M), int(K), int(N), variant)
+        if key not in self.times:
+            g = torch.Generator(device=self.device).manual_seed(self.seed)
+            x = torch.randn(key[0], key[1], generator=g, device=self.device)
+            y = torch.randn(key[1], key[2], generator=g, device=self.device)
+            self.times[key] = time_callable(
+                lambda: matmul_op(x, y, variant), repeats=GEMM_REPEATS,
+                warmup=GEMM_WARMUP, device=self.device).device
+        return self.times[key]
+
+
+@dataclasses.dataclass
+class GemmDataset:
+    """(M, K, N) -> seconds under each variant; the first ``n_sites`` rows
+    are the LM sites, the rest the sample. ``seconds``: wall time spent in
+    the cost source."""
+    feats: np.ndarray                    # (n, 3) M, K, N
+    times: np.ndarray                    # (n, len(names)) seconds
+    names: List[str]
+    n_sites: int
+    seconds: float
+
+    def split(self, seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(train, val, test) row indices: 80 / 10 / 10 % of a permutation
+        drawn from ``seed``, so sites and sample rows land in every part."""
+        n = len(self.feats)
+        perm = np.random.default_rng(seed).permutation(n)
+        a, b = int(0.8 * n), int(0.9 * n)
+        return perm[:a], perm[a:b], perm[b:]
+
+
+def site_shapes(configs: Sequence[ArchConfig], batch_tokens: int = SITE_BATCH_TOKENS,
+                tp: int = SITE_TP) -> List[Tuple[int, int, int]]:
+    """The distinct (M, K, N) of every config's sites, in first-seen order."""
+    out: Dict[Tuple[int, int, int], None] = {}
+    for cfg in configs:
+        for _, m, k, n in matmul_sites(cfg, batch_tokens=batch_tokens, tp=tp):
+            out[(m, k, n)] = None
+    return list(out)
+
+
+def build_dataset(cost_fn: Optional[CostFn] = None, *,
+                  configs: Optional[Sequence[ArchConfig]] = None,
+                  batch_tokens: int = SITE_BATCH_TOKENS, tp: int = SITE_TP,
+                  sample_rows: int = SAMPLE_ROWS,
+                  max_flops: float = SAMPLE_MAX_FLOPS,
+                  budget_s: float = BUDGET_S, seed: int = 0,
+                  device="cuda") -> GemmDataset:
+    """The autotune's dataset under the sampling design of the module
+    docstring: every distinct site of ``configs`` (default: the ten
+    registered configs), then up to ``sample_rows`` seeded log-uniform GEMMs
+    of at most ``max_flops``, until ``budget_s`` seconds have gone into the
+    cost source. ``cost_fn`` defaults to ``MeasuredCost(device)``."""
+    if cost_fn is None:
+        cost_fn = MeasuredCost(device, seed)
+    if configs is None:
+        configs = cb.all_assigned()
+    names = list(MM_VARIANTS)
+    shapes = site_shapes(configs, batch_tokens, tp)
+    n_sites = len(shapes)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    rows = []
+    for m, k, n in shapes:
+        rows.append([cost_fn(m, k, n, v) for v in names])
+    seen = set(shapes)
+    while len(rows) - n_sites < sample_rows and time.perf_counter() - t0 < budget_s:
+        m = int(2 ** rng.uniform(7, 17))
+        k = int(2 ** rng.uniform(7, 15))
+        n = int(2 ** rng.uniform(7, 15))
+        if 2.0 * m * k * n > max_flops or (m, k, n) in seen:
+            continue
+        seen.add((m, k, n))
+        shapes.append((m, k, n))
+        rows.append([cost_fn(m, k, n, v) for v in names])
+    return GemmDataset(np.array(shapes, float), np.array(rows, float), names,
+                       n_sites, time.perf_counter() - t0)
+
+
+def train_cost_model(data: GemmDataset, *, seed: int = 0, max_iters: int = 4000,
+                     device="cuda") -> PerfModel:
+    """NN2 over ``data``'s train rows, early-stopped on its val rows
+    (``GemmDataset.split``); the test rows stay held out."""
+    tr, va, _ = data.split(seed)
+    return fit_perf_model("nn2", data.feats[tr], data.times[tr], data.feats[va],
+                          data.times[va], columns=data.names,
+                          max_iters=max_iters, seed=seed, device=device)
+
+
+@dataclasses.dataclass
+class AutotuneResult:
+    assignment: Dict[str, str]           # site -> variant
+    predicted_s: float                   # the selected variants' cost
+    default_s: float                     # all sites on the first variant
+    oracle_s: float                      # the best cost per site
+
+    @property
+    def speedup_vs_default(self) -> float:
+        return self.default_s / self.predicted_s if self.predicted_s else 1.0
+
+
+def autotune_arch(cfg: ArchConfig, model: PerfModel, tp: int = SITE_TP,
+                  batch_tokens: int = SITE_BATCH_TOKENS,
+                  cost_fn: Optional[CostFn] = None, device="cuda") -> AutotuneResult:
+    """PBQP-select a kernel variant per matmul site of ``cfg`` from
+    ``model``'s predictions (chain graph; variant switches carry no layout
+    cost, so edges are zero and the graph reduces to per-site argmins, which
+    PBQP handles as R0 reductions). The selection, the all-first-variant
+    default and the per-site best are priced by ``cost_fn`` (default:
+    ``MeasuredCost(device)``)."""
+    if cost_fn is None:
+        cost_fn = MeasuredCost(device)
+    sites = matmul_sites(cfg, batch_tokens=batch_tokens, tp=tp)
+    names = list(model.columns)
+    feats = np.array([[m, k, n] for (_, m, k, n) in sites], float)
+    pred = model.predict(feats)                      # (n_sites, n_variants)
+
+    g = pbqp.PBQPGraph()
+    for i in range(len(sites)):
+        g.add_node(i, pred[i], labels=names)
+    lab = pbqp.solve(g).labelled(g)
+
+    true = np.array([[cost_fn(m, k, n, v) for v in names] for (_, m, k, n) in sites])
+    sel = sum(true[i, names.index(lab[i])] for i in range(len(sites)))
+    return AutotuneResult({s[0]: lab[i] for i, s in enumerate(sites)},
+                          float(sel), float(true[:, 0].sum()),
+                          float(true.min(axis=1).sum()))
+
+
+def mdrae_held_out(model: PerfModel, data: GemmDataset, seed: int = 0) -> float:
+    """``model``'s MdRAE on ``data``'s test rows (``split(seed)``)."""
+    te = data.split(seed)[2]
+    return model.mdrae(data.feats[te], data.times[te])
+

@@ -5,15 +5,21 @@
   decode_32k   seq 32,768  global_batch 128   -> serve_step (1 token, KV=seq)
   long_500k    seq 524,288 global_batch 1     -> serve_step; SSM/hybrid/SWA only
 
-The reference's ``input_specs`` (shape stand-ins for a mesh dry run) is not
-ported: it belongs with the mesh.
+``input_specs`` gives each cell's model inputs as ``meta`` tensors: the
+reference's ``ShapeDtypeStruct`` stand-ins, shapes and dtypes without an
+allocation (``launch/dryrun.py`` sums their bytes for one card). Modality
+frontends are stubs: internvl2 gets 256 precomputed patch embeddings,
+whisper frame embeddings of the full sequence length.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,3 +43,36 @@ def cell_applicable(cfg: ArchConfig, shape: str) -> bool:
     if shape == "long_500k":
         return cfg.supports_long_decode
     return True
+
+
+def input_specs(cfg: ArchConfig, shape: str, dtype=torch.bfloat16,
+                device="meta") -> Dict:
+    """Stand-ins for one (arch x shape) cell's inputs, ``meta`` tensors by
+    default (nothing allocated).
+
+    train/prefill: {'tokens', 'labels'?, 'prefix_embeds'?, 'enc_embeds'?}
+    decode:        {'tokens' (B,1), 'pos' (), 'cache': ``init_cache``'s tree}
+    """
+    cell = SHAPES[shape]
+    B, S = cell.global_batch, cell.seq_len
+    if not cell_applicable(cfg, shape):
+        raise ValueError(f"{cfg.name} does not run {shape} (full attention)")
+    spec = lambda *s, dt: torch.empty(s, dtype=dt, device=device)
+
+    if cell.step in ("train", "prefill"):
+        s_text = S - (cfg.prefix_tokens if cfg.prefix_tokens else 0)
+        specs: Dict = {"tokens": spec(B, s_text, dt=torch.int32)}
+        if cell.step == "train":
+            specs["labels"] = spec(B, s_text, dt=torch.int32)
+        if cfg.prefix_tokens:
+            specs["prefix_embeds"] = spec(B, cfg.prefix_tokens, cfg.d_model, dt=dtype)
+        if cfg.kind == "encdec":
+            specs["enc_embeds"] = spec(B, S, cfg.d_model, dt=dtype)
+        return specs
+
+    # decode: one new token against a cache of S (decode_32k's cache runs to
+    # terabytes across the global batch; on ``meta`` it is never allocated)
+    cache = T.init_cache(cfg, B, S, enc_len=S if cfg.kind == "encdec" else 0,
+                         dtype=dtype, device=device)
+    return {"tokens": spec(B, 1, dt=torch.int32), "pos": spec(dt=torch.int32),
+            "cache": cache}

@@ -98,9 +98,18 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 # Dense / embeddings
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands in for the generator of every initialiser here and gives the
+    parameters' shapes and dtypes without drawing or allocating: each
+    tensor is an uninitialised ``meta`` tensor."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """Normals drawn in fp32 on the generator's device, times ``scale``,
-    cast to ``dtype``."""
+    cast to ``dtype`` (for ``ShapesOnly``, an empty ``meta`` tensor)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 

@@ -194,6 +194,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return params
 
 
+def param_shapes(cfg: ArchConfig) -> Params:
+    """``init_params``'s tree as ``meta`` tensors: every leaf's shape and
+    dtype, nothing drawn or allocated (``components.ShapesOnly``)."""
+    return init_params(C.ShapesOnly(), cfg)
+
+
 # ---------------------------------------------------------------------------
 # Blocks (forward / prefill)
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 reference's (``repro.primitives.conv``), on the same numpy inputs, single
 image and batched, at fp32 rtol=atol=1e-4 (1e-3 for the Winograd family,
 as the reference's own Winograd tests)."""
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ attention (``tests/test_kernels.py::_TOL``), 1e-3 for the Winograd convs.
 ``tests/test_torch_gpu.py`` holds each hand-written CUDA kernel to its plain
 version on the card.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import itertools
 
 import jax.numpy as jnp

@@ -25,6 +25,7 @@ Plan execution advances the shared fake clock, so drift detection,
 windows and store mtimes are deterministic; the only real waiting is for
 the background recalibration threads, each bounded by a timeout.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import time
 from pathlib import Path
 from types import SimpleNamespace

@@ -24,6 +24,7 @@
 
 Every wait has a timeout; no verdict depends on a wall-clock race.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import multiprocessing as mp
 import shutil
 import threading

@@ -24,6 +24,7 @@ This file imports no JAX, so it runs where only the port is installed.
 Tolerance: fp32 rtol=atol=1e-4 on unit-scale operands (sum order only),
 1e-3 for a full Winograd conv against the plain convolution.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import itertools
 import shutil
 import time
@@ -1428,3 +1429,60 @@ def test_gpu_lm_families_train_unit_full_width_matches_cpu(arch, cuda):
     assert not r["lost_on_card"] and r["nonzero_leaves"] > 0, r
     if arch == "mixtral_8x7b":
         assert r["aux"] > 0 and r["topk_sets_differ"]["tokens"] == 0, r
+
+
+# ---------------------------------------------------------------------------
+# The examples and the matmul-site autotune on the card
+# ---------------------------------------------------------------------------
+
+def test_gpu_examples_serve_against_the_oracle(cuda):
+    """``examples/torch_serve_optimized_cnn.py`` with two workers on the
+    card: ``GpuPlatform`` profiles on the card, every sampled response (two
+    sequential measurements, the concurrent one) equals the kernel-free
+    oracle at 1e-3, no ticket fails."""
+    smoke = _smoke()
+    out = smoke.example("serve_optimized_cnn").run(requests=2, batch=8, workers=2,
+                                                   max_iters=200)
+    assert out["device"] == "cuda" and out["concurrent"]["failed"] == 0
+    assert len(out["samples"]) == 4
+    for net, xs, ys in out["samples"]:
+        assert smoke.check_responses(net, out["weights"], [xs], [ys]) <= smoke.SERVE_TOL["atol"]
+
+
+def test_gpu_examples_train_lm_resumes_on_the_card(tmp_path, cuda):
+    """``examples/torch_train_lm.py`` on the card (its default device):
+    reduced mixtral_8x7b, 4 steps and a resume to 6 equal an uninterrupted
+    6-step run's losses, all finite."""
+    lm = _smoke().example("train_lm")
+    whole = lm.run("mixtral_8x7b", 6, batch=2, seq=32, ckpt_dir=str(tmp_path / "a"))
+    lm.run("mixtral_8x7b", 4, batch=2, seq=32, ckpt_dir=str(tmp_path / "b"))
+    resumed = lm.run("mixtral_8x7b", 6, batch=2, seq=32, ckpt_dir=str(tmp_path / "b"))
+    assert resumed["start"] == 4 and resumed["losses"] == whole["losses"][4:]
+    assert np.isfinite(whole["losses"]).all()
+    assert whole["params"]["embed"]["emb"].device.type == "cuda"
+
+
+def test_gpu_autotune_on_measured_costs(cuda):
+    """``MeasuredCost`` times ``matmul_op`` on the card (each variant once,
+    then from its memory without a launch); ``build_dataset`` at a small
+    token count, ``train_cost_model`` on the card and ``autotune_arch``
+    priced by the same measurements: the selection never beats the per-site
+    best, and the matmul kernel ran."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core import autotune as AT
+    cost = AT.MeasuredCost()
+    before = common.LAUNCHES["matmul"]
+    t = cost(256, 512, 384, "mm-128x128x128")
+    launched = common.LAUNCHES["matmul"] - before
+    assert t > 0 and launched == AT.GEMM_WARMUP + AT.GEMM_REPEATS
+    assert cost(256, 512, 384, "mm-128x128x128") == t
+    assert common.LAUNCHES["matmul"] - before == launched
+    cfg = cb.get("chatglm3_6b")
+    data = AT.build_dataset(cost, configs=[cfg], batch_tokens=1024, sample_rows=16,
+                            max_flops=1e9)
+    assert data.n_sites == 5 and len(data.feats) == 21 and (data.times > 0).all()
+    model = AT.train_cost_model(data, max_iters=200)
+    assert model.device.type == "cuda"
+    res = AT.autotune_arch(cfg, model, batch_tokens=1024, cost_fn=cost)
+    assert res.predicted_s >= res.oracle_s * (1 - 1e-9) and res.default_s >= res.oracle_s
+    assert set(res.assignment.values()) <= set(data.names)

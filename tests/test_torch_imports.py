@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the ``repro`` package, and
+"""The port stands alone: no file of ``src/repro_torch/``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports ``jax`` or anything of the ``repro`` package, and
 no function of the port defaults to the CPU."""
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import ast
 import subprocess
 import sys
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imports(tree):
@@ -29,7 +31,10 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_no_entry_point_defaults_to_cpu():
-    seen = 0
+    """Every ``device`` default is ``cuda``; shape stand-ins
+    (``shapes.input_specs``) may default to ``meta``, which allocates
+    nothing and computes nothing."""
+    seen = metas = 0
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text())):
             if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
@@ -41,9 +46,10 @@ def test_no_entry_point_defaults_to_cpu():
                 if arg.arg != "device" or default is None:
                     continue
                 seen += 1
-                assert isinstance(default, ast.Constant) and default.value == "cuda", \
+                assert isinstance(default, ast.Constant) and default.value in ("cuda", "meta"), \
                     f"{path.name}:{node.name} device default"
-    assert seen >= 5
+                metas += default.value == "meta"
+    assert seen >= 5 and metas == 1
 
 
 def test_port_imports_without_cuda_or_triton():

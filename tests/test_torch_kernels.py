@@ -11,6 +11,7 @@ rtol=atol=1e-4 for the GEMM kernels (``tests/test_kernels.py::_TOL``) and
 ``tests/test_torch_gpu.py`` holds each hand-written CUDA kernel to its plain
 version on the card.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import itertools
 import re
 from pathlib import Path

@@ -10,6 +10,7 @@ On the CPU ``attention`` runs the torch port of the reference's ``jnp`` code;
 the glue that puts prefill attention on the flash kernel on the card is
 held here through the kernel's plain version.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import functools
 

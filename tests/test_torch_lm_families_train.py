@@ -12,6 +12,7 @@ for losses, gradients and parameters; remat and resumed runs bit for bit.
 The helpers and the ``ref_launch`` fixture (the reference launcher with
 stand-ins for its missing ``repro.dist``) are ``test_torch_lm_train``'s.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import io
 import re

@@ -15,6 +15,7 @@ lacks; ``ref_launch`` puts empty stand-ins for it into ``sys.modules`` for a
 test's duration (``make_train_step`` without an ``aspec`` never touches
 them) and drops the reference launch modules afterwards.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import functools
 import io

@@ -6,6 +6,7 @@ Plans are held at rtol=atol=2e-3, the reference's own plan tolerance
 its plain version, so this checks the lowering, the variant routing and the
 fused epilogues end to end.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import importlib.util
 import json
 from pathlib import Path

@@ -21,6 +21,7 @@ probe ledger — counts, failures, the targets in order, the buffer and wait
 sample sizes, the served sample's rows — is held equal, and the probe
 values to the models' float rounding (rtol 2e-5).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import shutil
 from pathlib import Path
 

@@ -10,6 +10,7 @@ Times these tests measure are CPU wall times and are only checked to be positive
 and finite; no device time exists on the CPU (NaN). No test writes under
 ``artifacts/``: every store is in ``tmp_path``.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ pool) and solver costs under it at 1e-5 relative; the served plan at the
 reference's 1e-3. No test writes under ``artifacts/``: stores are copies in
 ``tmp_path``.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import json
 import shutil
 from pathlib import Path

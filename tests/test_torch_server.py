@@ -2,6 +2,7 @@
 compiled plan: bursts of 1, 3 and 8 (pow2 padding by repeating the last
 row), every response equal to ``repro.primitives.plan.compile_plan`` on the
 same weights and inputs at the reference's plan tolerance."""
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@
   (measured through ``profiler/device.py``, a deliberate divergence from
   the reference's probe).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import dataclasses
 import shutil
 import threading

@@ -18,6 +18,7 @@
   exception of the plan, fails its tickets instead of being served by the
   safe plan, and register's warm-up re-raises its failure.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import threading
 import time
 

@@ -20,6 +20,7 @@ monitor reads rises exactly as on a slower machine, and the soak costs no
 wall time for it. The network starts warm from the committed arm models
 (a copy of ``artifacts/``), so nothing trains. Every wait has a timeout.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import shutil
 import threading
 import time

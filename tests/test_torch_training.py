@@ -15,6 +15,7 @@ reference test's thresholds and to a band around JAX's MdRAE on the same
 split. ``lin`` is numpy in both packages: fingerprints equal. No test
 writes under ``artifacts/``: every store is in ``tmp_path``.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np
