@@ -98,11 +98,13 @@ Phases, each of which asserts:
    windows were made of: images per dispatch, host ms of one dispatch,
    queue wait, the share of the wall time in which one and both workers
    were executing, and the device's busy share of one profiled window; (b) the
-   fault drill: a persistent ``raise`` on one backend of edge_cnn / PBQP —
+   fault drill (Python's garbage collector off, after one collection): a
+   persistent ``raise`` on one backend of edge_cnn / PBQP —
    its tickets served degraded by the safe plan on the card and held to
    the oracle, its breaker open after three failed dispatches, traffic
    spilling to the other backend, the breaker closed by a half-open probe
-   once the faults end — then a ``corrupt`` output caught and retried, and
+   once the faults end — then, after each worker has served the mix path
+   once, a ``corrupt`` output caught and retried, and
    a ``hang`` abandoned at the execution deadline, rescued degraded, its
    worker replaced; (c) the drift drill: phase 7's transferred plan with a
    canary and ``make_recalibrator(mode="factor")``; a ``slowdown`` of three
@@ -110,11 +112,19 @@ Phases, each of which asserts:
    one recalibration on the measured platform from the served
    observations, canaried and hot-swapped to generation 1, with its
    seconds, profiled and served rows and launches, every response before
-   and after held to the oracle; (d) edge_cnn routed over an ``arm``
-   backend (the committed models' plan) and a ``gpu`` backend (phase 7's),
-   each backend's requests and predicted per-image cost, both held to the
-   oracle, then one unregistered; (e) the serving CLI on a copy of
-   ``artifacts/``.
+   and after held to the oracle; (d) edge_cnn routed over four backends:
+   ``arm`` (the committed models' plan), ``gpu`` (phase 7's), ``tpu`` (the
+   simulated tile platform on the full 3,276-config pool, calibrated from
+   phase 7's intel model: every conv on a tile column, so its plan runs the
+   matmul kernel, and the Winograd point-GEMM with its transforms where it
+   chose ``mm-*`` on a Winograd base) and ``host`` (``HostPlatform``
+   measuring edge_cnn's 14 conv configs on the CPU, calibrated from the same
+   model, its plan served on the card): the seconds the tpu and host
+   preparation took, one burst pinned to each backend with the kernels it
+   launched (exactly those its columns route to), 128 routed requests,
+   each backend's columns, predicted per-image cost and requests, every
+   response held to the oracle, then gpu unregistered; (e) the serving CLI
+   on a copy of ``artifacts/``.
 9. The process front end: ``OptimisedServer(workers=2, frontend_procs=2,
    max_batch=8)`` with edge_cnn / PBQP and resnet18 / mix, its slabs
    page-locked: (a) 64 requests a path through ``ingest`` (intake processes
@@ -249,6 +259,7 @@ The script fails (non-zero exit, no result) without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import dataclasses
@@ -341,6 +352,10 @@ SERVE_WINDOW_S = 1.0                      # phase 8 (a): seconds per img/s windo
 DRILL_HANG_S = 1.0                        # phase 8 (b): the injected hang ...
 DRILL_DEADLINE_MS = 250.0                 # ... and the deadline that abandons it
 DRILL_COOLDOWN_MS = 500.0                 # breaker hold before its half-open probe
+DRILL_WARM_ROUNDS = 8                     # warm-up bursts allowed until both workers served
+ROUTE_TPU_BUDGET = 0.05                   # phase 8 (d): the tile platform's calibration sample
+ROUTE_HOST_REPEATS = 3                    # ... and the host CPU's timed calls a cell
+ROUTE_PREP_S = 45.0                       # ... their preparation's target, seconds
 DRIFT_CALIB_OBS = 8                       # phase 8 (c): dispatches that set the reference
 DRIFT_ALPHA = 0.1                         # EWMA weight: one clamped 8x outlier moves it
                                           # 0.21 < log 1.5, a sustained 4x trips it in 4
@@ -695,12 +710,14 @@ def check_responses(opt, weights, reqs, outs) -> float:
     sink = sink_nodes(opt.spec)[-1]
     before = dict(common.LAUNCHES)
     worst = 0.0
-    for xs, ys in zip(reqs, outs):
-        for x, y in zip(xs, ys):
+    for j, (xs, ys) in enumerate(zip(reqs, outs)):
+        for i, (x, y) in enumerate(zip(xs, ys)):
             rep = execute(opt.spec, base, weights, x=x, compiled=False,
                           device="cuda")
             want = rep.outputs[sink].cpu().numpy()
-            assert y.shape == want.shape and np.isfinite(y).all()
+            assert y.shape == want.shape and np.isfinite(y).all(), (
+                opt.net, "burst", j, "item", i, y.shape, want.shape,
+                int(np.isnan(y).sum()), int(np.isinf(y).sum()))
             np.testing.assert_allclose(y, want, **SERVE_TOL)
             worst = max(worst, float(np.abs(y - want).max()))
     assert common.LAUNCHES == before, "the oracle must not launch a kernel"
@@ -987,8 +1004,9 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     launch counters and signatures are set aside around the phase and put
     back after it, so the phases before it report what they report; the
     phase's own launches are in ``launches`` under its paths. Returns the
-    numbers for the report, and the measured platform with its transferred
-    edge_cnn selection (``{"gpu": ..., "opt": ...}``) for phase 8."""
+    numbers for the report, and for phase 8 the measured platform, its
+    transferred edge_cnn selection, the intel base models and the store
+    (``{"gpu": ..., "opt": ..., "intel": ..., "store": ...}``)."""
     from collections import Counter
     from repro_torch.core import pbqp
     from repro_torch.core.selection import build_pbqp, network_cost
@@ -1182,7 +1200,7 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     phase7 = ("gpu_profile", "gpu_measured_select", "edge_cnn_transfer")
     print("phase 7 launches: " + json.dumps({p: launches[p] for p in phase7}))
     print(f"transfer: phase 7 took {out['seconds']:.1f} s  ({smi})", flush=True)
-    return out, {"gpu": gpu, "opt": opt}
+    return out, {"gpu": gpu, "opt": opt, "intel": intel, "store": store}
 
 
 # ---------------------------------------------------------------------------
@@ -1280,6 +1298,26 @@ def threaded_rates(server, nets, rng) -> dict:
                                                       else busy_ms * 1e-3 / traced_s)}}
 
 
+def cpu_model() -> str:
+    """The host CPU a host-CPU measurement ran on, from ``/proc/cpuinfo``:
+    its model name, or where that is missing its vendor, family and model
+    numbers; and the core count."""
+    import os
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if not name or name == "unknown":
+        name = (f"{fields.get('vendor_id', 'unknown vendor')} family "
+                f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+    return f"{name}, {os.cpu_count()} cores"
+
+
 def until(pred, timeout: float = 60.0) -> None:
     """Poll ``pred`` until it holds; fail after ``timeout`` seconds."""
     deadline = time.perf_counter() + timeout
@@ -1301,15 +1339,18 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     abandoned at the execution deadline, rescued, its worker replaced; (c)
     the drift drill on phase 7's transferred plan — a 4x ``slowdown``
     sets off one recalibration on the measured platform from the served
-    observations, canaried and hot-swapped; (d) edge_cnn routed over an
-    ``arm`` and a ``gpu`` backend, then one unregistered; (e) the serving
-    CLI. Launch counters and signatures are set aside around the phase and
+    observations, canaried and hot-swapped; (d) edge_cnn routed over
+    ``arm``, ``gpu``, ``tpu`` and ``host`` backends, then one unregistered;
+    (e) the serving CLI. Launch counters and signatures are set aside around the phase and
     put back; its launches are in ``launches`` under its paths."""
     import threading
     from collections import Counter
     from repro_torch.kernels import common
+    from repro_torch.models.cnn_zoo import ConvLayer
+    from repro_torch.primitives.conv import split_tile
     from repro_torch.service import (ArtifactStore, Fault, FaultInjector,
-                                     OptimisedServer, make_recalibrator,
+                                     HostPlatform, OptimisedServer,
+                                     get_platform, make_recalibrator,
                                      optimise)
     from repro_torch.service.server import main as serve_main
     saved = (dict(common.LAUNCHES), {k: Counter(c) for k, c in common.SEEN.items()})
@@ -1395,12 +1436,14 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     assert not any(st[n][k] for n in served for k in clean), st
     server.stop()
 
-    # (b) the fault drill
+    # (b) the fault drill. A full collection over the objects the phases
+    # before leave pauses every thread for up to ~275 ms on the card's
+    # host, past the 250 ms deadline: the drill runs with the collector
+    # off, after one collection
+    gc.collect()
+    gc.disable()
     pbqp = nets["edge_cnn_pbqp"]
-    inj = FaultInjector([Fault("raise", net="edge_cnn#a"),
-                         Fault("corrupt", net="edge_cnn_mix", first=0, last=1),
-                         Fault("hang", net="edge_cnn_mix", first=2, last=3,
-                               seconds=DRILL_HANG_S)])
+    inj = FaultInjector([Fault("raise", net="edge_cnn#a")])
     drill = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
                             faults=inj, breaker_failures=3,
                             breaker_cooldown_ms=DRILL_COOLDOWN_MS,
@@ -1422,6 +1465,24 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
                        backend=backend, weights=weights["edge_cnn_pbqp"])
     drill.register(nets["edge_cnn_mix"], weights=weights["edge_cnn_mix"],
                    max_wait_ms=60e3)
+    # each drill worker serves the mix path once before its faults are
+    # armed, so no worker's first use of the plan falls inside the
+    # deadline; two full batches at once, until both served
+    mix = nets["edge_cnn_mix"]
+    warm = images(rng, mix.spec, 16)
+    for warm_rounds in range(1, DRILL_WARM_ROUNDS + 1):
+        wt = [drill.submit("edge_cnn_mix", x) for x in warm]
+        assert all(t.wait(60.0) for t in wt)
+        if min(drill._pool.dispatches) > 0:
+            break
+    assert min(drill._pool.dispatches) > 0, drill._pool.dispatches
+    warm_dispatches = list(drill._pool.dispatches)
+    check_responses(mix, weights["edge_cnn_mix"], [warm], [[t.result for t in wt]])
+    w0 = inj.count("edge_cnn_mix")
+    warm_images = drill.stats("edge_cnn_mix")["images"]
+    inj.faults += [Fault("corrupt", net="edge_cnn_mix", first=w0, last=w0 + 1),
+                   Fault("hang", net="edge_cnn_mix", first=w0 + 2, last=w0 + 3,
+                         seconds=DRILL_HANG_S)]
     common.reset_launches()
     raised = [images(rng, pbqp.spec, 8) for _ in range(4)]
     ts = []
@@ -1454,14 +1515,13 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
           f"{len(spill)} spilled to edge_cnn#b, faults ended -> half-open "
           f"probe closed it (opens {br['opens']}, closes {br['closes']})",
           flush=True)
-    mix = nets["edge_cnn_mix"]
     corrupt = images(rng, mix.spec, 8)
     out_c = drill.serve("edge_cnn_mix", list(corrupt))
     sm = drill.stats("edge_cnn_mix")
     # the corrupt output failed validation and the retry served the batch
-    assert ("edge_cnn_mix", 0, 0, "corrupt") in inj.injected
+    assert ("edge_cnn_mix", 0, w0, "corrupt") in inj.injected
     assert sm["retries"] == 1 and not sm["failures"], (sm, drill._pool.restarts)
-    assert sm["fallback_images"] == 0 and sm["images"] == 8, sm
+    assert sm["fallback_images"] == 0 and sm["images"] == warm_images + 8, sm
     hang = images(rng, mix.spec, 8)
     t0 = time.perf_counter()
     hung = [drill.submit("edge_cnn_mix", x) for x in hang]
@@ -1481,7 +1541,9 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     sm = drill.stats("edge_cnn_mix")
     assert sm["failures"] == {"deadline": 1}, sm["failures"]
     launches["serve_faults"] = dict(common.LAUNCHES)
-    out["faults"] = {"degraded": len(on_a), "spilled": len(spill),
+    out["faults"] = {"warm_rounds": warm_rounds,
+                     "warm_worker_dispatches": warm_dispatches,
+                     "degraded": len(on_a), "spilled": len(spill),
                      "breaker": br, "raise_max_abs_err": err_raise,
                      "mix_max_abs_err": err_mix, "rescue_s": rescue_s,
                      "zombies_after_rescue": zombies, "restarts": restarts,
@@ -1489,13 +1551,16 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
                      "ledger": {"edge_cnn": fa["failures"],
                                 "edge_cnn_mix": sm["failures"]},
                      "launches": launches["serve_faults"]}
-    print(f"serve (b): corrupt output detected and served by the retry "
+    print(f"serve (b): mix path warmed on both workers first ({warm_rounds} "
+          f"round(s) of 16, worker dispatches {warm_dispatches}); corrupt "
+          f"output detected and served by the retry "
           f"(retries {sm['retries']}); hang of {DRILL_HANG_S} s abandoned at the "
           f"{DRILL_DEADLINE_MS:g} ms deadline and rescued degraded in "
           f"{rescue_s:.3f} s, worker replaced (restarts {restarts}, zombies "
           f"{zombies}, {drill._pool.zombies} once the hang ended); max |err| "
           f"{err_mix:.3g}", flush=True)
     drill.stop()
+    gc.enable()
 
     # (c) the drift drill on the transferred plan
     gpu_opt = dataclasses.replace(transferred["opt"], net="edge_cnn_transfer")
@@ -1524,10 +1589,11 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     drift.register(gpu_opt, weights=gpu_w)
     key = gpu_opt.net
     common.reset_launches()
-    sent, results = [], []
+    sent, results, generations = [], [], []
     for j in range(DRIFT_CALIB_OBS + 4):                 # the reference ratio
         sent.append(images(rng, gpu_opt.spec, 8))
         results.append(drift.serve(key, list(sent[-1])))
+        generations.append(drift.stats(key)["generation"])
         if j == 0:                                       # the cold dispatch
             until(lambda: drift._pool.busy == 0)
             cold = drift.stats(key)
@@ -1543,6 +1609,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     for i in range(DRIFT_MAX_BURSTS):
         sent.append(images(rng, gpu_opt.spec, 8))
         results.append(drift.serve(key, list(sent[-1])))
+        generations.append(drift.stats(key)["generation"])
         # tickets finish before the dispatch's drift observation lands
         until(lambda: drift._pool.busy == 0)
         if drift._drift.stats(key).triggers or timing["calls"]:
@@ -1565,6 +1632,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     for _ in range(4):                                   # after the swap
         sent.append(images(rng, gpu_opt.spec, 8))
         results.append(drift.serve(key, list(sent[-1])))
+        generations.append(drift.stats(key)["generation"])
     sd = drift.stats(key)
     assert sd["recalibrations"] == 1 and sd["generation"] == 1, sd
     assert not any(sd[k] for k in clean), sd
@@ -1572,6 +1640,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
         new_opt = drift._nets[key].opt
     drift.stop()
     launches["serve_drift"] = dict(common.LAUNCHES)
+    print(f"serve (c): generation serving each burst {generations}", flush=True)
     err_drift = check_responses(gpu_opt, gpu_w, sent, results)
     sample = sd["recal_sample"] or {}
     changed = sum(new_opt.assignment[i] != a for i, a in gpu_opt.assignment.items())
@@ -1596,51 +1665,109 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
           f"launches during it {recal_launches}; max |served - oracle| "
           f"{err_drift:.3g} over {len(sent)} bursts  ({smi})", flush=True)
 
-    # (d) edge_cnn over an arm and a gpu backend
+    # (d) edge_cnn routed over arm, gpu, tpu and host backends
     shutil.copytree(ARTIFACTS / "models", td / "serve_store" / "models")
     shutil.copytree(ARTIFACTS / "selections", td / "serve_store" / "selections")
     arm = optimise("edge_cnn", "arm", store=ArtifactStore(
         str(td / "serve_store"), device="cuda"), **OPTIMISE_ARGS)
+    spec = arm.spec
+    convs = [i for i, n in enumerate(spec.nodes) if isinstance(n, ConvLayer)]
+    intel, store = transferred["intel"], transferred["store"]
+    prep = {}
+    t0 = time.perf_counter()
+    tpu = optimise("edge_cnn", get_platform("tpu"), base=intel,
+                   budget=ROUTE_TPU_BUDGET, executable=True, store=store,
+                   device="cuda")
+    prep["tpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = HostPlatform(configs=sorted({spec.nodes[i].config for i in convs}),
+                        repeats=ROUTE_HOST_REPEATS)
+    host_opt = optimise("edge_cnn", host, base=intel, budget=TRANSFER_BUDGET,
+                        executable=True, store=store, device="cuda")
+    prep["host"] = time.perf_counter() - t0
+    cpu = cpu_model()
+    assert all(split_tile(tpu.assignment[i])[1] for i in convs), tpu.assignment
+    assert not any(split_tile(host_opt.assignment[i])[1] for i in convs)
+    print(f"serve (d): prepared tpu ({tpu.platform.fingerprint()}, "
+          f"{len(tpu.platform.primitive_dataset().feats)} configs x "
+          f"{len(tpu.columns)} tile columns, {tpu.models.mode} from phase 7's "
+          f"intel model) in {prep['tpu']:.2f} s and host "
+          f"({host.fingerprint()}, {len(host.primitive_dataset().feats)} "
+          f"configs x {len(host.columns)} primitives measured on the CPU, "
+          f"{cpu}, {host_opt.models.mode}) in {prep['host']:.2f} s: "
+          f"{prep['tpu'] + prep['host']:.2f} s (target {ROUTE_PREP_S:g})",
+          flush=True)
+    opts = {"arm": arm, "gpu": transferred["opt"], "tpu": tpu, "host": host_opt}
     router = OptimisedServer(workers=2, max_batch=8, max_wait_ms=2.0,
                              device="cuda")
     edge_w = weights["edge_cnn_pbqp"]
-    router.register(arm, backend="arm", weights=edge_w)
-    router.register(dataclasses.replace(transferred["opt"], net="edge_cnn"),
-                    backend="gpu", weights=edge_w)
-    predicted = {b: router.predict_per_image(f"edge_cnn#{b}") for b in ("arm", "gpu")}
+    for b, o in opts.items():
+        router.register(dataclasses.replace(o, net="edge_cnn"), backend=b,
+                        weights=edge_w)
+    predicted = {b: router.predict_per_image(f"edge_cnn#{b}") for b in opts}
+    # one burst pinned to each backend, its launches read alone: a backend
+    # launches exactly the kernels its tile columns route to
+    by_backend = {b: ([], []) for b in opts}
+    for b, o in opts.items():
+        xs = images(rng, spec, 8)
+        common.reset_launches()
+        ts = [router.submit(f"edge_cnn#{b}", x) for x in xs]
+        assert all(t.wait(120.0) for t in ts)
+        torch.cuda.synchronize()
+        launches[f"serve_routing_{b}"] = got = dict(common.LAUNCHES)
+        want = routed_kernels(o.assignment)
+        assert all(got[k] > 0 for k in want), (b, got)
+        assert all(got[k] == 0 for k in common.KERNELS if k not in want), (b, got)
+        by_backend[b][0].extend(xs)
+        by_backend[b][1].extend(ts)
+    assert launches["serve_routing_tpu"]["matmul"] > 0
     common.reset_launches()
-    routed = images(rng, arm.spec, 128)
+    routed = images(rng, spec, 128)
     rt = [router.submit("edge_cnn", x) for x in routed]
-    pinned = images(rng, arm.spec, 16)
-    rt += [router.submit(f"edge_cnn#{('arm', 'gpu')[j % 2]}", x)
-           for j, x in enumerate(pinned)]
     assert all(t.wait(120.0) for t in rt)
-    counts = Counter(t.net for t in rt[:128])
-    by_backend = {}
-    for b in ("arm", "gpu"):
-        mine = [(x, t) for x, t in zip(np.concatenate([routed, pinned]), rt)
-                if t.net == f"edge_cnn#{b}"]
-        opt_b = arm if b == "arm" else transferred["opt"]
-        by_backend[b] = check_responses(opt_b, edge_w, [[x for x, _ in mine]],
-                                        [[t.result for _, t in mine]])
+    counts = Counter(t.net.split("#")[1] for t in rt)
+    for x, t in zip(routed, rt):
+        b = t.net.split("#")[1]
+        by_backend[b][0].append(x)
+        by_backend[b][1].append(t)
     assert router.unregister_backend("edge_cnn", "gpu")
     rest = [router.submit("edge_cnn", x) for x in routed[:16]]
     assert all(t.wait(60.0) for t in rest)
-    assert {t.net for t in rest} == {"edge_cnn#arm"}
-    check_responses(arm, edge_w, [routed[:16]], [[t.result for t in rest]])
+    assert "edge_cnn#gpu" not in {t.net for t in rest}
+    for x, t in zip(routed[:16], rest):
+        b = t.net.split("#")[1]
+        by_backend[b][0].append(x)
+        by_backend[b][1].append(t)
     sr = router.stats("edge_cnn")
     assert not any(sr[k] for k in clean), sr
     router.stop()
+    torch.cuda.synchronize()
     launches["serve_routing"] = dict(common.LAUNCHES)
-    out["routing"] = {"predicted_ms": {b: v * 1e3 for b, v in predicted.items()},
+    out["routing"] = {"prepare_s": prep, "host_cpu": cpu, "backends": {},
                       "routed_requests": dict(counts),
-                      "max_abs_err": by_backend, "after_unregister": len(rest)}
-    print(f"serve (d): edge_cnn over backends arm (committed models' PBQP "
-          f"plan, predicted {predicted['arm'] * 1e3:.4f} ms/img) and gpu "
-          f"(phase 7's plan, predicted {predicted['gpu'] * 1e3:.4f} ms/img): "
-          f"128 routed requests went {dict(counts)}; max |served - oracle| "
-          f"{by_backend}; after unregistering gpu all {len(rest)} went to arm"
-          f"  ({smi})", flush=True)
+                      "after_unregister": dict(Counter(t.net.split("#")[1]
+                                                       for t in rest))}
+    for b, o in opts.items():
+        xs, ts = by_backend[b]
+        assert all(t.error is None and not t.degraded for t in ts), b
+        err = check_responses(o, edge_w, [xs], [[t.result for t in ts]])
+        row = {"columns": dict(Counter(o.assignment[i] for i in convs)),
+               "routed_kernels": sorted(routed_kernels(o.assignment)),
+               "predicted_ms": predicted[b] * 1e3, "requests": len(ts),
+               "launches": launches[f"serve_routing_{b}"],
+               "max_abs_err": err}
+        out["routing"]["backends"][b] = row
+        source = "measured" if b in ("gpu", "host") else "simulated"
+        print(f"serve (d): backend {b} ({o.platform.fingerprint()}): "
+              f"predicted {row['predicted_ms']:.4f} ms/img ({source} "
+              f"costs), {len(ts)} "
+              f"requests ({counts.get(b, 0)} routed), columns "
+              f"{row['columns']}, routed kernels {row['routed_kernels']}, "
+              f"launches of its pinned burst {row['launches']}, max "
+              f"|served - oracle| {err:.3g}  ({smi})", flush=True)
+    print(f"serve (d): 128 routed requests went {dict(counts)}; after "
+          f"unregistering gpu 16 went {out['routing']['after_unregister']}",
+          flush=True)
 
     # (e) the serving CLI on a store copy
     common.reset_launches()
@@ -1660,8 +1787,9 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     for k, c in saved[1].items():
         common.SEEN[k] = c
     out["seconds"] = time.perf_counter() - t_phase
-    phase8 = ("serve_workers", "serve_faults", "serve_drift", "serve_routing",
-              "serve_cli")
+    phase8 = ("serve_workers", "serve_faults", "serve_drift",
+              *(f"serve_routing_{b}" for b in ("arm", "gpu", "tpu", "host")),
+              "serve_routing", "serve_cli")
     print("phase 8 launches: " + json.dumps({p: launches[p] for p in phase8}))
     print(f"serve: phase 8 took {out['seconds']:.1f} s  ({smi})", flush=True)
     return out

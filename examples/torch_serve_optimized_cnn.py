@@ -11,8 +11,11 @@ an images/s curve over batch sizes 1/4/16. ``--workers N`` serves baseline
 and optimised nets through ONE concurrent server (N worker threads,
 ``--max-wait-ms`` batch windows) instead of sequential measurements.
 ``--backends`` also routes one request stream across backends by predicted
-cost: simulated platforms (``intel``, ``amd``, ``arm``) and ``gpu`` (the
-platform profiled above); other names raise as ``get_platform`` does.
+cost: simulated platforms (``intel``, ``amd``, ``arm``), the simulated tile
+platform (``tpu`` / ``pallas``, whose plan runs the hand-written kernels),
+``host`` (this machine's CPU, measured on the pool above) and ``gpu`` (the
+platform profiled above); every plan serves on ``--device``. Other names
+raise as ``get_platform`` does.
 
 The platform measures the card: without one ``GpuPlatform`` raises.
 ``--device cpu`` profiles and serves on the host instead, for the tests.
@@ -29,8 +32,8 @@ import numpy as np
 from repro_torch.models import cnn_zoo
 from repro_torch.models.cnn_zoo import ConvLayer
 from repro_torch.primitives.executor import make_weights
-from repro_torch.service import (GpuPlatform, OptimisedNetwork, OptimisedServer,
-                                 get_platform, optimise)
+from repro_torch.service import (GpuPlatform, HostPlatform, OptimisedNetwork,
+                                 OptimisedServer, get_platform, optimise)
 
 PRIMITIVES = ["im2col-copy-ab-ki", "im2col-scan-ab-ki", "kn2row", "mec-col",
               "winograd-2x2-3x3", "conv-1x1-gemm-ab-ki", "direct-sum2d"]
@@ -156,7 +159,10 @@ def run(*, requests: int = 16, batch: int = 8, sweep: bool = False,
                                  workers=max(workers, 2), max_wait_ms=max_wait_ms,
                                  queue_depth=2 * requests * batch, device=device)
         for name in backends:
-            plat = platform if name == "gpu" else get_platform(name, max_triplets=8)
+            plat = (platform if name == "gpu" else
+                    HostPlatform(configs=pool, dlt_pairs=DLT_PAIRS,
+                                 primitives=PRIMITIVES, repeats=repeats)
+                    if name == "host" else get_platform(name, max_triplets=8))
             o = optimise(spec, plat, base=base, budget=0.05, executable=True,
                          max_iters=400, device=device)
             server.register(o, backend=name, weights=weights, max_inflight=1)
@@ -199,7 +205,8 @@ def main(argv=None) -> dict:
                          "serving section; inf = batch-size cap only")
     ap.add_argument("--backends", default=None, metavar="P1,P2,...",
                     help="also route one request stream across these "
-                         "platforms by predicted cost (e.g. 'arm,gpu')")
+                         "platforms by predicted cost (e.g. 'arm,tpu,host,"
+                         "gpu')")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     backends = ([s.strip() for s in args.backends.split(",") if s.strip()]

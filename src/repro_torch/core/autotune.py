@@ -1,6 +1,6 @@
 """Kernel-variant selection: the port of ``repro.core.autotune``.
 
-Two parts.
+Three parts.
 
 **Tile columns of the conv kernels** (``PALLAS_CONV_BASES``,
 ``pallas_columns``). A tile column ``<base>@<variant>`` is a runnable base
@@ -41,10 +41,16 @@ hours):
 ``AutotuneResult.oracle_s`` is the best of the measured (or injected) costs
 per site, not the analytic surface.
 
-The reference's analytic TPU surface (``analytic_cost``,
-``conv_tile_time_batch``, ``pallas_dlt_time_batch``, ``PallasTileProvider``)
-is not ported: on the card tile columns and GEMMs are measured
-(``profiler/device.py``, ``service.platforms.GpuPlatform``, ``MeasuredCost``).
+**The analytic tile-cost surface** (``analytic_cost``,
+``conv_tile_time_batch``, ``pallas_dlt_time_batch``, ``PallasTileProvider``):
+the cost model of the simulated tile platform
+(``service.platforms.PallasPlatform``), the reference's math and
+counter-based noise, bit for bit. It prices the reference's blocks (the
+``VARIANTS`` tables of the three kernels' ``ops``), never the card's
+``CTA_TILES``, and its three constants are the simulated platform's
+parameters, not a measurement of any device. Nothing here uses it as a
+default: ``build_dataset`` and ``autotune_arch`` take it only as an
+injected ``cost_fn``.
 """
 from __future__ import annotations
 
@@ -62,8 +68,11 @@ from repro_torch.core.perfmodel import PerfModel, fit_perf_model
 from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
 from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS, matmul_op
 from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
-from repro_torch.primitives.conv import tile_columns
+from repro_torch.primitives import layouts as L
+from repro_torch.primitives.conv import (FAMILIES, compile_traits, name_hash64,
+                                         split_tile, tile_columns)
 from repro_torch.profiler.device import time_callable
+from repro_torch.profiler.simulators import _lognormal, _mix64
 
 # Kernel-backed base primitives: im2col lowerings ride the matmul or the
 # implicit-GEMM conv kernel, winograd the Winograd point-GEMM, 1x1 the
@@ -95,6 +104,197 @@ def pallas_columns(bases: Sequence[str] = PALLAS_CONV_BASES,
     run only; ``variants`` defaults to every variant of the three kernels."""
     return tile_columns(bases, list(variants) if variants is not None
                         else list(TILE_VARIANTS))
+
+
+# ---------------------------------------------------------------------------
+# The analytic tile-cost surface of the simulated tile platform. Each CNN
+# layer config (k, c, im, s, f) lowers to the GEMM its base primitive runs;
+# each (primitive, tile) column prices that GEMM under its block shape via
+# ``analytic_cost``. The result is the simulators' (L, P) matrix contract:
+# NaN where the base primitive is inapplicable, deterministic lognormal
+# noise keyed on the full column name.
+# ---------------------------------------------------------------------------
+
+# Parameters of the simulated tile platform, the reference's values: peak
+# product rate (FLOP/s), memory rate (bytes/s) and the on-chip tile memory
+# (bytes) a block's working set must fit
+_PEAK = 197e12
+_HBM_BW = 819e9
+_VMEM_BYTES = 64 * 2 ** 20
+_TILE_SIGMA = 0.03                  # lognormal noise floor of the simulated profiler
+
+
+def analytic_cost(M: int, K: int, N: int, bm: int, bk: int, bn: int,
+                  dtype_bytes: int = 2) -> float:
+    """Simulated seconds of a tiled (M,K)x(K,N) GEMM under (bm, bk, bn)
+    blocks. Non-linear in the blocks: product-unit alignment, tile-memory
+    residency, per-tile grid overheads and operands re-streamed across tile
+    passes."""
+    gm, gn, gk = -(-M // bm), -(-N // bn), -(-K // bk)
+    # padding waste from tile quantisation
+    eff_shape = (M / (gm * bm)) * (N / (gn * bn)) * (K / (gk * bk))
+    # alignment: sub-128 blocks underuse the product unit
+    align = min(bm, 128) / 128 * min(bn, 128) / 128 * min(bk, 128) / 128
+    mxu_eff = 0.9 * eff_shape * (0.55 + 0.45 * align)
+    # residency: the working set must fit the tile memory; overflow thrashes
+    ws = dtype_bytes * (bm * bk + bk * bn) + 4 * bm * bn
+    if ws > _VMEM_BYTES:
+        mxu_eff *= 0.25
+    flops = 2.0 * M * N * K
+    t_compute = flops / (_PEAK * mxu_eff)
+    # memory: x re-read gn times, y re-read gm times (output-stationary)
+    traffic = dtype_bytes * (M * K * gn + K * N * gm) + dtype_bytes * M * N
+    t_mem = traffic / _HBM_BW
+    t_grid = gm * gn * gk * 1.2e-6      # per-tile dispatch overhead
+    return max(t_compute, t_mem) + t_grid
+
+
+def _analytic_cost_np(M, K, N, bm: int, bk: int, bn: int,
+                      dtype_bytes: int = 2) -> np.ndarray:
+    """Broadcasting twin of ``analytic_cost`` (identical math; the
+    residency branch depends on the blocks only)."""
+    M, K, N = (np.asarray(a, np.float64) for a in (M, K, N))
+    gm, gn, gk = np.ceil(M / bm), np.ceil(N / bn), np.ceil(K / bk)
+    eff_shape = (M / (gm * bm)) * (N / (gn * bn)) * (K / (gk * bk))
+    align = min(bm, 128) / 128 * min(bn, 128) / 128 * min(bk, 128) / 128
+    mxu_eff = 0.9 * eff_shape * (0.55 + 0.45 * align)
+    ws = dtype_bytes * (bm * bk + bk * bn) + 4 * bm * bn
+    if ws > _VMEM_BYTES:
+        mxu_eff = mxu_eff * 0.25
+    flops = 2.0 * M * N * K
+    t_compute = flops / (_PEAK * np.maximum(mxu_eff, 1e-9))
+    traffic = dtype_bytes * (M * K * gn + K * N * gm) + dtype_bytes * M * N
+    t_mem = traffic / _HBM_BW
+    t_grid = gm * gn * gk * 1.2e-6
+    return np.maximum(t_compute, t_mem) + t_grid
+
+
+def _variant_blocks(variant: Optional[str]) -> Tuple[int, int, int]:
+    """(bm, bk, bn) GEMM blocks a tile variant names in the reference's
+    tables: ``mm-*`` directly, ``conv-bkB`` its B-sized output-channel
+    (GEMM M) block, ``wino-KxT`` the point-GEMM's (K, T) = (M, N) blocks;
+    (128, 128, 128) for anything else."""
+    if variant in MM_VARIANTS:
+        return MM_VARIANTS[variant]
+    if variant is not None and variant.startswith("conv-bk"):
+        b = CONV_VARIANTS.get(variant)
+        return (b, 128, 128) if b else (128, 128, 128)
+    if variant is not None and variant.startswith("wino-"):
+        kt = WINO_VARIANTS.get(variant)
+        return (kt[0], 128, kt[1]) if kt else (128, 128, 128)
+    return (128, 128, 128)
+
+
+def _simulated_columns(columns: Optional[Sequence[str]]) -> Tuple[str, ...]:
+    """``columns``, or the simulated platform's default: the reference's 40,
+    ``PALLAS_CONV_BASES`` x the matmul ``VARIANTS``."""
+    return tuple(columns) if columns is not None else tuple(
+        pallas_columns(variants=list(MM_VARIANTS)))
+
+
+def conv_tile_time_batch(configs: np.ndarray,
+                         columns: Optional[Sequence[str]] = None,
+                         *, noisy: bool = True,
+                         time_scale: float = 1.0) -> np.ndarray:
+    """(L, 5) conv configs -> (L, P) simulated per-image seconds over tile
+    columns. Per base family the layer lowers to:
+
+    * im2col: (k, c·f²) @ (c·f², oh·ow), plus the patch matrix written once;
+    * 1x1: (k, c) @ (c, oh·ow);
+    * winograd: n² point GEMMs (k, c) @ (c, tiles) plus input and output
+      transform traffic (n = tile_m + r − 1, tiles = ⌈oh/m⌉·⌈ow/m⌉).
+
+    NaN where the base primitive is inapplicable."""
+    names = _simulated_columns(columns)
+    cfg = np.asarray(configs, np.int64)
+    if cfg.ndim != 2 or cfg.shape[1] != 5:
+        raise ValueError(f"configs must be (L, 5), got {cfg.shape}")
+    tr = compile_traits(names)
+    ki, ci, imi, si, fi = (cfg[:, j] for j in range(5))
+    app = tr.applicable_mask(ki, ci, imi, si, fi)            # (L, P)
+    o = (imi - fi) // np.maximum(si, 1) + 1                  # (L,)
+    k = ki.astype(np.float64)
+    c = ci.astype(np.float64)
+    f = fi.astype(np.float64)
+    P = o.astype(np.float64) ** 2
+
+    out = np.empty((cfg.shape[0], len(names)), np.float64)
+    for j, name in enumerate(names):
+        base, variant = split_tile(name)
+        bm, bk, bn = _variant_blocks(variant)
+        if base.startswith("conv-1x1"):
+            t = _analytic_cost_np(k, c, P, bm, bk, bn)
+        elif base.startswith("winograd"):
+            m = int(tr.tile_m[j]) or 2
+            r = 5 if tr.fam[j] == FAMILIES.index("wino5") else 3
+            n = m + r - 1
+            tiles = np.ceil(o / m) ** 2
+            t = (n * n) * _analytic_cost_np(k, c, tiles, bm, bk, bn)
+            t = t + 2.0 * 2 * (c + k) * n * n * tiles / _HBM_BW
+        else:                                      # im2col lowerings
+            t = _analytic_cost_np(k, c * f * f, P, bm, bk, bn)
+            t = t + 2.0 * c * f * f * P / _HBM_BW
+        out[:, j] = t
+    if noisy:
+        h = _mix64(tr.key[None, :].astype(np.uint64))
+        for fld in (ki, ci, imi, si, fi):
+            h = _mix64(h ^ fld.astype(np.uint64)[:, None])
+        out *= _lognormal(h, _TILE_SIGMA)
+    out *= time_scale
+    out[~app] = np.nan
+    return out
+
+
+def _dlt_pairs() -> List[Tuple[str, str]]:
+    """The non-identity DLT (src, dst) pairs, in ``layouts.dlt_pairs()`` order."""
+    return [(s, d) for (s, d) in L.dlt_pairs() if s != d]
+
+
+def pallas_dlt_time_batch(pairs: np.ndarray, *, noisy: bool = True,
+                          time_scale: float = 1.0) -> np.ndarray:
+    """(M, 2) (c, im) pairs -> (M, 6) simulated seconds of the non-identity
+    DLTs, priced as permute traffic (a full chw<->hwc transpose streams
+    worse than an adjacent swap)."""
+    pr = np.asarray(pairs, np.int64)
+    if pr.ndim != 2 or pr.shape[1] != 2:
+        raise ValueError(f"pairs must be (M, 2), got {pr.shape}")
+    ni = _dlt_pairs()
+    eff = np.array([0.35 if {s, d} == {"chw", "hwc"} else 0.6 for (s, d) in ni])
+    keys = np.array([name_hash64("pallas-dlt|" + L.dlt_name(s, d))
+                     for (s, d) in ni], np.uint64)
+    c = pr[:, 0].astype(np.float64)
+    im = pr[:, 1].astype(np.float64)
+    bytes_moved = 2.0 * 4.0 * c * im * im                    # read + write
+    out = bytes_moved[:, None] / (_HBM_BW * eff[None, :]) + 2e-6
+    if noisy:
+        h = _mix64(keys[None, :])
+        for fld in (pr[:, 0], pr[:, 1]):
+            h = _mix64(h ^ fld.astype(np.uint64)[:, None])
+        out *= _lognormal(h, _TILE_SIGMA)
+    return out * time_scale
+
+
+class PallasTileProvider:
+    """Cost provider over (primitive, tile) columns priced by the analytic
+    surface: the simulated tile platform's ground truth for selection."""
+
+    def __init__(self, columns: Optional[Sequence[str]] = None, *,
+                 noisy: bool = True, time_scale: float = 1.0):
+        self.columns = list(_simulated_columns(columns))
+        self.noisy = noisy
+        self.time_scale = time_scale
+
+    def primitive_cost_matrix(self, configs: np.ndarray) -> np.ndarray:
+        if len(configs) == 0:
+            return np.zeros((0, len(self.columns)))
+        return conv_tile_time_batch(configs, self.columns, noisy=self.noisy,
+                                    time_scale=self.time_scale)
+
+    def dlt_cost_matrix(self, pairs: np.ndarray) -> np.ndarray:
+        if len(pairs) == 0:
+            return np.zeros((0, len(_dlt_pairs())))
+        return pallas_dlt_time_batch(pairs, noisy=self.noisy,
+                                     time_scale=self.time_scale)
 
 
 def matmul_sites(cfg: ArchConfig, seq: int = 4096, batch_tokens: int = SITE_BATCH_TOKENS,

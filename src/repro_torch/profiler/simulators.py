@@ -177,12 +177,13 @@ def _plat_key(name: str) -> int:
     return name_hash64("plat|" + name)
 
 
-def _noise_from_hash(plat: Platform, h: np.ndarray) -> np.ndarray:
+def _lognormal(h: np.ndarray, sigma: float) -> np.ndarray:
+    """Lognormal factors exp(sigma * z), z standard normal drawn from the
+    hashes ``h`` (Box-Muller over two 52-bit fields)."""
     u = (h & np.uint64(_MASK52)).astype(np.float64) / float(1 << 52)
     v = ((h >> np.uint64(8)) & np.uint64(_MASK52)).astype(np.float64) / float(1 << 52)
-    # Box-Muller
     z = np.sqrt(-2.0 * np.log(np.maximum(u, 1e-12))) * np.cos(2 * np.pi * v)
-    return np.exp(plat.noise_sigma * z)
+    return np.exp(sigma * z)
 
 
 def _noise_matrix(plat: Platform, col_keys: np.ndarray, *fields) -> np.ndarray:
@@ -190,7 +191,7 @@ def _noise_matrix(plat: Platform, col_keys: np.ndarray, *fields) -> np.ndarray:
     h = _mix64(np.uint64(_plat_key(plat.name)) ^ col_keys.astype(np.uint64)[None, :])
     for f in fields:
         h = _mix64(h ^ np.asarray(f, np.uint64)[:, None])
-    return _noise_from_hash(plat, h)
+    return _lognormal(h, plat.noise_sigma)
 
 
 _TRANS_PENALTY = {None: 1.0, "atb": 1.06, "abt": 1.06, "atbt": 1.16}

@@ -1,6 +1,7 @@
-"""Service layer of the port: platform abstraction (the simulated platforms
-and the measured GPU), artifact store, the profile → model → select
-pipeline and the concurrent serving core.
+"""Service layer of the port: platform abstraction (the simulated platforms,
+the simulated tile platform, the measured host CPU and the measured GPU),
+artifact store, the profile → model → select pipeline and the concurrent
+serving core.
 
     from repro_torch.service import ArtifactStore, OptimisedServer, optimise
 
@@ -17,6 +18,10 @@ pipeline and the concurrent serving core.
     opt = optimise("edge_cnn", gpu, base=intel, budget=28, mode="finetune",
                    store=store, executable=True)
 
+    # the simulated tile platform: its plans serve on the kernels
+    tpu = optimise("edge_cnn", "tpu", base=intel, budget=0.05,
+                   executable=True)
+
 The names load lazily (PEP 562), so importing ``repro_torch.service``
 loads nothing: the serving front end's intake processes import its
 torch-free submodules only.
@@ -27,9 +32,11 @@ _EXPORTS = {
     "ArtifactStore": "artifacts", "digest": "artifacts",
     "OptimisedNetwork": "pipeline", "optimise": "pipeline",
     "reoptimise": "pipeline", "safe_assignment": "pipeline",
-    "GpuPlatform": "platforms", "Platform": "platforms",
+    "GpuPlatform": "platforms", "HostPlatform": "platforms",
+    "PallasPlatform": "platforms", "Platform": "platforms",
     "PlatformModels": "platforms", "SimulatedPlatform": "platforms",
     "device_machine_id": "platforms", "get_platform": "platforms",
+    "host_machine_id": "platforms",
     "BackendError": "store_backends", "LocalDirBackend": "store_backends",
     "ObjectStoreBackend": "store_backends", "ScriptedFaults": "store_backends",
     "StoreBackend": "store_backends", "get_backend": "store_backends",

@@ -20,31 +20,36 @@ warm-start in milliseconds instead of retraining (Table 4, operational).
 The port of ``repro.service.platforms``. The simulated platforms (intel,
 amd, arm) are ported in full, with the reference's model and selection
 addresses, so a store the reference filled warm-starts the port and the
-other way round. Models train on the store's device, or without a store on
-an explicit ``device`` (``cuda`` by default). The port's measured platform
-is ``GpuPlatform``: the reference's host-CPU platform moved onto the card,
-and the measured form of its Pallas platform (tile columns timed through
-the hand-written kernels instead of priced by an analytic TPU surface).
+other way round. So is the simulated tile platform (``PallasPlatform``,
+``tpu`` / ``pallas``), whose selections serve on the hand-written kernels,
+and the measured host-CPU platform (``HostPlatform``). Models train on the
+store's device, or without a store on an explicit ``device`` (``cuda`` by
+default). The port adds a measured platform of its own, ``GpuPlatform``:
+the card, with tile columns timed through the hand-written kernels.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.autotune import pallas_columns
+from repro_torch.core.autotune import (PALLAS_CONV_BASES, PallasTileProvider,
+                                       conv_tile_time_batch,
+                                       pallas_dlt_time_batch, pallas_columns)
 from repro_torch.core.perfmodel import (FactorCorrectedModel, PerfModel,
                                         factor_correct, fit_perf_model)
 from repro_torch.core.selection import (CostProvider, MeasuredProvider,
                                         ModelProvider, SimulatedProvider)
+from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
 from repro_torch.primitives.conv import (PRIMITIVE_NAMES, RUNNABLE,
                                          is_runnable, split_tile)
 from repro_torch.profiler import device as device_profiler
-from repro_torch.profiler import pools
+from repro_torch.profiler import host, pools
 from repro_torch.profiler.dataset import (PerfDataset, merge_served,
                                           simulate_dlt_dataset,
                                           simulate_primitive_dataset)
@@ -132,11 +137,11 @@ class Platform(abc.ABC):
 
     def base_column(self, column: str) -> str:
         """Map one of this platform's columns onto the base-registry
-        primitive a foreign base model would know it as. Identity for plain
-        platforms; tile-column platforms strip the tile suffix so a wide
-        base model expands onto their (primitive, tile) columns
+        primitive a foreign base model would know it as: the tile suffix
+        stripped (identity on a plain primitive), so a wide base model
+        expands onto (primitive, tile) columns
         (``PerfModel.subset_columns(base_of=...)``)."""
-        return column
+        return split_tile(column)[0]
 
     # -- model path (shared) ----------------------------------------------
     def _model_fields(self, role: str, kind: str, **extra) -> dict:
@@ -550,56 +555,112 @@ class SimulatedPlatform(Platform):
         return f"sim/{self.name}/noisy={int(self.noisy)}/mt={self.max_triplets}"
 
 
-class GpuPlatform(Platform):
-    """The CUDA card behind the Platform interface — measured, reduced
-    scale, genuinely expensive profiling (the cost the paper eliminates).
+class PallasPlatform(Platform):
+    """The simulated tile platform behind the Platform interface: every
+    column is a (runnable base primitive, tile variant) pair priced by the
+    analytic tile-cost surface of ``core.autotune`` (pure numpy, like the
+    simulated intel / amd / arm platforms), so the NN2 model and the PBQP
+    select tile columns exactly like primitives. A plan compiled from its
+    selection runs every tile column on the hand-written kernels.
 
-    The port's counterpart of the reference's ``HostPlatform`` on the card,
-    and the measured form of its ``PallasPlatform``: ``primitives`` may name
-    base primitives and tile columns ``<base>@<variant>`` alike, the latter
-    timed through the hand-written kernels a compiled plan launches
-    (``profiler/device.py``). The default columns are the 21 runnable
-    primitives and the 55 tile columns of ``autotune.pallas_columns()``.
-    ``base_column`` strips the tile suffix, so ``calibrate`` expands a base
-    model over plain primitives onto the tile columns.
+    The reference's defaults: ``PALLAS_CONV_BASES`` x the matmul
+    ``VARIANTS`` (40 columns), with its fingerprint, datasets and model
+    addresses, so a store the reference filled warm-starts the port.
+    ``variants`` may also name ``conv-bk*`` and ``wino-*`` variants, which
+    the surface prices by their blocks."""
+
+    def __init__(self, *, bases: Optional[Sequence[str]] = None,
+                 variants: Optional[Sequence[str]] = None,
+                 noisy: bool = True,
+                 max_triplets: Optional[int] = None,
+                 time_scale: float = 1.0,
+                 name: str = "tpu"):
+        self.name = name
+        self.noisy = noisy
+        self.max_triplets = max_triplets
+        self.time_scale = time_scale   # drift knob, as on SimulatedPlatform
+        self._bases = list(bases) if bases is not None else list(PALLAS_CONV_BASES)
+        self._columns = pallas_columns(
+            self._bases, list(variants) if variants is not None else list(MM_VARIANTS))
+        self._prim_ds: Optional[PerfDataset] = None
+        self._dlt_ds: Optional[PerfDataset] = None
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._columns)
+
+    def profile(self, configs: np.ndarray) -> np.ndarray:
+        return conv_tile_time_batch(np.asarray(configs, np.int64),
+                                    self._columns, noisy=self.noisy,
+                                    time_scale=self.time_scale)
+
+    def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
+        return pallas_dlt_time_batch(np.asarray(pairs, np.int64),
+                                     noisy=self.noisy,
+                                     time_scale=self.time_scale)
+
+    def _sample_pool(self):
+        return pools.config_pool(max_triplets=self.max_triplets)
+
+    def primitive_dataset(self) -> PerfDataset:
+        if self._prim_ds is None:
+            cfgs = np.asarray(self._sample_pool(), np.int64)
+            self._prim_ds = PerfDataset(
+                cfgs.astype(np.float64), self.profile(cfgs),
+                list(self._columns), ["k", "c", "im", "s", "f"], self.name)
+        return self._prim_ds
+
+    def dlt_dataset(self) -> PerfDataset:
+        if self._dlt_ds is None:
+            pairs = np.asarray(pools.dlt_pool(), np.int64)
+            self._dlt_ds = PerfDataset(
+                pairs.astype(np.float64), self.profile_dlt(pairs),
+                device_profiler.dlt_columns(), ["c", "im"], self.name)
+        return self._dlt_ds
+
+    def cost_provider(self) -> PallasTileProvider:
+        # unscaled, as on SimulatedPlatform: uniform drift moves no argmin
+        return PallasTileProvider(self._columns, noisy=self.noisy)
+
+    def fingerprint(self) -> str:
+        fp = (f"pallas/{self.name}/cols={_columns_hash(self._columns)}"
+              f"/noisy={int(self.noisy)}/mt={self.max_triplets}")
+        if self.time_scale != 1.0:
+            fp += f"/ts={self.time_scale:g}"
+        return fp
+
+
+def _columns_hash(columns: Sequence[str]) -> str:
+    return hashlib.sha256("|".join(columns).encode()).hexdigest()[:8]
+
+
+class _MeasuredPlatform(Platform):
+    """A platform whose profiles are measurements on ``device``, reduced
+    scale and genuinely expensive (the cost the paper eliminates).
 
     Datasets persist through ``store`` under a measurement-independent
-    address (pool, repeats, columns, ``device_machine_id``): the wall
-    dataset the models train on and, beside it, the CUDA-event device times
-    of the same calls (``device_dataset``). ``invalidate_datasets`` drops
-    both. ``device`` defaults to ``cuda``, and without a card the platform
-    refuses to start; ``device="cpu"`` is for the tests.
-    """
+    address (pool, repeats, columns, quantity, machine id), so runs
+    warm-start across process restarts instead of re-measuring;
+    ``invalidate_datasets`` drops the persisted ones too. A subclass names
+    its quantities (``_QUANTITIES``, the first the dataset the models train
+    on), measures them (``_measure``), and names its machine and label."""
 
-    name = "gpu"
+    _QUANTITIES: Tuple[str, ...] = ("wall",)
 
-    def __init__(self, *, configs: Optional[Sequence] = None,
-                 dlt_pairs: Optional[Sequence] = None,
-                 primitives: Optional[Sequence[str]] = None,
-                 repeats: int = 9, store=None, device="cuda"):
+    def __init__(self, *, configs, dlt_pairs, primitives, repeats, store, device):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GpuPlatform profiles a CUDA device and none is "
-                               "available (device='cpu' is for the tests)")
         self.repeats = repeats
         self.store = store
-        self._primitives = (list(primitives) if primitives is not None
-                            else list(RUNNABLE) + pallas_columns())
-        unrunnable = [c for c in self._primitives if not is_runnable(c)]
-        if unrunnable:
-            raise ValueError(f"cannot profile columns {unrunnable}: not runnable")
+        self._primitives = list(primitives)
         self._configs = [tuple(map(int, c)) for c in configs] if configs is not None else None
         self._dlt_pairs = [tuple(map(int, p)) for p in dlt_pairs] if dlt_pairs is not None else None
         self._prim_ds: Optional[PerfDataset] = None
         self._dlt_ds: Optional[PerfDataset] = None
-        self._device_ds: Dict[str, PerfDataset] = {}
+        self._by_quantity: Dict[str, Dict[str, PerfDataset]] = {}
 
     @property
     def columns(self) -> List[str]:
         return list(self._primitives)
-
-    def base_column(self, column: str) -> str:
-        return split_tile(column)[0]
 
     def profile(self, configs: np.ndarray) -> np.ndarray:
         return device_profiler.profile_primitive_batch(
@@ -623,39 +684,45 @@ class GpuPlatform(Platform):
     def _sample_pool(self):
         return self._pool("prim")
 
+    @abc.abstractmethod
+    def _machine_id(self) -> str:
+        """Identity of the measuring hardware, part of the dataset address."""
+
+    @abc.abstractmethod
+    def _label(self) -> str:
+        """The fingerprint's first field."""
+
+    @abc.abstractmethod
+    def _measure(self, role: str) -> Dict[str, PerfDataset]:
+        """Profile the ``role`` pool now: {quantity: dataset}."""
+
     def _dataset_fields(self, role: str, quantity: str) -> dict:
         """Measurement-independent dataset address: the pool that would be
-        profiled, the repeat count, the columns, the quantity (``wall`` or
-        ``device`` seconds) and the machine identity — NOT the measured
-        times (those are what the address retrieves)."""
+        profiled, the repeat count, the columns, the quantity and the
+        machine identity — NOT the measured times (those are what the
+        address retrieves)."""
         return {"artifact": "perf_dataset", "role": role, "quantity": quantity,
-                "machine": device_machine_id(self.device),
-                "repeats": self.repeats,
+                "machine": self._machine_id(), "repeats": self.repeats,
                 "pool": [list(map(int, p)) for p in self._pool(role)],
                 "primitives": self._primitives if role == "prim" else None}
 
     def _load(self, role: str) -> PerfDataset:
-        """The wall dataset of ``role`` (its device twin kept beside it):
-        from the store when it holds both, else profiled now and stored."""
-        fields = {q: self._dataset_fields(role, q) for q in ("wall", "device")}
-        ds = None
+        """The training dataset of ``role`` (the other quantities kept
+        beside it): from the store when it holds every quantity, else
+        profiled now and stored."""
+        fields = {q: self._dataset_fields(role, q) for q in self._QUANTITIES}
+        got = None
         if self.store is not None:
-            got = [self.store.get_dataset(fields[q]) for q in ("wall", "device")]
-            if all(d is not None for d in got):
-                ds = device_profiler.Timing(*got)
-        if ds is None:
-            if role == "prim":
-                ds = device_profiler.profile_primitive_dataset(
-                    self._pool(role), primitives=self._primitives,
-                    repeats=self.repeats, device=self.device)
-            else:
-                ds = device_profiler.profile_dlt_dataset(
-                    self._pool(role), repeats=self.repeats, device=self.device)
+            got = {q: self.store.get_dataset(f) for q, f in fields.items()}
+            if any(d is None for d in got.values()):
+                got = None
+        if got is None:
+            got = self._measure(role)
             if self.store is not None:
-                self.store.put_dataset(fields["wall"], ds.wall)
-                self.store.put_dataset(fields["device"], ds.device)
-        self._device_ds[role] = ds.device
-        return ds.wall
+                for q, f in fields.items():
+                    self.store.put_dataset(f, got[q])
+        self._by_quantity[role] = got
+        return got[self._QUANTITIES[0]]
 
     def primitive_dataset(self) -> PerfDataset:
         if self._prim_ds is None:
@@ -667,21 +734,15 @@ class GpuPlatform(Platform):
             self._dlt_ds = self._load("dlt")
         return self._dlt_ds
 
-    def device_dataset(self, role: str = "prim") -> PerfDataset:
-        """CUDA-event device seconds of the calls behind the ``role``
-        dataset (``prim`` or ``dlt``), profiled with it."""
-        (self.primitive_dataset if role == "prim" else self.dlt_dataset)()
-        return self._device_ds[role]
-
     def invalidate_datasets(self) -> None:
         """Also drop the PERSISTED datasets: their address is
         measurement-independent, so without this the next profiling pass
         would warm-load the stale measurements from the store."""
         super().invalidate_datasets()
-        self._device_ds = {}
+        self._by_quantity = {}
         if self.store is not None:
             for role in ("prim", "dlt"):
-                for q in ("wall", "device"):
+                for q in self._QUANTITIES:
                     self.store.delete("datasets", self._dataset_fields(role, q))
 
     def cost_provider(self) -> MeasuredProvider:
@@ -689,10 +750,126 @@ class GpuPlatform(Platform):
                                 device=self.device)
 
     def fingerprint(self) -> str:
-        import hashlib
-        cols = hashlib.sha256("|".join(self._primitives).encode()).hexdigest()[:8]
-        return (f"{device_profiler.platform_label(self.device)}"
-                f"/r={self.repeats}/cols={cols}")
+        return f"{self._label()}/r={self.repeats}/cols={_columns_hash(self._primitives)}"
+
+
+class GpuPlatform(_MeasuredPlatform):
+    """The CUDA card behind the Platform interface — measured, reduced
+    scale, genuinely expensive profiling (the cost the paper eliminates).
+
+    The measured form of the reference's ``PallasPlatform``: ``primitives``
+    may name base primitives and tile columns ``<base>@<variant>`` alike,
+    the latter timed through the hand-written kernels a compiled plan
+    launches (``profiler/device.py``). The default columns are the 21
+    runnable primitives and the 55 tile columns of
+    ``autotune.pallas_columns()``. ``base_column`` strips the tile suffix,
+    so ``calibrate`` expands a base model over plain primitives onto the
+    tile columns.
+
+    Datasets persist through ``store`` (machine id ``device_machine_id``):
+    the wall dataset the models train on and, beside it, the CUDA-event
+    device times of the same calls (``device_dataset``). ``device``
+    defaults to ``cuda``, and without a card the platform refuses to start;
+    ``device="cpu"`` is for the tests.
+    """
+
+    name = "gpu"
+    _QUANTITIES = ("wall", "device")
+
+    def __init__(self, *, configs: Optional[Sequence] = None,
+                 dlt_pairs: Optional[Sequence] = None,
+                 primitives: Optional[Sequence[str]] = None,
+                 repeats: int = 9, store=None, device="cuda"):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("GpuPlatform profiles a CUDA device and none is "
+                               "available (device='cpu' is for the tests)")
+        primitives = (list(primitives) if primitives is not None
+                      else list(RUNNABLE) + pallas_columns())
+        unrunnable = [c for c in primitives if not is_runnable(c)]
+        if unrunnable:
+            raise ValueError(f"cannot profile columns {unrunnable}: not runnable")
+        super().__init__(configs=configs, dlt_pairs=dlt_pairs,
+                         primitives=primitives, repeats=repeats, store=store,
+                         device=device)
+
+    def _machine_id(self) -> str:
+        return device_machine_id(self.device)
+
+    def _label(self) -> str:
+        return device_profiler.platform_label(self.device)
+
+    def _measure(self, role: str) -> Dict[str, PerfDataset]:
+        if role == "prim":
+            t = device_profiler.profile_primitive_dataset(
+                self._pool(role), primitives=self._primitives,
+                repeats=self.repeats, device=self.device)
+        else:
+            t = device_profiler.profile_dlt_dataset(
+                self._pool(role), repeats=self.repeats, device=self.device)
+        return t._asdict()
+
+    def device_dataset(self, role: str = "prim") -> PerfDataset:
+        """CUDA-event device seconds of the calls behind the ``role``
+        dataset (``prim`` or ``dlt``), profiled with it."""
+        (self.primitive_dataset if role == "prim" else self.dlt_dataset)()
+        return self._by_quantity[role]["device"]
+
+
+class HostPlatform(_MeasuredPlatform):
+    """This machine's CPU behind the Platform interface (the paper's own
+    setting), measured through ``profiler/host.py`` — the reference's
+    arguments, fingerprint (``host-cpu/r=…/cols=…``) and machine id
+    (``host_machine_id``).
+
+    Columns are the 21 runnable base primitives by default; a tile column
+    raises ``ValueError`` (on the CPU it would run its base's plain
+    version, one op timed under many names). The dataset address carries
+    ``quantity`` (``wall``), which the reference's lacks, so a store shared
+    with the reference never hands the port JAX timings, nor the reference
+    torch ones. The platform measures the CPU because the caller named it:
+    a plan selected from its costs serves on the server's device."""
+
+    name = "host"
+
+    def __init__(self, *, configs: Optional[Sequence] = None,
+                 dlt_pairs: Optional[Sequence] = None,
+                 primitives: Optional[Sequence[str]] = None,
+                 repeats: int = 9, store=None):
+        super().__init__(configs=configs, dlt_pairs=dlt_pairs,
+                         primitives=host.base_columns(primitives),
+                         repeats=repeats, store=store, device=host.CPU)
+
+    def _machine_id(self) -> str:
+        return host_machine_id()
+
+    def _label(self) -> str:
+        return host.LABEL
+
+    def profile(self, configs: np.ndarray) -> np.ndarray:
+        return host.profile_primitive_batch(np.asarray(configs, int),
+                                            self._primitives,
+                                            repeats=self.repeats)
+
+    def profile_dlt(self, pairs: np.ndarray) -> np.ndarray:
+        return host.profile_dlt_batch(np.asarray(pairs, int),
+                                      repeats=self.repeats)
+
+    def _measure(self, role: str) -> Dict[str, PerfDataset]:
+        if role == "prim":
+            return {"wall": host.profile_primitive_dataset(
+                self._pool(role), primitives=self._primitives,
+                repeats=self.repeats)}
+        return {"wall": host.profile_dlt_dataset(self._pool(role),
+                                                 repeats=self.repeats)}
+
+
+def host_machine_id() -> str:
+    """Stable identity of THIS machine for host-dataset addressing, as the
+    reference forms it: hostname, machine architecture and core count."""
+    import os
+    import platform as _stdlib_platform
+    u = _stdlib_platform.uname()
+    return f"{u.node}/{u.machine}/cpus={os.cpu_count()}"
 
 
 def device_machine_id(device="cuda") -> str:
@@ -712,19 +889,17 @@ def device_machine_id(device="cuda") -> str:
 
 
 def get_platform(spec: Union[str, Platform], **kwargs) -> Platform:
-    """'intel' / 'amd' / 'arm' -> SimulatedPlatform, 'gpu' -> GpuPlatform; a
-    Platform instance passes through (kwargs then disallowed). The
-    reference's 'host' and 'tpu' / 'pallas' platforms are not ported: the
-    port's measured platform is 'gpu'."""
+    """'intel' / 'amd' / 'arm' -> SimulatedPlatform, 'tpu' / 'pallas' ->
+    PallasPlatform, 'host' -> HostPlatform, 'gpu' -> GpuPlatform; a
+    Platform instance passes through (kwargs then disallowed)."""
     if isinstance(spec, Platform):
         if kwargs:
             raise TypeError("cannot re-configure an existing Platform")
         return spec
     if spec == "gpu":
         return GpuPlatform(**kwargs)
-    if spec in ("host", "tpu", "pallas"):
-        raise NotImplementedError(
-            f"platform {spec!r} is not ported: the port's measured platform "
-            f"is 'gpu' (GpuPlatform, tile columns timed through the "
-            f"hand-written kernels)")
+    if spec == "host":
+        return HostPlatform(**kwargs)
+    if spec in ("tpu", "pallas"):
+        return PallasPlatform(**kwargs)
     return SimulatedPlatform(spec, **kwargs)

@@ -1760,16 +1760,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "device (concurrent worker-pool serving core).")
     ap.add_argument("--net", default="edge_cnn")
     ap.add_argument("--platform", default="arm",
-                    help="intel | amd | arm (simulated) | gpu (the card, "
-                         "measured through the hand-written kernels)")
+                    help="intel | amd | arm (simulated) | tpu | pallas (the "
+                         "simulated tile platform; its plans run the "
+                         "hand-written kernels) | host (this machine's CPU, "
+                         "measured) | gpu (the card, measured through the "
+                         "hand-written kernels)")
     ap.add_argument("--device", default="cuda",
                     help="where models load and plans serve (cpu only on "
                          "request)")
     ap.add_argument("--backends", default=None, metavar="P1,P2,...",
-                    help="register the net on each of these platforms as a "
-                         "routed backend and dispatch every request to the "
-                         "predicted-cheapest one (default: the single "
-                         "--platform backend, unrouted)")
+                    help="register the net on each of these platforms "
+                         "(any --platform name) as a routed backend and "
+                         "dispatch every request to the predicted-cheapest "
+                         "one; every plan serves on --device (default: the "
+                         "single --platform backend, unrouted)")
     ap.add_argument("--transfer-from", default=None, metavar="PLATFORM",
                     help="calibrate from this platform's pretrained model "
                          "(the paper's §4.4 path) instead of native training")
@@ -1874,10 +1878,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     opts = []
     for spec_name in specs:
-        # the card persists its profiled datasets through the store
-        plat_kw = ({"store": store, "device": args.device}
-                   if spec_name == "gpu" else
-                   {"max_triplets": args.max_triplets})
+        # measured platforms persist their profiled datasets through the
+        # store; the host measures the CPU whatever --device is
+        plat_kw = ({"store": store, "device": args.device} if spec_name == "gpu"
+                   else {"store": store} if spec_name == "host"
+                   else {"max_triplets": args.max_triplets})
         platform = get_platform(spec_name, **plat_kw)
         opt = optimise(args.net, platform, store=store, base=base,
                        budget=args.calib_budget, executable=True,

@@ -259,3 +259,14 @@ def test_serve_example_on_the_cpu():
     assert len(out["samples"]) == 4
     for opt, xs, ys in out["samples"]:
         _hold_served(opt, out["weights"], xs, ys)
+
+
+def test_serve_example_routes_over_tpu_and_host():
+    """``--backends tpu,host``: the simulated tile platform and this CPU
+    (``HostPlatform`` measuring the script's pool) as routed backends; the
+    warm-up burst and two requests of two images go through both."""
+    example = _example("serve_optimized_cnn")
+    out = example.run(requests=2, batch=2, backends=["tpu", "host"],
+                      max_iters=100, repeats=1, device="cpu")
+    assert set(out["routed"]["backends"]) == {"tpu", "host"}
+    assert sum(out["routed"]["backends"].values()) == (1 + 2) * 2

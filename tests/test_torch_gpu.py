@@ -6,7 +6,8 @@ and profiling on the card (``-k "train or profile"``: a card fit against
 the CPU's, repeatable fits, profiled tile columns through the kernels);
 the serving core on the card (``-k serve``: one stream per worker carrying
 its kernels, hot_swap publishing after a device sync, the fallback on the
-card, a two-worker burst against the kernel-free oracle); the process front
+card, a two-worker burst against the kernel-free oracle, a plan selected
+from host-CPU measurements served on the card); the process front
 end on the card (``-k frontend``: page-locked slabs uploading the same bytes
 as a pageable copy, unpinned at stop and pinned again by the next front end,
 a kernel error failing a slab batch's tickets and recycling its slab);
@@ -1058,6 +1059,37 @@ def test_gpu_serve_probe_waits_on_its_own_stream(cuda):
         assert 0 < took["per_image"] < 0.1 and took["wall"] < 0.4 * busy_s, took
     finally:
         server.stop()
+
+
+def test_gpu_serve_host_selected_plan_matches_the_oracle(cuda):
+    """``HostPlatform`` measures the CPU because the caller named it; the
+    plan selected from its costs (calibrated from a simulated intel model
+    trained on the card) serves on the card, every response within 1e-3 of
+    the kernel-free oracle, and its base columns launch no kernel."""
+    from repro_torch.models import cnn_zoo
+    from repro_torch.models.cnn_zoo import ConvLayer
+    from repro_torch.primitives.executor import make_weights
+    from repro_torch.service import (HostPlatform, OptimisedServer,
+                                     get_platform, optimise)
+    smoke = _smoke()
+    spec = cnn_zoo.get("edge_cnn")
+    host = HostPlatform(configs=sorted({n.config for n in spec.nodes
+                                        if isinstance(n, ConvLayer)}), repeats=1)
+    base = get_platform("intel", max_triplets=5).pretrain(
+        max_iters=150, patience=40, device="cuda")
+    opt = optimise("edge_cnn", host, base=base, budget=28, executable=True,
+                   device="cuda")
+    assert opt.models.prim.device.type == "cuda" and opt.models.mode == "factor"
+    assert host.primitive_dataset().platform == "host-cpu"
+    weights = make_weights(spec, 0, device="cuda")
+    server = OptimisedServer(max_batch=8, latency_budget_ms=float("inf"),
+                             device="cuda")
+    server.register(opt, weights=weights)
+    xs = _images(8, seed=4)
+    common.reset_launches()
+    outs = server.serve(opt.net, list(xs))
+    assert not any(common.LAUNCHES.values())
+    smoke.check_responses(opt, weights, [xs], [outs])
 
 
 # ---------------------------------------------------------------------------

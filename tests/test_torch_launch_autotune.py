@@ -13,10 +13,10 @@ ungated MLPs as gated), so ``dryrun``'s parameter bytes are held to the
 reference's own parameter tree, not to ``n_params() x`` the dtype size.
 
 Autotune: ``matmul_sites`` equal to the reference's; ``autotune_arch`` with
-the NN2 of the reference's ``train_cost_model`` carried over and the
-reference's ``analytic_cost`` injected as the cost gives the reference's
-assignment and seconds; ``build_dataset``'s sampling design with an
-injected cost.
+the NN2 of the reference's ``train_cost_model`` carried over and the port's
+``analytic_cost`` injected as the cost gives the reference's assignment and
+seconds (under the reference's ``analytic_cost``); ``build_dataset``'s
+sampling design with the port's ``analytic_cost`` injected.
 """
 import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 import json
@@ -181,7 +181,8 @@ def test_dryrun_all_writes_every_artifact(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 def _analytic(M, K, N, variant):
-    return JAT.analytic_cost(M, K, N, *JVARIANTS[variant])
+    """The port's analytic surface under ``variant``'s blocks."""
+    return AT.analytic_cost(M, K, N, *AT.MM_VARIANTS[variant])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -200,8 +201,9 @@ def cost_models():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_autotune_arch_matches_reference(arch, cost_models):
-    """With the reference's model and its analytic cost injected: the same
-    assignment, and predicted / default / oracle seconds at 1e-6."""
+    """With the reference's model carried over and the port's analytic cost
+    injected: the reference's assignment, and its predicted / default /
+    oracle seconds (priced by its own ``analytic_cost``) at 1e-6."""
     jm, tm = cost_models
     want = JAT.autotune_arch(jcb.get(arch), jm)
     got = AT.autotune_arch(cb.get(arch), tm, cost_fn=_analytic)

@@ -332,15 +332,20 @@ def test_factor_correct_and_subset_columns_match_reference(arm_models, arm_pools
 
 def test_training_and_unported_platforms_refuse(tmp_path):
     """Training refuses what it cannot do (an unknown model kind or
-    calibration mode), and the
-    reference's host-CPU and TPU platforms stay unported: the message names
-    the port's measured platform, 'gpu'."""
+    calibration mode). The reference's host-CPU and tile platforms are
+    ported: ``get_platform`` dispatches their names to the port's classes,
+    with the reference's fingerprints, and the host platform refuses tile
+    columns."""
     with pytest.raises(ValueError, match="unknown perf model kind"):
         TM.fit_perf_model("nn3", np.ones((4, 5)), np.ones((4, 2)),
                           np.ones((2, 5)), np.ones((2, 2)), device="cpu")
-    for name in ("host", "tpu", "pallas"):
-        with pytest.raises(NotImplementedError, match="'gpu'"):
-            TPF.get_platform(name)
+    for name, cls in (("host", TPF.HostPlatform), ("tpu", TPF.PallasPlatform),
+                      ("pallas", TPF.PallasPlatform)):
+        got, want = TPF.get_platform(name), JPF.get_platform(name)
+        assert isinstance(got, cls) and got.name == want.name
+        assert got.fingerprint() == want.fingerprint()
+    with pytest.raises(ValueError, match="tile columns"):
+        TPF.get_platform("host", primitives=["im2col-copy-ab-ki@mm-128x128x128"])
     arm = TPF.get_platform("arm", max_triplets=60)
     store = TA.ArtifactStore(_store_copy(tmp_path), device="cpu")
     models = arm.pretrain("nn2", store=store, max_iters=2000)
@@ -354,10 +359,12 @@ def test_training_and_unported_platforms_refuse(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("net", sorted(TZ.ZOO))
-@pytest.mark.parametrize("platform", ["intel", "amd", "arm"])
+@pytest.mark.parametrize("platform", ["intel", "amd", "arm", "tpu"])
 def test_select_simulated_matches_reference(platform, net):
-    got = TS.select(TZ.get(net), TS.SimulatedProvider(platform))
-    want = JS.select(JZ.get(net), JS.SimulatedProvider(platform))
+    """Ground-truth selection on each simulated platform: the simulators'
+    ``SimulatedProvider``, the tile platform's ``PallasTileProvider``."""
+    got = TS.select(TZ.get(net), TPF.get_platform(platform).cost_provider())
+    want = JS.select(JZ.get(net), JPF.get_platform(platform).cost_provider())
     assert got.assignment == want.assignment
     assert got.solver_cost == want.solver_cost and got.optimal == want.optimal
 

@@ -494,10 +494,45 @@ def test_cli_serves_on_the_cpu_from_a_store_copy(tmp_path, capsys):
     assert "warm" in out and "16 requests" in out and "device cpu" in out
 
 
-@pytest.mark.parametrize("argv", [["--platform", "tpu"]])
-def test_cli_refuses_what_is_not_ported(argv, tmp_path):
-    with pytest.raises(NotImplementedError):
-        t_main(["--device", "cpu", "--store", str(tmp_path), *argv])
+def _host_priced_by_arm(monkeypatch):
+    """``HostPlatform``'s measurements priced by the arm simulator instead
+    (the CLI's default host pool, 198 configs x 21 primitives x 11 calls,
+    takes minutes on this CPU); the platform, its store address and the
+    CLI path are the real ones."""
+    from repro_torch.profiler import host, simulators
+    from repro_torch.profiler.dataset import PerfDataset
+    arm = simulators.PLATFORMS["arm"]
+
+    def prim(configs, primitives=None, repeats=9):
+        cols, cfg = host.base_columns(primitives), np.asarray(configs, np.int64)
+        times = simulators.primitive_time_batch(arm, cfg, columns=tuple(cols))
+        return PerfDataset(cfg.astype(np.float64), times, cols,
+                           ["k", "c", "im", "s", "f"], host.LABEL)
+
+    def dlt(pairs, repeats=9):
+        pr = np.asarray(pairs, np.int64)
+        return PerfDataset(pr.astype(np.float64), simulators.dlt_time_batch(arm, pr),
+                           device_profiler.dlt_columns(), ["c", "im"], host.LABEL)
+    monkeypatch.setattr(host, "profile_primitive_dataset", prim)
+    monkeypatch.setattr(host, "profile_dlt_dataset", dlt)
+
+
+@pytest.mark.parametrize("argv", [["--platform", "tpu"],
+                                  ["--backends", "arm,tpu,host"]])
+def test_cli_refuses_what_is_not_ported(argv, tmp_path, capsys, monkeypatch):
+    """Every platform name now serves (the CLI once refused ``tpu``): the
+    simulated tile platform alone, and edge_cnn routed over arm, tpu and
+    host backends, each plan served on the CPU from a store copy."""
+    _host_priced_by_arm(monkeypatch)
+    store = _store_copy(tmp_path / "store")
+    assert t_main(["--net", "edge_cnn", "--requests", "16", "--max-iters",
+                   "100", "--device", "cpu", "--store", store, *argv]) == 0
+    out = capsys.readouterr().out
+    assert "for pallas/tpu/cols=" in out and "16 requests" in out
+    assert "faults:" not in out
+    if "--backends" in argv:
+        assert "for sim/arm/noisy=1/mt=60" in out and "for host-cpu/r=9/cols=" in out
+        assert all(f"backend {b}:" in out for b in ("arm", "tpu", "host"))
 
 
 def test_probes_measure_through_the_device_profiler(warm_nets, monkeypatch):
