@@ -45,9 +45,21 @@ Phases, each of which asserts:
    then held to its plain version at every signature the paths gave it and
    under every ``VARIANTS`` key at the largest (flash attention: under
    every instantiated tile, causal and not), and timed as in phase 2.
+   The kernels that take bf16 run two of these paths again on bf16
+   operands (the paths named ``bf16``): ``matmul_batch_op`` on resnet18's
+   convs at b=8 and ``flash_attention_op`` on chatglm3_6b's causal
+   attention, each output (bf16) held to its fp32 oracle on the same
+   values within one bf16 rounding (``hold_bf16``) and each launch
+   signature carrying bf16; their passes are timed against the bf16 bound
+   (989 TFLOP/s, 2-byte traffic) and the bf16 library call
+   (``torch.matmul``, SDPA). The sweep of variants or tiles runs at the
+   largest signature of each operand dtype. A bf16 output is held to the
+   plain version's fp32 result on the same values within one bf16 rounding
+   (``hold_bf16``), an fp32 output to the plain version at ``KERNEL_TOL``.
    Flash attention is also timed under every tile on each of its paths,
-   and one head of its largest signature is held to a float64 result: the
-   kernel no further from it than twice the plain version.
+   and one head of its largest signature of each dtype is held to a
+   float64 result: the kernel no further from it than twice the plain
+   version.
    The two Winograd transforms are held and timed over the served and the
    entry paths together.
 6. The selection path, on a copy of ``artifacts/`` in a temporary
@@ -149,9 +161,11 @@ Phases, each of which asserts:
    prefill (256 tokens) and two decode steps on the card within 1e-3 of
    the port on the CPU; (c) ``lm_decode.run`` on the registered bf16
    config, prompt 512, 32 tokens, twice: prefill ms, decode tok/s, peak
-   memory. Flash attention is then held to its plain version at every
-   signature the LM prefills launched, under every tile at the largest,
-   and timed per prefill beside its bound, plain version and SDPA.
+   memory; every flash launch of (c) carries bf16 q, k and v (the bf16
+   kernel, no fp32 copy), of (a) and (b) fp32. Flash attention is then held
+   to its plain version at every signature the LM prefills launched, under
+   every tile at the largest, and timed per prefill, at its dtype, beside
+   its bound, plain version and SDPA.
 11. The LM training path (``launch.steps``, ``launch.train``,
    ``models.transformer.loss_fn``, ``train.optim``, ``data.lm``,
    ``ckpt.manager``), chatglm3_6b at full width, data from
@@ -191,7 +205,8 @@ Phases, each of which asserts:
    1e-3 of the port on the CPU, and for MoE the tokens whose top-k expert
    sets differ between the two printed; (c) ``lm_decode.run`` on the
    registered bf16 configs (mixtral cut to 16 of 32 layers), prompt 512,
-   32 tokens, twice: prefill ms, decode tok/s, peak memory. Flash
+   32 tokens, twice: prefill ms, decode tok/s, peak memory, every flash
+   launch of (c) on bf16 q, k and v. Flash
    attention runs once a layer in a MoE prefill, 48 times in a Whisper
    prefill (its non-causal encoder and its causal decoder), never for MLA,
    SSM or zamba2 (head dim 80) and never in decode. Its new signatures are
@@ -235,14 +250,19 @@ Phases, each of which asserts:
    oracle at 1e-3; ``torch_train_lm.py`` on the reduced mixtral_8x7b, 6
    steps, and 4 then 6 resumed, the resumed losses equal; (b)
    ``core.autotune``: ``build_dataset`` timing the 8 ``mm-*`` variants
-   through the matmul kernel at the 39 distinct LM sites and a seeded
+   through the matmul kernel on bf16 operands (the 2-byte GEMMs the
+   reference's surface prices) at the 39 distinct LM sites and a seeded
    sample (``MeasuredCost``), the NN2's held-out MdRAE, ``autotune_arch``
    for each config (predicted, default, oracle seconds), and per site the
-   chosen variant's ms beside ``torch.matmul``'s (TF32 off), the kernel held
-   to its plain version at that shape (rtol 1e-4 of the largest output);
+   chosen variant's ms beside bf16 ``torch.matmul``'s on the same operands,
+   the kernel held to its plain version at that shape (fp32 output, rtol
+   1e-4 of the largest); the matmul kernel's bf16 row is then held and
+   timed on one layer of chatglm3_6b's sites run through ``matmul_op``
+   under the chosen variants, whose signatures must be among the
+   autotune's own;
    (c) ``launch.dryrun --all``, the bytes of every cell against the card.
-   The autotune must launch the matmul kernel; the other paths' launches
-   are recorded.
+   The autotune must launch the matmul kernel, on bf16 operands only; the
+   other paths' launches are recorded.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -253,6 +273,10 @@ back-to-back bursts so the spread shows, with the device-busy time of one
 burst under ``torch.profiler`` and the device ops that took most of it, by
 device event and by the CPU op that launched it.
 The selected paths of phase 6 are timed the same way.
+The ``{"kernels": [...]}`` line has one row per kernel and operand dtype:
+the seven TPU kernels and the two Winograd transforms in fp32, and rows 1,
+4 and 7 (``matmul``, ``matmul_batch``, ``flash_attention``) again in bf16,
+each row's launches those of the paths of its dtype.
 The last line of output is the ``{"ok": true, "device": ...}`` record.
 The script fails (non-zero exit, no result) without a CUDA device.
 """
@@ -311,6 +335,7 @@ ATTENTION = {
     "chatglm3_6b_full": dict(heads=32, kv_heads=2, head_dim=128, seq=4096, causal=False),
     "internvl2_1b_causal": dict(heads=14, kv_heads=2, head_dim=64, seq=4096, causal=True),
 }
+ATTENTION_BF16 = ("chatglm3_6b_causal",)  # ... also driven with bf16 q, k, v
 ENTRY_BATCH = 8                           # matmul_batch_op: images per call
 
 # Phase 6: the committed arm model pair (artifacts/models/*/manifest.json) and
@@ -340,6 +365,10 @@ NAMED_LAYERS = {                          # (k, c, im, s, f) configs of the nets
 }
 
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # fp32, unit-scale operands: sum order only
+                                          # (also fp32 sums of bf16 operands: exact products)
+BF16_RTOL = 2.0 ** -8                     # a bf16 output: one rounding of its fp32
+                                          # result (half an ulp), plus the fp32
+                                          # tolerance of the largest |result| (hold_bf16)
 ORACLE_TOL = dict(rtol=1e-3, atol=1e-3)   # against F.conv2d / Winograd vs direct conv
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)    # fp32 sum order compounding over ~20 layers
 PRED_TOL = dict(rtol=2e-5, atol=0.0)      # perf-model forward, card vs CPU, plain fp32
@@ -393,8 +422,10 @@ FAMILY_HELD = {
     "mixtral_8x7b": (4, 4089, 7),          # 5.8 GB a layer in fp32; the grown
                                            # 4,096 slots are its window: a ring
     "qwen3_moe_30b_a3b": (8, 4089, 7),
-    "mamba2_2_7b": (None, 1792, 256),      # multiples of the 256-token chunk
-    "zamba2_2_7b": (None, 1792, 256),
+    "mamba2_2_7b": (32, 1792, 256),        # multiples of the 256-token chunk; 256
+    "zamba2_2_7b": (4, 1792, 256),         # decode steps, host-bound, so half depth
+                                           # (32 of 64 layers, 4 of 9 groups) for
+                                           # the script's time limit
     "whisper_medium": (None, 440, 8),      # within the 448-token decoder context
 }
 WHISPER_FRAMES = 1500                      # 30 s of audio at 50 frames a second
@@ -411,16 +442,17 @@ FAMILY_SERVED_CUT = {                      # (c): depth cuts of the bf16 runs
 # fp32 temporaries of each stacked leaf, so a step peaks near 2 x (weights,
 # m, v) + gradients + 16 bytes an element of the largest leaf.
 FAMILY_TRAIN_CUT = {
-    "minicpm3_4b": (32, "full depth is 41 GB of weights and moments, ~106 GB at "
-                        "the update"),
+    "minicpm3_4b": (16, "half of the 32 that fit (full depth is 41 GB of weights "
+                        "and moments, ~106 GB at the update), for the script's "
+                        "time limit"),
     "mixtral_8x7b": (1, "2 layers (~82 GB at the update) ran out of memory"),
     "qwen3_moe_30b_a3b": (3, "4 layers (~75 GB at the update) ran out of memory"),
-    "mamba2_2_7b": (48, "64 and 56 layers (~87, ~77 GB at the update: the 1.7 and "
-                        "1.5 B-element stacked in_proj) ran out of memory"),
-    "zamba2_2_7b": (6, "9 and 8 groups (~75, ~67 GB at the update) ran out of "
-                       "memory; 7 ran out after the earlier phases, 28 GB of the "
-                       "allocator's cache fragmented"),
-    "whisper_medium": (None, ""),
+    "mamba2_2_7b": (24, "half of the 48 that fit (64 and 56 layers, ~87 and ~77 "
+                        "GB at the update, ran out of memory), for the script's "
+                        "time limit"),
+    "zamba2_2_7b": (3, "half of the 6 groups that fit (9 and 8 ran out of "
+                       "memory), for the script's time limit"),
+    "whisper_medium": (12, "half depth, for the script's time limit"),
 }
 FAMILY_TRAIN_STEPS = 5                    # (b): AdamW steps a family; MoE takes
                                           # TRAIN_STEPS (mixtral spikes at steps 2-5)
@@ -462,7 +494,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  nvcc: {nvcc}  triton {triton}")
     build_s = common.build_kernels()
-    print(f"kernel build: {build_s:.1f} s ({len(common.SOURCES)} sources, "
+    print(f"kernel build: {build_s:.1f} s ({len(common.LIBRARIES)} libraries, "
           f"parallel nvcc, sm_90a)", flush=True)
 
     # -- phase 2: register the served paths, hold each kernel to its plain
@@ -499,7 +531,7 @@ def main() -> int:
         common.reset_launches()
         outs = [server.serve(name, list(r)) for r in reqs]
         torch.cuda.synchronize()
-        launches[name] = dict(common.LAUNCHES)
+        launches[name] = took(name)
         want = routed_kernels(opt.assignment)
         assert all(launches[name][k] > 0 for k in want), (name, launches[name])
         assert all(launches[name][k] == 0 for k in common.KERNELS if k not in want)
@@ -511,15 +543,20 @@ def main() -> int:
 
     # -- phase 5: the entry points at full width --------------------------
     resnet18 = conv_layers(cnn_zoo.get("resnet18"))
-    entry_paths = entry_point_paths("resnet18", resnet18, ATTENTION, ENTRY_BATCH)
+    bf16_paths = bf16_entry_paths("resnet18", resnet18,
+                                  {n: ATTENTION[n] for n in ATTENTION_BF16},
+                                  ENTRY_BATCH)
+    entry_paths = {**entry_point_paths("resnet18", resnet18, ATTENTION, ENTRY_BATCH),
+                   **bf16_paths}
     entry_seen = {k: {} for k in (*ENTRY_KERNELS, *WINO_TRANSFORMS)}
     oracle_err = {}
     for name, (kernel, drive) in entry_paths.items():
         common.reset_launches()
         oracle_err[name] = drive(torch, "cuda", np.random.default_rng(args.seed))
         torch.cuda.synchronize()
-        launches[name] = dict(common.LAUNCHES)
+        launches[name] = took(name)
         want = {kernel, *(WINO_TRANSFORMS if kernel == "winograd_point_gemm" else ())}
+        check_path_dtype(name, "bfloat16" if name in bf16_paths else "float32")
         for k in want:
             entry_seen[k][name] = dict(common.SEEN[k])
             assert launches[name][k] > 0, (name, k, launches[name])
@@ -575,19 +612,29 @@ def main() -> int:
     # -- phase 13: the LM families' training path on the card --------------
     families_train = families_train_phase(torch, launches, args.seed, smi)
     # -- phase 14: the examples, the matmul-site autotune, the memory table
-    examples = examples_phase(torch, launches, args.seed, smi)
+    examples, site_pass = examples_phase(torch, launches, args.seed, smi)
 
     lm_seen = set().union(family_seen, *(set(c) for c in lm_passes.values()))
     lm_kernel = check_and_time(torch, "flash_attention", lm_seen, lm_passes,
                                args.reps)
     fa = report["flash_attention"]             # row 7 gains its LM passes
     fa["max_abs_err"] = max(fa["max_abs_err"], lm_kernel["max_abs_err"])
+    for dt, err in lm_kernel["max_abs_err_by_dtype"].items():
+        fa["max_abs_err_by_dtype"][dt] = max(fa["max_abs_err_by_dtype"].get(dt, 0.0), err)
     fa["lm_path"] = {
         "max_abs_err": lm_kernel["max_abs_err"],
-        "float64_err": lm_kernel["float64_err"],
+        "max_abs_err_by_dtype": lm_kernel["max_abs_err_by_dtype"],
+        "float64_err_by_dtype": lm_kernel["float64_err_by_dtype"],
         "passes": {p: {key: t[key] for key in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_fp32_ms")} for p, t in lm_kernel["passes"].items()}}
+            "bound_fp32_ms", "dtype")} for p, t in lm_kernel["passes"].items()}}
+    # row 1's bf16 pass: the autotune's choice for one layer of LM_ARCH
+    mm16 = check_and_time(torch, "matmul", set(next(iter(site_pass.values()))),
+                          site_pass, args.reps)
+    mm = report["matmul"]
+    mm["passes"].update(mm16["passes"])
+    mm["max_abs_err_by_dtype"].update(mm16["max_abs_err_by_dtype"])
+    mm["max_abs_err"] = max(mm["max_abs_err"], mm16["max_abs_err"])
 
     # -- report -----------------------------------------------------------
     summary = {k: {"launches": {p: launches[p][k] for p in launches},
@@ -618,23 +665,38 @@ def main() -> int:
             print(f"    device {ms:.4f} ms  {op}")
     rows = []
     for k, r in report.items():
-        # headline times: a served kernel's path where it does the most
-        # work; an entry kernel's first path (the full-width shape above)
-        path, t = (next(iter(r["passes"].items())) if k in ENTRY_KERNELS else
-                   max(r["passes"].items(), key=lambda pt: pt[1]["bound_ms"]))
-        timed_on = path if path in entry_paths else f"{path} b=8 forward"
-        extra = {key: r[key] for key in ("oracle_max_abs_err", "float64_err",
-                                         "plain_float64_err", "lm_path") if key in r}
-        rows.append({"name": k, "route": "cuda", "source": r["source"],
-                     "replaces": r["replaces"],
-                     "launches": sum(launches[p][k] for p in launches),
-                     "max_abs_err": r["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "bound_fp32_ms": t["bound_fp32_ms"],
-                     "launches_per_pass": t["launches"],
-                     "timed_on": timed_on,
-                     **extra, "card": smi})
+        for dt, err in sorted(r["max_abs_err_by_dtype"].items(),
+                              key=lambda de: de[0] != "float32"):
+            passes = {p: t for p, t in r["passes"].items() if t["dtype"] == dt}
+            # headline times: a served kernel's path where it does the most
+            # work; an entry kernel's first path (the full-width shape
+            # above); a bf16 pass where it is the only one of its dtype
+            path, t = (next(iter(passes.items())) if k in ENTRY_KERNELS or dt != "float32"
+                       else max(passes.items(), key=lambda pt: pt[1]["bound_ms"]))
+            timed_on = (path if path in entry_paths or dt != "float32"
+                        else f"{path} b=8 forward")
+            extra = {key: r[key] for key in ("oracle_max_abs_err",) if key in r}
+            if dt in r.get("float64_err_by_dtype", {}):
+                extra["float64_err"], extra["plain_float64_err"] = (
+                    r["float64_err_by_dtype"][dt])
+            if "lm_path" in r:
+                lm = r["lm_path"]
+                extra["lm_path"] = {
+                    "max_abs_err": lm["max_abs_err_by_dtype"].get(dt),
+                    "float64_err": lm["float64_err_by_dtype"].get(dt),
+                    "passes": {p: pt for p, pt in lm["passes"].items()
+                               if pt["dtype"] == dt}}
+            rows.append({"name": k, "dtype": dt, "route": "cuda", "source": r["source"],
+                         "replaces": r["replaces"],
+                         "launches": sum(PATH_DTYPES[p][k].get(dt, 0)
+                                         for p in launches),
+                         "max_abs_err": err, "ms": t["ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                         "bound_fp32_ms": t["bound_fp32_ms"],
+                         "launches_per_pass": t["launches"],
+                         "timed_on": timed_on,
+                         **extra, "card": smi})
     print(json.dumps({"kernels": rows}))
     print("selection: " + json.dumps(selection))
     print("transfer: " + json.dumps(transfer))
@@ -934,7 +996,7 @@ def selection_phase(torch, server, nets, weights, launches, serve_err, seed,
             common.reset_launches()
             outs = [server.serve(sel_opt.net, list(r)) for r in reqs]
             torch.cuda.synchronize()
-            launches[sel_opt.net] = dict(common.LAUNCHES)
+            launches[sel_opt.net] = took(sel_opt.net)
             assert not any(launches[sel_opt.net].values()), launches[sel_opt.net]
             serve_err[sel_opt.net] = check_responses(sel_opt, weights[sel_opt.net],
                                                      reqs, outs)
@@ -1067,7 +1129,7 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     prim_s = time.perf_counter() - t0
     dlt = gpu.dlt_dataset()
     dlt_s = time.perf_counter() - t0 - prim_s
-    launches["gpu_profile"] = dict(common.LAUNCHES)
+    launches["gpu_profile"] = took("gpu_profile")
     for k in SERVED_KERNELS:
         assert launches["gpu_profile"][k] > 0, (k, launches["gpu_profile"])
     assert not any(launches["gpu_profile"][k] for k in ENTRY_KERNELS)
@@ -1158,7 +1220,7 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     graph = build_pbqp(spec, gpu.cost_provider())
     best = pbqp.solve(graph).labelled(graph)
     measured_s = time.perf_counter() - t0
-    launches["gpu_measured_select"] = dict(common.LAUNCHES)
+    launches["gpu_measured_select"] = took("gpu_measured_select")
     cost = {name: network_cost(spec, asg, graph=graph) for name, asg in (
         ("selected", opt.assignment), ("measured_optimal", best),
         ("heuristic", heuristic_assignment(spec)))}
@@ -1184,7 +1246,7 @@ def transfer_phase(torch, server, nets, weights, launches, serve_err, seed,
     common.reset_launches()
     outs = [server.serve(name, list(r)) for r in reqs]
     torch.cuda.synchronize()
-    launches[name] = dict(common.LAUNCHES)
+    launches[name] = took(name)
     want = routed_kernels(sel_opt.assignment)
     assert all(launches[name][k] > 0 for k in want), (name, launches[name])
     assert all(launches[name][k] == 0 for k in common.KERNELS if k not in want)
@@ -1384,7 +1446,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     assert all(t.wait(120.0) for name in served for t in tickets[name])
     burst_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches["serve_workers"] = dict(common.LAUNCHES)
+    launches["serve_workers"] = took("serve_workers")
     want = set().union(*(routed_kernels(nets[n].assignment) for n in served))
     assert all(launches["serve_workers"][k] > 0 for k in want), launches["serve_workers"]
     dispatched = server._pool.dispatches
@@ -1540,7 +1602,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
                                **SERVE_TOL)
     sm = drill.stats("edge_cnn_mix")
     assert sm["failures"] == {"deadline": 1}, sm["failures"]
-    launches["serve_faults"] = dict(common.LAUNCHES)
+    launches["serve_faults"] = took("serve_faults")
     out["faults"] = {"warm_rounds": warm_rounds,
                      "warm_worker_dispatches": warm_dispatches,
                      "degraded": len(on_a), "spilled": len(spill),
@@ -1639,7 +1701,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     with drift._cond:
         new_opt = drift._nets[key].opt
     drift.stop()
-    launches["serve_drift"] = dict(common.LAUNCHES)
+    launches["serve_drift"] = took("serve_drift")
     print(f"serve (c): generation serving each burst {generations}", flush=True)
     err_drift = check_responses(gpu_opt, gpu_w, sent, results)
     sample = sd["recal_sample"] or {}
@@ -1714,7 +1776,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
         ts = [router.submit(f"edge_cnn#{b}", x) for x in xs]
         assert all(t.wait(120.0) for t in ts)
         torch.cuda.synchronize()
-        launches[f"serve_routing_{b}"] = got = dict(common.LAUNCHES)
+        launches[f"serve_routing_{b}"] = got = took(f"serve_routing_{b}")
         want = routed_kernels(o.assignment)
         assert all(got[k] > 0 for k in want), (b, got)
         assert all(got[k] == 0 for k in common.KERNELS if k not in want), (b, got)
@@ -1742,7 +1804,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     assert not any(sr[k] for k in clean), sr
     router.stop()
     torch.cuda.synchronize()
-    launches["serve_routing"] = dict(common.LAUNCHES)
+    launches["serve_routing"] = took("serve_routing")
     out["routing"] = {"prepare_s": prep, "host_cpu": cpu, "backends": {},
                       "routed_requests": dict(counts),
                       "after_unregister": dict(Counter(t.net.split("#")[1]
@@ -1777,7 +1839,7 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
                      str(td / "serve_store")])
     assert rc == 0, rc
     torch.cuda.synchronize()
-    launches["serve_cli"] = dict(common.LAUNCHES)
+    launches["serve_cli"] = took("serve_cli")
     out["cli"] = {"rc": rc, "seconds": time.perf_counter() - t0}
     print(f"serve (e): python -m repro_torch.service.server --net edge_cnn "
           f"--platform arm --workers 2 --requests 64 --store <copy>: exit "
@@ -1872,7 +1934,7 @@ def frontend_phase(torch, nets, weights, launches, serving, rng, smi) -> dict:
         assert all(t.wait(120.0) for ts in tickets.values() for t in ts)
         ingest_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches["frontend_ingest"] = dict(common.LAUNCHES)
+        launches["frontend_ingest"] = took("frontend_ingest")
         want = set().union(*(routed_kernels(nets[n].assignment) for n in paths))
         assert want == set(SERVED_KERNELS), want
         assert all(launches["frontend_ingest"][k] > 0 for k in want), \
@@ -1914,7 +1976,7 @@ def frontend_phase(torch, nets, weights, launches, serving, rng, smi) -> dict:
                   f"threads, the 3 paths at once: median "
                   f"{float(np.median(threaded))!r} img/s  ({smi})", flush=True)
         torch.cuda.synchronize()
-        launches["frontend_drive"] = dict(common.LAUNCHES)
+        launches["frontend_drive"] = took("frontend_drive")
         assert all(launches["frontend_drive"][k] > 0 for k in want)
 
         # (c) no intake process on the card
@@ -1966,7 +2028,7 @@ def frontend_phase(torch, nets, weights, launches, serving, rng, smi) -> dict:
         assert all(t.wait(120.0) for t in ts), "lost tickets"
         until(lambda: chaos._pool.zombies == 0)
         torch.cuda.synchronize()
-        launches["frontend_chaos"] = dict(common.LAUNCHES)
+        launches["frontend_chaos"] = took("frontend_chaos")
         st = chaos.stats("edge_cnn_mix")
     finally:
         chaos.stop()
@@ -2039,20 +2101,22 @@ def lm_phase(torch, launches, seed, smi, device="cuda"):
     out = {"card": smi, "arch": LM_ARCH, "batch": B, "layers": L}
     passes = {}
 
-    def run(path, fn, kernel_launches):
-        """fn() with the counters zeroed before and read after; ms on the
-        host clock around a synchronised device."""
+    def run(path, fn, kernel_launches, dtype="float32"):
+        """fn() with the counters zeroed before and read after, its flash
+        launches all on ``dtype``; ms on the host clock around a
+        synchronised device."""
         common.reset_launches()
         sync()
         t0 = time.perf_counter()
         result = fn()
         sync()
         ms = (time.perf_counter() - t0) * 1e3
-        launches[path] = dict(common.LAUNCHES)
+        launches[path] = took(path)
         assert launches[path]["flash_attention"] == kernel_launches, (
             path, launches[path])
         assert all(n == 0 for k, n in launches[path].items()
                    if k != "flash_attention"), (path, launches[path])
+        check_path_dtype(path, dtype)            # (c): bf16 q, k, v on the kernel
         if kernel_launches:
             passes[path] = dict(common.SEEN["flash_attention"])
         return result, ms
@@ -2132,7 +2196,7 @@ def lm_phase(torch, launches, seed, smi, device="cuda"):
     for r in range(2):
         res, _ = run(f"lm {LM_ARCH} bf16 run {r} P={P} N={N} B={B}",
                      lambda: lm_decode.run(full, B, P, N, device=device,
-                                           params=params), L)
+                                           params=params), L, dtype="bfloat16")
         assert res.tokens.shape == (B, N), res.tokens.shape
         assert ((res.tokens >= 0) & (res.tokens < full.vocab)).all()
         served.append(res)
@@ -2192,7 +2256,7 @@ def train_phase(torch, launches, seed, smi, device="cuda"):
         torch.cuda.synchronize()
         result = fn()
         torch.cuda.synchronize()
-        launches[path] = dict(common.LAUNCHES)
+        launches[path] = took(path)
         assert launches[path]["flash_attention"] == flash, (path, launches[path])
         assert all(n == 0 for k, n in launches[path].items()
                    if k != "flash_attention"), (path, launches[path])
@@ -2564,19 +2628,21 @@ def families_phase(torch, launches, seed, smi, device="cuda"):
     timed, seen = {}, set()
     B = LM_BATCH
 
-    def run(path, fn, flash, time_it=False):
-        """fn() with the counters zeroed before and read after; ms on the
-        host clock around a synchronised device."""
+    def run(path, fn, flash, time_it=False, dtype="float32"):
+        """fn() with the counters zeroed before and read after, its flash
+        launches all on ``dtype``; ms on the host clock around a
+        synchronised device."""
         common.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches[path] = dict(common.LAUNCHES)
+        launches[path] = took(path)
         assert launches[path]["flash_attention"] == flash, (path, launches[path])
         assert all(n == 0 for k, n in launches[path].items()
                    if k != "flash_attention"), (path, launches[path])
+        check_path_dtype(path, dtype)            # (c): bf16 q, k, v on the kernel
         if flash:
             seen.update(common.SEEN["flash_attention"])
             if time_it:
@@ -2714,7 +2780,8 @@ def families_phase(torch, launches, seed, smi, device="cuda"):
         for r in range(2):
             res, _ = run(f"lm {arch} bf16 run {r} P={P} N={N} B={B}",
                          lambda: lm_decode.run(cfg, B, P, N, device=device,
-                                               params=params), flash, time_it=r == 1)
+                                               params=params), flash,
+                         time_it=r == 1, dtype="bfloat16")
             assert res.tokens.shape == (B, N), res.tokens.shape
             assert ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
             served.append(res)
@@ -2835,7 +2902,7 @@ def families_train_phase(torch, launches, seed, smi, device="cuda") -> dict:
         torch.cuda.synchronize()
         result = fn()
         torch.cuda.synchronize()
-        launches[path] = dict(common.LAUNCHES)
+        launches[path] = took(path)
         assert not any(launches[path].values()), (path, launches[path])
         return result
 
@@ -3027,14 +3094,18 @@ def example(name):
     return mod
 
 
-def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
+def examples_phase(torch, launches, seed, smi, device="cuda"):
     """Phase 14 (see the module docstring): (a) the four torch examples on
-    the card, (b) the matmul-site autotune on measured card costs, (c) the
-    single-card memory table. Launch counters are zeroed before each path
-    and read after it; the autotune must launch the matmul kernel."""
+    the card, (b) the matmul-site autotune on measured card costs, timed at
+    bf16, (c) the single-card memory table. Launch counters are zeroed
+    before each path and read after it; the autotune must launch the matmul
+    kernel, on bf16 operands. Returns (summary, {one layer of LM_ARCH's
+    sites under the chosen variants: the matmul kernel's signatures}) for
+    ``check_and_time``."""
     from repro_torch.configs import base as cb
     from repro_torch.core import autotune as AT
     from repro_torch.kernels import common
+    from repro_torch.kernels.common import dtype_name
     from repro_torch.kernels.matmul.matmul import matmul_plain
     from repro_torch.kernels.matmul.ops import matmul_op
     from repro_torch.launch import dryrun
@@ -3051,7 +3122,7 @@ def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        launches[path] = dict(common.LAUNCHES)
+        launches[path] = took(path)
         assert all(launches[path][k] > 0 for k in kernels), (path, launches[path])
         return result, time.perf_counter() - t0
 
@@ -3114,8 +3185,9 @@ def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
               f"losses {[round(x, 4) for x in whole['losses']]}; resumed from step "
               f"{cut}: max |diff| {err:.3g} against the uninterrupted run", flush=True)
 
-    # (b) the matmul-site autotune on measured card costs
+    # (b) the matmul-site autotune on measured card costs, bf16 operands
     cost = AT.MeasuredCost(device, seed)
+    assert cost.dtype == torch.bfloat16
 
     def autotune():
         data = AT.build_dataset(cost, seed=seed)
@@ -3123,14 +3195,20 @@ def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
         tuned = {c.name: AT.autotune_arch(c, model, cost_fn=cost) for c in cb.all_assigned()}
         return data, model, tuned
 
-    (data, model, tuned), s = run("autotune", autotune, kernels=("matmul",))
+    path = "autotune bf16"
+    (data, model, tuned), s = run(path, autotune, kernels=("matmul",))
+    check_path_dtype(path, "bfloat16")
+    autotune_seen = set(common.SEEN["matmul"])
+    assert data.dtype == torch.bfloat16, data.dtype
     mdrae = AT.mdrae_held_out(model, data, seed)
     print(f"autotune (b): dataset {data.feats.shape[0]} GEMMs ({data.n_sites} sites, "
           f"{data.feats.shape[0] - data.n_sites} sampled) x {len(data.names)} variants, "
+          f"timed at {dtype_name(data.dtype)}, "
           f"{data.seconds:.1f} s of timing; NN2 held-out MdRAE {mdrae!r} on "
           f"{len(data.split(seed)[2])} rows; phase (b) {s:.1f} s; "
-          f"{launches['autotune']['matmul']} matmul launches  ({smi})", flush=True)
+          f"{launches[path]['matmul']} matmul launches  ({smi})", flush=True)
     out["autotune"] = {"rows": int(data.feats.shape[0]), "sites": data.n_sites,
+                       "dtype": dtype_name(data.dtype),
                        "timing_s": data.seconds, "seconds": s, "mdrae_held_out": mdrae,
                        "archs": {}, "sites_ms": []}
     for name, r in tuned.items():
@@ -3138,31 +3216,51 @@ def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
               f"{r.default_s * 1e3:.4f} ms, oracle {r.oracle_s * 1e3:.4f} ms; "
               f"{json.dumps(r.assignment)}")
         out["autotune"]["archs"][name] = dataclasses.asdict(r)
-    # per site: the chosen variant's time beside torch.matmul's (TF32 off),
-    # and the kernel held to its plain version at that shape
+    # per site: the chosen variant's bf16 time beside torch.matmul's on the
+    # same bf16 operands, and the kernel held to its plain version at that
+    # shape (fp32 output: exact products, so sum order only)
     print("autotune (b) per site: arch site M K N | chosen variant ms | "
-          "torch.matmul ms | max |kernel - plain| / max |plain|")
+          "torch.matmul ms (bf16) | max |kernel - plain| / max |plain|")
     seen = {}
     for c in cb.all_assigned():
         for site, m, k, n in AT.matmul_sites(c):
             v = tuned[c.name].assignment[site]
             if (m, k, n, v) not in seen:
                 g = torch.Generator(device=device).manual_seed(seed)
-                x = torch.randn(m, k, generator=g, device=device)
-                y = torch.randn(k, n, generator=g, device=device)
+                x = torch.randn(m, k, generator=g, device=device, dtype=cost.dtype)
+                y = torch.randn(k, n, generator=g, device=device, dtype=cost.dtype)
                 lib = time_callable(torch.matmul, x, y, repeats=AT.GEMM_REPEATS,
                                     warmup=AT.GEMM_WARMUP, device=device).device
-                want = matmul_plain(x, y)
-                rel = float((matmul_op(x, y, v) - want).abs().max() / want.abs().max())
+                want = matmul_plain(x, y, out_dtype=torch.float32)
+                got = matmul_op(x, y, v, out_dtype=torch.float32)
+                rel = float((got - want).abs().max() / want.abs().max())
                 assert rel <= KERNEL_TOL["rtol"], (c.name, site, v, rel)
                 seen[(m, k, n, v)] = (lib, rel)
-                del x, y, want
+                del x, y, want, got
             lib, rel = seen[(m, k, n, v)]
             ms = cost(m, k, n, v) * 1e3
             print(f"  {c.name} {site} {m} {k} {n} | {v} {ms:.4f} | {lib * 1e3:.4f} | {rel:.3g}")
             out["autotune"]["sites_ms"].append(
                 {"arch": c.name, "site": site, "M": m, "K": k, "N": n, "variant": v,
                  "ms": ms, "torch_matmul_ms": lib * 1e3, "rel_err": rel})
+    torch.cuda.empty_cache()
+    # row 1's bf16 pass: one layer of LM_ARCH's GEMM sites run through
+    # matmul_op under the chosen variants, on bf16 operands as the autotune
+    # timed them; each of its signatures is one the autotune launched
+    lm_cfg = next(c for c in cb.all_assigned() if c.name == LM_ARCH)
+    site_path = f"autotune bf16 {LM_ARCH} one layer's sites"
+
+    def one_layer():
+        g = torch.Generator(device=device).manual_seed(seed)
+        for site, m, k, n in AT.matmul_sites(lm_cfg):
+            x = torch.randn(m, k, generator=g, device=device, dtype=cost.dtype)
+            y = torch.randn(k, n, generator=g, device=device, dtype=cost.dtype)
+            matmul_op(x, y, tuned[LM_ARCH].assignment[site])
+
+    run(site_path, one_layer, kernels=("matmul",))
+    check_path_dtype(site_path, "bfloat16")
+    site_pass = dict(common.SEEN["matmul"])
+    assert set(site_pass) <= autotune_seen, set(site_pass) - autotune_seen
     torch.cuda.empty_cache()
 
     # (c) the single-card memory table (meta tensors, no card work)
@@ -3176,10 +3274,11 @@ def examples_phase(torch, launches, seed, smi, device="cuda") -> dict:
 
     out["seconds"] = time.perf_counter() - t_phase
     paths = ("example quickstart", "example transfer", "example transfer warm",
-             "example serve", "example train_lm", "autotune", "dryrun")
+             "example serve", "example train_lm", "autotune bf16", site_path,
+             "dryrun")
     print("phase 14 launches: " + json.dumps({p: launches[p] for p in paths}))
     print(f"examples: phase 14 took {out['seconds']:.1f} s  ({smi})", flush=True)
-    return out
+    return out, {site_path: site_pass}
 
 
 def predictions_card_vs_cpu(torch, models, smi) -> dict:
@@ -3266,6 +3365,58 @@ def entry_point_paths(net, layers, attention, batch):
     return paths
 
 
+def bf16_entry_paths(net, layers, attention, batch):
+    """The bf16 passes of phase 5, as ``entry_point_paths`` gives them: the
+    batched matmul over ``net``'s conv ``layers`` and flash attention on
+    the ``attention`` shapes, every operand bf16."""
+    paths = {f"{net} convs as GEMMs, b={batch} bf16": (
+        "matmul_batch",
+        lambda t, d, r: drive_matmul_batch(t, d, r, layers, batch, bf16=True))}
+    for name, cfg in attention.items():
+        paths[f"{name} S={cfg['seq']} B=1 bf16"] = (
+            "flash_attention",
+            lambda t, d, r, cfg=cfg: drive_attention(t, d, r, bf16=True, **cfg))
+    return paths
+
+
+# path -> {kernel: {operand dtype: launches}} of each path's run (``took``)
+PATH_DTYPES: dict = {}
+
+
+def sig_dtype(kernel: str, sig) -> str:
+    """The operand dtype of one launch signature of ``kernel``: its last
+    field for flash attention, the one before the output dtype for the
+    matmul kernels, fp32 for the kernels that take nothing else."""
+    from repro_torch.kernels.common import DTYPES
+    if kernel not in DTYPES:
+        return "float32"
+    return sig[-1] if kernel == "flash_attention" else sig[-2]
+
+
+def took(path: str) -> dict:
+    """Read the launch counters after ``path`` ran (zeroed just before it):
+    its launches per kernel, returned, and per kernel and operand dtype,
+    from the launch signatures, kept in ``PATH_DTYPES[path]``."""
+    from repro_torch.kernels import common
+    launches, seen = common.snapshot()
+    by_dtype = {k: {} for k in common.KERNELS}
+    for k, counts in seen.items():
+        for sig, n in counts.items():
+            dt = sig_dtype(k, sig)
+            by_dtype[k][dt] = by_dtype[k].get(dt, 0) + n
+    PATH_DTYPES[path] = by_dtype
+    return launches
+
+
+def check_path_dtype(path: str, dtype: str) -> None:
+    """Every launch of ``path`` (read by ``took``) ran on ``dtype`` operands
+    where its kernel takes more than fp32."""
+    from repro_torch.kernels.common import DTYPES
+    for k in DTYPES:
+        got = set(PATH_DTYPES[path][k])
+        assert got <= {dtype}, (path, k, got)
+
+
 def _rand(torch, rng, device, *shape, scale=1.0):
     """Seeded numpy normals on ``device``, as float32."""
     a = rng.standard_normal(shape, dtype=np.float32)
@@ -3278,6 +3429,31 @@ def _hold(torch, got, want, tol) -> float:
     return float((got - want).abs().max())
 
 
+def hold_bf16(torch, got, want32, atol, rows=False) -> float:
+    """Hold a bf16 output ``got`` to ``want32``, the fp32 result on the same
+    values: within one bf16 rounding of it (``BF16_RTOL`` of |want32|: half
+    an ulp) plus ``atol`` of the largest |want32| (of its row, the last
+    dim, with ``rows``: attention, whose rows' scales differ under a causal
+    mask) for the order of the fp32 sums. A result off by more than its
+    own rounding fails: P fed to P V as one bf16 part (2^-9 of each weight,
+    about 2^-11 of the row's scale), a key block dropped, a row mis-masked.
+    Returns the largest |got - want32|."""
+    assert got.dtype == torch.bfloat16 and got.shape == want32.shape, (
+        got.dtype, got.shape, want32.shape)
+    assert torch.isfinite(got).all()
+    mag = want32.abs()
+    scale = mag.amax(-1, keepdim=True) if rows else mag.max()
+    err = (got.float() - want32).abs()
+    over = err - (BF16_RTOL * mag + atol * scale)
+    worst = int(over.argmax())
+    assert over.max() <= 0, (
+        f"bf16 output off its fp32 result by more than one rounding: "
+        f"{int((over > 0).sum())} of {over.numel()} elements, worst "
+        f"|err| {float(err.flatten()[worst]):.3g} at |want| "
+        f"{float(mag.flatten()[worst]):.3g}")
+    return float(err.max())
+
+
 def _epilogue(y, bias, residual, channel_axis):
     """bias -> residual -> ReLU, in the oracle."""
     shape = [1] * y.dim()
@@ -3285,11 +3461,14 @@ def _epilogue(y, bias, residual, channel_axis):
     return (y + bias.reshape(shape) + residual).clamp_min(0.0)
 
 
-def drive_matmul_batch(torch, device, rng, layers, batch) -> float:
+def drive_matmul_batch(torch, device, rng, layers, batch, bf16=False) -> float:
     """Each conv as ``batch`` per-image GEMMs through ``matmul_batch_op``:
     x = the (K, C*f*f) weights broadcast over the batch (stride 0), y = the
     unfolded (C*f*f, oh*ow) patches of each image, bias (K,) and residual
-    (batch, K, oh*ow) fused, ReLU. Oracle: ``F.conv2d`` + the epilogue."""
+    (batch, K, oh*ow) fused, ReLU; with ``bf16`` every operand in bf16 and
+    the output bf16 (the operands' dtype). Oracle: ``F.conv2d`` + the
+    epilogue in fp32 on the same values, a bf16 output held by
+    ``hold_bf16`` (``ORACLE_TOL`` for the fp32 part)."""
     import torch.nn.functional as F
     from repro_torch.kernels.matmul.ops import matmul_batch_op
     worst = 0.0
@@ -3298,12 +3477,18 @@ def drive_matmul_batch(torch, device, rng, layers, batch) -> float:
         x = _rand(torch, rng, device, batch, C, H, H)
         w = _rand(torch, rng, device, K, C, f, f, scale=(C * f * f) ** -0.5)
         b, r = _rand(torch, rng, device, K), _rand(torch, rng, device, batch, K, oh * oh)
+        if bf16:
+            x, w, b, r = (t.bfloat16() for t in (x, w, b, r))
         cols = F.unfold(x, f, stride=s)                      # (batch, C*f*f, oh*ow)
         wm = w.reshape(K, -1)
         y = matmul_batch_op(wm.expand(batch, *wm.shape), cols, bias=b,
                             residual=r, relu=True)
-        want = _epilogue(F.conv2d(x, w, stride=s), b, r.reshape(batch, K, oh, oh), 1)
-        worst = max(worst, _hold(torch, y.reshape(want.shape), want, ORACLE_TOL))
+        assert y.dtype == x.dtype
+        want = _epilogue(F.conv2d(x.float(), w.float(), stride=s), b.float(),
+                         r.float().reshape(batch, K, oh, oh), 1)
+        y = y.reshape(want.shape)
+        worst = max(worst, hold_bf16(torch, y, want, ORACLE_TOL["atol"]) if bf16
+                    else _hold(torch, y, want, ORACLE_TOL))
     return worst
 
 
@@ -3345,24 +3530,31 @@ def drive_winograd(torch, device, rng, layers, m) -> float:
 
 
 def drive_attention(torch, device, rng, *, heads, kv_heads, head_dim, seq,
-                    causal) -> float:
+                    causal, bf16=False) -> float:
     """One (1, seq, heads, head_dim) GQA attention through
-    ``flash_attention_op``. Oracle: each query head against its KV head
+    ``flash_attention_op``, with ``bf16`` on bf16 q, k, v (a bf16 output).
+    Oracle: in fp32 on the same values, each query head against its KV head
     (h // (heads / kv_heads)) with the full score matrix, -inf above the
-    diagonal when causal, softmax, times V."""
+    diagonal when causal, softmax, times V; a bf16 output held by
+    ``hold_bf16`` row by row (``KERNEL_TOL`` for the fp32 part)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     q = _rand(torch, rng, device, 1, seq, heads, head_dim)
     k = _rand(torch, rng, device, 1, seq, kv_heads, head_dim)
     v = _rand(torch, rng, device, 1, seq, kv_heads, head_dim)
+    if bf16:
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out = flash_attention_op(q, k, v, causal=causal)
+    assert out.dtype == q.dtype
     kv_of = torch.arange(heads, device=device) // (heads // kv_heads)
-    qh, kh, vh = (t[0].transpose(0, 1) for t in (q, k, v))   # (H, S, d)
+    qh, kh, vh = (t[0].transpose(0, 1).float() for t in (q, k, v))   # (H, S, d)
     s = torch.einsum("hqd,hkd->hqk", qh, kh[kv_of]) * head_dim ** -0.5
     if causal:
         s = s.masked_fill(torch.ones(seq, seq, dtype=torch.bool,
                                      device=device).triu(1), float("-inf"))
     want = (torch.softmax(s, -1) @ vh[kv_of]).transpose(0, 1)[None]
     del s
+    if bf16:
+        return hold_bf16(torch, out, want, KERNEL_TOL["atol"], rows=True)
     return _hold(torch, out, want, KERNEL_TOL)
 
 
@@ -3398,27 +3590,52 @@ def kernel_table(torch):
         winograd_point_gemm_batch_plain, winograd_point_gemm_plain)
     from repro_torch.primitives.conv import _WINO_SETS
 
-    def rnd(*shape, scale=1.0):
-        return torch.randn(*shape, device="cuda") * scale
+    def rnd(*shape, scale=1.0, dtype="float32"):
+        return (torch.randn(*shape, device="cuda") * scale).to(getattr(torch, dtype))
 
-    def mm_plans(M, K, N, batch):
+    def isz(dtype):
+        return getattr(torch, dtype).itemsize
+
+    def tc_rate(dtype):
+        """Peak rate of a tensor-core kernel on operands of ``dtype``: bf16
+        mma, or fp32 as 3xTF32."""
+        return BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS / 3
+
+    def mm_plans(M, K, N, batch, dtype):
         """(bm, bk, bn, split_k) of every variant's plan at one shape."""
         return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (cta_plan(M, N, K, batch, v) for v in MM_VARIANTS)]
+                (cta_plan(M, N, K, batch, v, getattr(torch, dtype))
+                 for v in MM_VARIANTS)]
+
+    def mm_eps(dt):
+        """The epilogue combinations of a matmul signature: bias and
+        residual absent (False) or of the operands' dtype, ReLU or not."""
+        return list(itertools.product((False, dt), (False, dt), (False, True)))
 
     def mm_ops(sig):
-        M, K, N, bm, bk, bn, split, hb, hr, relu = sig
-        x, y = rnd(M, K, scale=K ** -0.5), rnd(K, N)
-        ep = dict(bias=rnd(M) if hb else None,
-                  residual=rnd(M, N) if hr else None, relu=relu)
-        return (lambda: matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, **ep),
-                lambda: matmul_plain(x, y, **ep),
-                lambda: matmul_ref(x, y))
+        """(kernel, plain version, library call, plain version in fp32):
+        the last is the fp32 result a bf16 output is held to."""
+        M, K, N, bm, bk, bn, split, hb, hr, relu, dt, odt = sig
+        x, y = rnd(M, K, scale=K ** -0.5, dtype=dt), rnd(K, N, dtype=dt)
+        ep = dict(bias=rnd(M, dtype=hb) if hb else None,
+                  residual=rnd(M, N, dtype=hr) if hr else None, relu=relu)
+        out = getattr(torch, odt)
+        return (lambda: matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split,
+                               out_dtype=out, **ep),
+                lambda: matmul_plain(x, y, out_dtype=out, **ep),
+                lambda: matmul_ref(x, y),
+                lambda: matmul_plain(x, y, out_dtype=torch.float32, **ep))
+
+    def ep_bytes(t, n):
+        """Bytes of an epilogue tensor of ``n`` elements: ``t`` its dtype
+        name, or False where the call has none."""
+        return isz(t) * n if t else 0
 
     def mm_work(sig):
-        M, K, N, *_, hb, hr, relu = sig
-        return (2 * M * K * N + M * N * (hb + hr + relu),
-                4 * (M * K + K * N + M * N * (1 + hr) + M * hb))
+        M, K, N, *_, hb, hr, relu, dt, odt = sig
+        return (2 * M * K * N + M * N * (bool(hb) + bool(hr) + relu),
+                isz(dt) * (M * K + K * N) + ep_bytes(hr, M * N) + ep_bytes(hb, M)
+                + isz(odt) * M * N)
 
     def conv_plans(N, C, H, W, K, f, s):
         """(bm, bk, bn, split_k) of every variant's plan at one conv."""
@@ -3468,22 +3685,24 @@ def kernel_table(torch):
         return 2 * N * P * K * C * T, 4 * (P * K * C + N * P * C * T + N * P * K * T)
 
     def mmb_ops(sig):
-        B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu = sig
-        x = (rnd(M, K, scale=K ** -0.5).expand(B, M, K) if x_bcast
-             else rnd(B, M, K, scale=K ** -0.5))
-        y = rnd(K, N).expand(B, K, N) if y_bcast else rnd(B, K, N)
-        ep = dict(bias=rnd(M) if hb else None,
-                  residual=rnd(B, M, N) if hr else None, relu=relu)
+        B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu, dt, odt = sig
+        x = (rnd(M, K, scale=K ** -0.5, dtype=dt).expand(B, M, K) if x_bcast
+             else rnd(B, M, K, scale=K ** -0.5, dtype=dt))
+        y = rnd(K, N, dtype=dt).expand(B, K, N) if y_bcast else rnd(B, K, N, dtype=dt)
+        ep = dict(bias=rnd(M, dtype=hb) if hb else None,
+                  residual=rnd(B, M, N, dtype=hr) if hr else None, relu=relu)
+        out = getattr(torch, odt)
         return (lambda: matmul_batch(x, y, bm=bm, bk=bk, bn=bn, split_k=split,
-                                     **ep),
-                lambda: matmul_batch_plain(x, y, **ep),
-                lambda: matmul_ref(x, y))
+                                     out_dtype=out, **ep),
+                lambda: matmul_batch_plain(x, y, out_dtype=out, **ep),
+                lambda: matmul_ref(x, y),
+                lambda: matmul_batch_plain(x, y, out_dtype=torch.float32, **ep))
 
     def mmb_work(sig):
-        B, M, K, N, x_bcast, y_bcast, *_, hb, hr, relu = sig
-        return (2 * B * M * K * N + B * M * N * (hb + hr + relu),
-                4 * ((1 if x_bcast else B) * M * K + (1 if y_bcast else B) * K * N
-                     + B * M * N * (1 + hr) + M * hb))
+        B, M, K, N, x_bcast, y_bcast, *_, hb, hr, relu, dt, odt = sig
+        return (2 * B * M * K * N + B * M * N * (bool(hb) + bool(hr) + relu),
+                isz(dt) * ((1 if x_bcast else B) * M * K + (1 if y_bcast else B) * K * N)
+                + ep_bytes(hr, B * M * N) + ep_bytes(hb, M) + isz(odt) * B * M * N)
 
     def conv1_ops(sig):
         C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu = sig
@@ -3542,24 +3761,26 @@ def kernel_table(torch):
                 + N * K * oh * ow * (hb + hr + relu),
                 4 * (N * n * n * K * T + N * K * oh * ow * (1 + hr) + K * hb))
 
-    def fa_q(n, sq, d, scale):
+    def fa_q(n, sq, d, scale, dtype):
         """Queries as the caller gives them: unit scores after ``scale``
         (the LM path pre-scales q by 1/sqrt(d) and runs at scale 1)."""
-        return rnd(n, sq, d, scale=1.0 / (scale * math.sqrt(d)))
+        return rnd(n, sq, d, scale=1.0 / (scale * math.sqrt(d)), dtype=dtype)
 
     def fa_ops(sig):
-        bh, sq, sk, d, causal, bq, bkv, scale = sig
-        q, k, v = fa_q(bh, sq, d, scale), rnd(bh, sk, d), rnd(bh, sk, d)
+        bh, sq, sk, d, causal, bq, bkv, scale, dt = sig
+        q, k, v = fa_q(bh, sq, d, scale, dt), rnd(bh, sk, d, dtype=dt), rnd(bh, sk, d, dtype=dt)
         return (lambda: flash_attention(q, k, v, causal=causal, scale=scale,
                                         bq=bq, bkv=bkv),
                 lambda: flash_attention_plain(q, k, v, causal=causal, scale=scale),
-                lambda: attention_ref(q, k, v, causal=causal, scale=scale))
+                lambda: attention_ref(q, k, v, causal=causal, scale=scale),
+                lambda: flash_attention_plain(q.float(), k.float(), v.float(),
+                                              causal=causal, scale=scale))
 
     def fa_exact(sig):
         """One head of ``sig``: the kernel's and the plain version's largest
         distance from the float64 result."""
-        _, sq, sk, d, causal, bq, bkv, scale = sig
-        q, k, v = fa_q(1, sq, d, scale), rnd(1, sk, d), rnd(1, sk, d)
+        _, sq, sk, d, causal, bq, bkv, scale, dt = sig
+        q, k, v = fa_q(1, sq, d, scale, dt), rnd(1, sk, d, dtype=dt), rnd(1, sk, d, dtype=dt)
         exact = flash_attention_plain(q.double(), k.double(), v.double(),
                                       causal=causal, scale=scale)
         got = flash_attention(q, k, v, causal=causal, scale=scale, bq=bq, bkv=bkv)
@@ -3572,16 +3793,17 @@ def kernel_table(torch):
         bh, sq, sk, d, causal = sig[:5]
         n = min(sq, sk)
         pairs = n * (n + 1) // 2 + (sq - n) * sk if causal else sq * sk
-        return 4 * d * pairs * bh, 4 * bh * d * 2 * (sq + sk)
+        return 4 * d * pairs * bh, isz(sig[8]) * bh * d * 2 * (sq + sk)
 
     eps = list(itertools.product((False, True), repeat=3))
     return {
         "matmul": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:140",
-            ops=mm_ops, work=mm_work, flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:3], *p, *e) for p in mm_plans(*s[:3], 1)
-                             for e in eps]),
+            ops=mm_ops, work=mm_work, flops_s=lambda s: tc_rate(s[10]),
+            sweep=lambda s: [(*s[:3], *p, *e, *s[10:])
+                             for p in mm_plans(*s[:3], 1, s[10])
+                             for e in mm_eps(s[10])]),
         "conv_im2col_batch": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:155",
@@ -3607,9 +3829,10 @@ def kernel_table(torch):
         "matmul_batch": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:87",
-            ops=mmb_ops, work=mmb_work, flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:6], *p, *e) for p in mm_plans(*s[1:4], s[0])
-                             for e in eps]),
+            ops=mmb_ops, work=mmb_work, flops_s=lambda s: tc_rate(s[13]),
+            sweep=lambda s: [(*s[:6], *p, *e, *s[13:])
+                             for p in mm_plans(*s[1:4], s[0], s[13])
+                             for e in mm_eps(s[13])]),
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:76",
@@ -3626,10 +3849,10 @@ def kernel_table(torch):
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",
-            ops=fa_ops, work=fa_work, flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:4], c, *t, s[7]) for c in (True, False)
+            ops=fa_ops, work=fa_work, flops_s=lambda s: tc_rate(s[8]), rows=True,
+            sweep=lambda s: [(*s[:4], c, *t, *s[7:]) for c in (True, False)
                              for t in FA_TILES],
-            tiles=lambda s: {f"{bq}x{bkv}": (*s[:5], bq, bkv, s[7])
+            tiles=lambda s: {f"{bq}x{bkv}": (*s[:5], bq, bkv, *s[7:])
                              for bq, bkv in FA_TILES},
             exact=fa_exact),
     }
@@ -3688,32 +3911,51 @@ def _ms(v) -> str:
 
 def check_and_time(torch, name, seen, passes, reps):
     """Hold ``name`` to its plain version at every signature in ``seen`` and
-    across the tile/epilogue sweep at the largest of them, and each call to
-    its own repeat, bit for bit (split plans included); then, for each
-    path in ``passes`` ({path: {signature: launches}} of one b=8 forward),
-    time that pass's launches — kernel, plain version, library call (None
-    where no single PyTorch call computes the function) and bound, each
-    summed over the pass. The bound takes the operations at the peak rate
-    of the kind the kernel runs (``flops_s``: 3xTF32 on the tensor cores,
-    else fp32 outside them) and, as ``bound_fp32_ms``, at the fp32 rate (the
-    same for a kernel outside the tensor cores); a tensor-core kernel's pass
-    lists every signature with both."""
+    across the tile/epilogue sweep at the largest of them of each operand
+    dtype, and each call to its own repeat, bit for bit (split plans
+    included); then, for each path in ``passes`` ({path: {signature:
+    launches}} of one run), time that pass's launches — kernel, plain
+    version, library call (None where no single PyTorch call computes the
+    function) and bound, each summed over the pass. The bound takes the
+    operations at the peak rate of the kind the kernel runs at the
+    signature's dtype (``flops_s``: 3xTF32 or bf16 on the tensor cores, else
+    fp32 outside them) and the bytes at the dtype's size, and, as
+    ``bound_fp32_ms``, the operations at the fp32 rate (the same for a
+    kernel outside the tensor cores); a tensor-core kernel's pass lists
+    every signature with both. An fp32 output is held at ``KERNEL_TOL``
+    (from bf16 operands too: the products are exact), a bf16 output to the
+    plain version's fp32 result by ``hold_bf16``; the largest |kernel -
+    plain| is also kept per operand dtype (``max_abs_err_by_dtype``)."""
     from repro_torch.kernels import common
     spec = kernel_table(torch)[name]
-    flops_s = spec.get("flops_s", FP32_FLOPS)
-    tc = flops_s != FP32_FLOPS
+    rate = spec.get("flops_s", FP32_FLOPS)
+    flops_s = rate if callable(rate) else (lambda sig: rate)
+    tc = "flops_s" in spec
     assert seen, f"{name}: the served paths gave it no launch"
-    largest = max(seen, key=lambda s: spec["work"](s)[0])
-    worst = 0.0
-    for sig in sorted(seen | set(spec["sweep"](largest))):
-        kern, plain, _ = spec["ops"](sig)
+    largest = {}                     # operand dtype -> its largest signature
+    for sig in seen:
+        dt = sig_dtype(name, sig)
+        if dt not in largest or spec["work"](sig)[0] > spec["work"](largest[dt])[0]:
+            largest[dt] = sig
+    swept = set(seen).union(*(spec["sweep"](sig) for sig in largest.values()))
+    worst, by_dtype = 0.0, {}
+    for sig in sorted(swept, key=repr):
+        kern, plain, _, *wide = spec["ops"](sig)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), (name, sig)
-        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        assert got.dtype == want.dtype, (name, sig, got.dtype, want.dtype)
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+        else:
+            hold_bf16(torch, got, wide[0](), KERNEL_TOL["atol"],
+                      rows=spec.get("rows", False))
         # no atomics anywhere, split or not: a repeat is bit for bit
         assert torch.equal(kern(), got), (name, sig, "not deterministic")
-        worst = max(worst, float((got - want).abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        dt = sig_dtype(name, sig)
+        by_dtype[dt] = max(by_dtype.get(dt, 0.0), err)
     out = {}
     for path, counts in passes.items():
         t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
@@ -3721,7 +3963,7 @@ def check_and_time(torch, name, seen, passes, reps):
         flop_s = byte_s = 0.0
         per_sig = []
         for sig, n in counts.items():
-            kern, plain, lib = spec["ops"](sig)
+            kern, plain, lib, *_ = spec["ops"](sig)
             ms = n * time_ms(torch, kern, reps)
             plain_ms = n * time_ms(torch, plain, reps)
             lib_ms = None if lib is None else n * time_ms(torch, lib, reps)
@@ -3732,15 +3974,16 @@ def check_and_time(torch, name, seen, passes, reps):
             else:
                 t["library_ms"] += lib_ms
             flops, nbytes = spec["work"](sig)
-            bound = n * max(flops / flops_s, nbytes / HBM_BYTES_S) * 1e3
+            bound = n * max(flops / flops_s(sig), nbytes / HBM_BYTES_S) * 1e3
             bound32 = n * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S) * 1e3
             t["bound_ms"] += bound
             t["bound_fp32_ms"] += bound32
-            flop_s += n * flops / flops_s
+            flop_s += n * flops / flops_s(sig)
             byte_s += n * nbytes / HBM_BYTES_S
             per_sig.append((ms, plain_ms, lib_ms, bound, bound32, n, sig))
         t["bound_by"] = "operations" if flop_s >= byte_s else "bytes"
         t["launches"] = sum(counts.values())
+        t["dtype"] = "/".join(sorted({sig_dtype(name, sig) for sig in counts}))
         out[path] = t
         fp32 = f", fp32 bound {t['bound_fp32_ms']:.4f}" if tc else ""
         print(f"{name}: one pass of {path}: {t['launches']} launches, "
@@ -3765,17 +4008,21 @@ def check_and_time(torch, name, seen, passes, reps):
                   flush=True)
     extra = {}
     if "exact" in spec:              # distance from a float64 result
-        got_err, plain_err = spec["exact"](largest)
-        print(f"{name}: one head at {largest}: max |kernel - float64| "
-              f"{got_err:.3g}, max |plain - float64| {plain_err:.3g} "
-              f"({got_err / plain_err:.2f}x)", flush=True)
-        assert got_err <= 2 * plain_err, (name, got_err, plain_err)
-        extra = {"float64_err": got_err, "plain_float64_err": plain_err}
+        extra["float64_err_by_dtype"] = {}
+        for dt, sig in sorted(largest.items()):
+            got_err, plain_err = spec["exact"](sig)
+            print(f"{name}: one head at {sig}: max |kernel - float64| "
+                  f"{got_err:.3g}, max |plain - float64| {plain_err:.3g} "
+                  f"({got_err / plain_err:.2f}x)", flush=True)
+            assert got_err <= 2 * plain_err, (name, sig, got_err, plain_err)
+            extra["float64_err_by_dtype"][dt] = (got_err, plain_err)
     common.reset_launches()          # the launches above were not the main path
-    print(f"{name}: {len(seen)} main-path signatures + sweep hold to plain, "
-          f"max |err| {worst:.3g}", flush=True)
+    print(f"{name}: {len(seen)} main-path signatures + sweep at the largest of "
+          f"each dtype ({', '.join(sorted(largest))}) hold to plain, max |err| "
+          f"{worst:.3g}", flush=True)
     return {"source": spec["source"], "replaces": spec["replaces"],
-            "max_abs_err": worst, "passes": out, **extra}
+            "max_abs_err": worst, "max_abs_err_by_dtype": by_dtype,
+            "passes": out, **extra}
 
 
 if __name__ == "__main__":

@@ -21,9 +21,12 @@ under each variant from (M, K, N); a chain PBQP with zero edges (a variant
 switch moves no layout) picks a variant per site.
 
 The costs are measured on the card: ``MeasuredCost`` times each variant
-through ``matmul_op`` in fp32 (the kernel's dtype on the served path) with
-``profiler/device.time_callable`` (CUDA events, the median of
-``GEMM_REPEATS`` after ``GEMM_WARMUP``). The cost source is an argument
+through ``matmul_op`` with ``profiler/device.time_callable`` (CUDA events,
+the median of ``GEMM_REPEATS`` after ``GEMM_WARMUP``) on operands of its
+``dtype``, bf16 by default: the reference tunes bf16 GEMMs (its surface
+prices 2-byte operands, ``analytic_cost(..., dtype_bytes=2)``), and the
+kernel takes bf16 on the card. ``GemmDataset.dtype`` records the dtype the
+rows were timed at. The cost source is an argument
 (``cost_fn(M, K, N, variant) -> seconds``), so the CPU tests inject the
 reference's analytic surface instead. Sampling design of ``build_dataset``
 (the reference prices 3,000 log-uniform GEMMs of up to 2^17 x 2^15 x 2^15,
@@ -330,25 +333,30 @@ def matmul_sites(cfg: ArchConfig, seq: int = 4096, batch_tokens: int = SITE_BATC
 
 class MeasuredCost:
     """``cost(M, K, N, variant) -> seconds`` of ``matmul_op`` on the card:
-    fp32 unit-normal operands drawn from ``seed``, the median CUDA-event
+    unit-normal operands of ``dtype`` (default bf16, the 2-byte operands the
+    reference's surface prices) drawn from ``seed``, the median CUDA-event
     time of ``GEMM_REPEATS`` calls after ``GEMM_WARMUP``. Each (M, K, N,
     variant) is timed once and remembered in ``times``, so the dataset and
     ``autotune_arch`` share their site timings."""
 
-    def __init__(self, device="cuda", seed: int = 0):
+    def __init__(self, device="cuda", seed: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError("MeasuredCost times the card; pass cost_fn= for "
                              "any other cost source")
         self.seed = seed
+        self.dtype = dtype
         self.times: Dict[Tuple[int, int, int, str], float] = {}
 
     def __call__(self, M: int, K: int, N: int, variant: str) -> float:
         key = (int(M), int(K), int(N), variant)
         if key not in self.times:
             g = torch.Generator(device=self.device).manual_seed(self.seed)
-            x = torch.randn(key[0], key[1], generator=g, device=self.device)
-            y = torch.randn(key[1], key[2], generator=g, device=self.device)
+            x = torch.randn(key[0], key[1], generator=g, device=self.device,
+                            dtype=self.dtype)
+            y = torch.randn(key[1], key[2], generator=g, device=self.device,
+                            dtype=self.dtype)
             self.times[key] = time_callable(
                 lambda: matmul_op(x, y, variant), repeats=GEMM_REPEATS,
                 warmup=GEMM_WARMUP, device=self.device).device
@@ -359,12 +367,15 @@ class MeasuredCost:
 class GemmDataset:
     """(M, K, N) -> seconds under each variant; the first ``n_sites`` rows
     are the LM sites, the rest the sample. ``seconds``: wall time spent in
-    the cost source."""
+    the cost source; ``dtype``: the operand dtype the cost source timed
+    (its ``dtype`` attribute, as ``MeasuredCost`` has), None where it
+    states none."""
     feats: np.ndarray                    # (n, 3) M, K, N
     times: np.ndarray                    # (n, len(names)) seconds
     names: List[str]
     n_sites: int
     seconds: float
+    dtype: Optional[torch.dtype] = None
 
     def split(self, seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(train, val, test) row indices: 80 / 10 / 10 % of a permutation
@@ -420,7 +431,8 @@ def build_dataset(cost_fn: Optional[CostFn] = None, *,
         shapes.append((m, k, n))
         rows.append([cost_fn(m, k, n, v) for v in names])
     return GemmDataset(np.array(shapes, float), np.array(rows, float), names,
-                       n_sites, time.perf_counter() - t0)
+                       n_sites, time.perf_counter() - t0,
+                       getattr(cost_fn, "dtype", None))
 
 
 def train_cost_model(data: GemmDataset, *, seed: int = 0, max_iters: int = 4000,

@@ -1,6 +1,8 @@
-// Flash attention, fp32: O = softmax(scale * Q K^T [causal mask]) V over
-// (BH, S, d) tensors, one online-softmax pass over the keys per query block,
-// both products on the tensor cores at fp32 accuracy (3xTF32).
+// Flash attention: O = softmax(scale * Q K^T [causal mask]) V over (BH, S, d)
+// tensors, one online-softmax pass over the keys per query block, both
+// products on the tensor cores: fp32 q, k, v at fp32 accuracy (3xTF32,
+// flash_kernel) and bf16 q, k, v on bf16 mma.sync with fp32 scores, softmax
+// state and accumulator (flash_kernel_bf16, below), the output in q's type.
 //
 // Replaces the TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention/flash_attention.py:62, body
@@ -61,18 +63,45 @@
 // The tile needs (2 BQ + 2 BKV) (d + 4) * 4 bytes of dynamic shared memory:
 // 101,376 B at (64, 32, d=128), so two 4-warp CTAs share an SM (the launch
 // bound lets each take 255 registers); 168,960 B at (128, 32, 128).
-// ops.cta_tile takes BKV = 32 at d = 128, where the O accumulator takes 64
-// registers a thread: S and its partial then fit beside it.
+// ops.cta_tile takes BKV = 32 at d = 128 for this kernel, where the O
+// accumulator takes 64 registers a thread: S and its partial then fit
+// beside it.
 //
 // Bound: a causal pass over S keys does about 2 S^2 d FLOPs per head
-// against 16 S d bytes of q, k, v and o: tensor-core bound, at the 3xTF32
-// rate (494.7 / 3 TFLOP/s at 700 W).
+// against 16 S d bytes of q, k, v and o (8 S d at bf16): tensor-core bound,
+// at the 3xTF32 rate (494.7 / 3 TFLOP/s at 700 W) or the bf16 rate (989).
+//
+// The bf16 kernel reads q, k and v as bf16 (no fp32 copy in device memory;
+// the reference's kernel upcasts each block inside, flash_attention.py:40-42)
+// and keeps the fp32 kernel's split, order of work and softmax:
+// - S = Q K^T on mma.sync.m16n8k16.bf16 (mma_bf16.cuh): products of bf16
+//   values are exact in fp32, so this is the reference's upcast product up
+//   to summation order; each 16-wide slice of d is summed from zero and
+//   added to S in fp32, as above. The scale (times log2e) multiplies the
+//   fp32 scores, not the bf16 q.
+// - Fragments by ldmatrix from shared-memory rows padded to d + 8 elements
+//   (16 bytes): Q and K (key rows as the column operand) as they lie, V
+//   transposed (.trans). Q is read from shared memory every block.
+// - P is fp32 in the reference. It enters the P V mma as two bf16 parts,
+//   hi = bf16(P) and lo = bf16(P - hi), two mmas per fragment: P is then
+//   carried to about 16 bits (|P - hi - lo| <= 2^-16 P), where one part
+//   alone would round it to 8. The mma A layout takes the S accumulator's
+//   key order as it is (keys 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16-key
+//   step are the two 8-key tiles' c0, c1), so P needs no reordering.
+// - The output is normalised in fp32 and stored as bf16 pairs.
+// Shared memory: (BQ + 2 BKV) (d + 8) * 2 bytes, 52,224 B at (64, 64, 128),
+// 69,632 B at (128, 64, 128). ops.cta_tile takes BKV = 64 at every d for
+// this kernel: with no tf32 halves in registers, 64 keys a step at d = 128
+// ran faster than 32 despite a few spilled bytes (PERF.md, section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
+
+using rt::bf::bf16;
 
 using rt::tc::ceil_div;
 using rt::tc::cp_async16;
@@ -100,6 +129,72 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Scores s of one BKV-key block (the mma C fragments of a warp's 16 rows:
+// s[n][e] is row row0 (e < 2) or row1 = row0 + 8, key k0 + 8 n + 2 t +
+// (e & 1)), already in the log2 domain, become P = exp2(s - m): keys past
+// Sk, and with `causal` keys past the row, are masked to NEG_INF first
+// (only in a block that crosses the diagonal or Sk; w0 is the warp's first
+// row); the running maxima m0, m1 move to the block's, corr0, corr1 =
+// exp2(m_old - m_new) rescale what was summed before, and l0, l1 take this
+// lane's share of the row sums (the quad adds them up at the end). A row's
+// 4 lanes form a quad.
+template <int BKV>
+__device__ __forceinline__ void softmax_block(
+    float (&s)[BKV / 8][4], int k0, int Sk, int causal, int w0, int row0,
+    int row1, int t, float& m0, float& m1, float& l0, float& l1,
+    float& corr0, float& corr1) {
+  constexpr int NS = BKV / 8;
+  if (k0 + BKV > Sk || (causal && k0 + BKV - 1 > w0)) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + n * 8 + 2 * t + (e & 1);
+        if (c >= Sk || (causal && c > (e < 2 ? row0 : row1)))
+          s[n][e] = NEG_INF;
+      }
+  }
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  corr0 = exp2_approx(m0 - mn0);
+  corr1 = exp2_approx(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    s[n][0] = exp2_approx(s[n][0] - mn0);
+    s[n][1] = exp2_approx(s[n][1] - mn0);
+    s[n][2] = exp2_approx(s[n][2] - mn1);
+    s[n][3] = exp2_approx(s[n][3] - mn1);
+    sum0 += s[n][0] + s[n][1];
+    sum1 += s[n][2] + s[n][3];
+  }
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+}
+
+// The quads' row sums, floored at 1e-30 as the reference's finish is.
+__device__ __forceinline__ void row_sums(float& l0, float& l1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
 }
 
 // Issue the 16-byte copies of rows [r0, r0 + ROWS) of a row-major (S, D)
@@ -223,46 +318,8 @@ flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
           for (int e = 0; e < 4; ++e)
             s[n][e] = c0 == 0 ? part[n][e] : s[n][e] + part[n][e];
       }
-      // mask only a block that crosses the causal diagonal or Sk
-      if (k0 + BKV > Sk || (causal && k0 + BKV - 1 > q0 + wr)) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = k0 + n * 8 + 2 * t + (e & 1);
-            if (c >= Sk || (causal && c > (e < 2 ? row0 : row1)))
-              s[n][e] = NEG_INF;
-          }
-      }
-      // online softmax in the log2 domain; a row's 4 lanes form a quad
-      float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      corr0 = exp2_approx(m0 - mn0);
-      corr1 = exp2_approx(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][0] = exp2_approx(s[n][0] - mn0);
-        s[n][1] = exp2_approx(s[n][1] - mn0);
-        s[n][2] = exp2_approx(s[n][2] - mn1);
-        s[n][3] = exp2_approx(s[n][3] - mn1);
-        sum0 += s[n][0] + s[n][1];
-        sum1 += s[n][2] + s[n][3];
-      }
-      l0 = l0 * corr0 + sum0;   // this lane's columns; the quad sums at the end
-      l1 = l1 * corr1 + sum1;
+      softmax_block<BKV>(s, k0, Sk, causal, q0 + wr, row0, row1, t, m0, m1,
+                         l0, l1, corr0, corr1);
     }
 
     cp_async_wait<0>();       // this thread's copies of V_j
@@ -314,21 +371,16 @@ flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   }
   cp_async_wait<0>();         // only an empty group remains
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  row_sums(l0, l1);
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int c = n * 8 + 2 * t;
     if (row0 < Sq)
       *reinterpret_cast<float2*>(O + (long long)row0 * D + c) =
-          make_float2(acc[n][0] / den0, acc[n][1] / den0);
+          make_float2(acc[n][0] / l0, acc[n][1] / l0);
     if (row1 < Sq)
       *reinterpret_cast<float2*>(O + (long long)row1 * D + c) =
-          make_float2(acc[n][2] / den1, acc[n][3] / den1);
+          make_float2(acc[n][2] / l1, acc[n][3] / l1);
   }
 }
 
@@ -349,10 +401,196 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+template <int BQ, int BKV, int D>
+struct FaTileBf16 {
+  static constexpr int kWarps = BQ / 16;        // 16 query rows a warp
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int LD = D + 8;              // stage row stride, bf16
+  static constexpr int kSmemBytes = (BQ + 2 * BKV) * LD * 2;
+  static_assert(BQ % 16 == 0 && BKV % 16 == 0 && D % 32 == 0, "mma granularity");
+  static_assert(kSmemBytes <= 232448, "tile exceeds the 227 KB a block may use");
+};
+
+// The bf16 kernel (see the top of the file): flash_kernel's CTA, loop and
+// softmax on bf16 operands, fp32 inside.
+template <int BQ, int BKV, int D>
+__global__ void __launch_bounds__(FaTileBf16<BQ, BKV, D>::kThreads, BQ == 64 ? 2 : 1)
+flash_kernel_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                  const bf16* __restrict__ V, bf16* __restrict__ O, int Sq,
+                  int Sk, float qscale, int causal) {
+  using T = FaTileBf16<BQ, BKV, D>;
+  using rt::bf::ldsm_x4;
+  using rt::bf::ldsm_x4_t;
+  using rt::bf::load_block;
+  using rt::bf::mma_bf16;
+  using rt::bf::split_bf16;
+  constexpr int LD = T::LD, NS = BKV / 8, ND = D / 8;
+  extern __shared__ float4 fa_smem16[];
+  bf16* Qs = reinterpret_cast<bf16*>(fa_smem16);   // [BQ][LD]  Q rows
+  bf16* Ks = Qs + BQ * LD;                         // [BKV][LD] K rows of the block
+  bf16* Vs = Ks + BKV * LD;                        // [BKV][LD] V rows of the block
+
+  // the heaviest causal Q blocks (the last ones) are scheduled first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const long long bh = blockIdx.y;
+  Q += bh * Sq * D;
+  O += bh * Sq * D;
+  K += bh * Sk * D;
+  V += bh * Sk * D;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = threadIdx.x / 32 * 16;           // warp's first tile row
+  const int row0 = q0 + wr + g, row1 = row0 + 8;  // this lane's two rows
+  // this lane's ldmatrix row addresses: Q rows wr + lane % 16 at column
+  // lane / 16 * 8 (the A fragment); K key rows lane % 8 + lane / 16 * 8 at
+  // column lane / 8 % 2 * 8 (two 8-key column tiles); V key rows lane % 16
+  // at column lane / 16 * 8 (transposed: two 8-wide d tiles)
+  const int q_off = (wr + lane % 16) * LD + lane / 16 * 8;
+  const int k_off = (lane % 8 + lane / 16 * 8) * LD + lane / 8 % 2 * 8;
+  const int v_off = (lane % 16) * LD + lane / 16 * 8;
+
+  // keys at or past kv_end are masked for every query row of this block
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int blocks = (kv_end + BKV - 1) / BKV;
+
+  load_block<BQ, D, LD, T::kThreads>(Qs, Q, Sq, D, q0, 0, true);
+  load_block<BKV, D, LD, T::kThreads>(Ks, K, Sk, D, 0, 0, true);
+  cp_async_commit();
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < blocks; ++j) {
+    const int k0 = j * BKV;
+    cp_async_wait<0>();       // this thread's copies of K_j (and Q)
+    __syncthreads();          // everyone's; every warp is done with V_{j-1}
+    load_block<BKV, D, LD, T::kThreads>(Vs, V, Sk, D, k0, 0, true);
+    cp_async_commit();        // V_j in flight during Q K_j^T
+
+    const bool live = q0 + wr < Sq && (!causal || k0 <= q0 + wr + 15);
+    float s[NS][4];
+    float corr0 = 1.f, corr1 = 1.f;
+    if (live) {
+      // S = Q K_j^T: each 16-wide slice of d summed from zero, added in fp32
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t qa[4];
+        ldsm_x4(qa, Qs + q_off + kk);
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t kb[4];
+          ldsm_x4(kb, Ks + k_off + n * 8 * LD + kk);
+          const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(p0, qa, b0);
+          mma_bf16(p1, qa, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] += p0[e];
+            s[n + 1][e] += p1[e];
+          }
+        }
+      }
+      // the scale (times log2e) on the fp32 scores
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= qscale;
+      softmax_block<BKV>(s, k0, Sk, causal, q0 + wr, row0, row1, t, m0, m1,
+                         l0, l1, corr0, corr1);
+    }
+
+    cp_async_wait<0>();       // this thread's copies of V_j
+    __syncthreads();          // everyone's; every warp is done with K_j
+    if (j + 1 < blocks)
+      load_block<BKV, D, LD, T::kThreads>(Ks, K, Sk, D, k0 + BKV, 0, true);
+    cp_async_commit();        // K_{j+1} in flight during P V_j
+
+    if (live) {
+      // P as the A operand of each 16-key step, in two bf16 parts
+      uint32_t ph[NS / 2][4], pl[NS / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
+      }
+      // acc = acc * corr + P V_j, two output columns of 8 at a time, each
+      // block's products summed from zero
+#pragma unroll
+      for (int n0 = 0; n0 < ND; n0 += 2) {
+        float part[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, Vs + v_off + kk * 16 * LD + n0 * 8);
+          const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+          mma_bf16(part[0], ph[kk], b0);
+          mma_bf16(part[0], pl[kk], b0);
+          mma_bf16(part[1], ph[kk], b1);
+          mma_bf16(part[1], pl[kk], b1);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[n0 + i][0] = fmaf(acc[n0 + i][0], corr0, part[i][0]);
+          acc[n0 + i][1] = fmaf(acc[n0 + i][1], corr0, part[i][1]);
+          acc[n0 + i][2] = fmaf(acc[n0 + i][2], corr1, part[i][2]);
+          acc[n0 + i][3] = fmaf(acc[n0 + i][3], corr1, part[i][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();         // only an empty group remains
+
+  row_sums(l0, l1);
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(O + (long long)row0 * D + c) =
+          __floats2bfloat162_rn(acc[n][0] / l0, acc[n][1] / l0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(O + (long long)row1 * D + c) =
+          __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
+  }
+}
+
+template <int BQ, int BKV, int D>
+int launch_tile_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                     int BH, int Sq, int Sk, float scale, int causal,
+                     cudaStream_t stream) {
+  using T = FaTileBf16<BQ, BKV, D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_bf16<BQ, BKV, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + BQ - 1) / BQ, BH);
+  flash_kernel_bf16<BQ, BKV, D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      q, k, v, o, Sq, Sk, scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every (BQ, BKV) CTA tile the wrapper's TILES names, at head dims 32, 64, 128.
 #define RT_FOR_EACH_FA_TILE(X, D) X(64, 32, D) X(64, 64, D) X(128, 32, D) X(128, 64, D)
+
+// Built twice (kernels/common.LIBRARIES): -DRT_FP32 gives the fp32 entry
+// point, -DRT_BF16 the bf16 one, so each build instantiates one kernel's
+// tiles and the two compile in parallel.
+#if defined(RT_FP32) == defined(RT_BF16)
+#error "build flash_attention.cu with exactly one of -DRT_FP32 and -DRT_BF16"
+#endif
+#if defined(RT_FP32)
 
 // q (BH, Sq, d), k and v (BH, Sk, d) -> o (BH, Sq, d), fp32 contiguous and
 // 16-byte aligned; q is multiplied by `scale` before Q K^T. Returns
@@ -373,3 +611,24 @@ extern "C" int rt_flash_attention_f32(const float* q, const float* k,
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+#endif
+
+#if defined(RT_BF16)
+// The same over bf16 q, k, v -> bf16 o; `scale` (times log2e) multiplies
+// the fp32 scores.
+extern "C" int rt_flash_attention_bf16(const bf16* q, const bf16* k,
+                                       const bf16* v, bf16* o, int BH,
+                                       int Sq, int Sk, int d, int causal,
+                                       int bq, int bkv, float scale,
+                                       cudaStream_t stream) {
+#define RT_LAUNCH(BQ_, BKV_, D_)                                              \
+  if (bq == BQ_ && bkv == BKV_ && d == D_)                                   \
+    return launch_tile_bf16<BQ_, BKV_, D_>(q, k, v, o, BH, Sq, Sk, scale,    \
+                                           causal, stream);
+  RT_FOR_EACH_FA_TILE(RT_LAUNCH, 32)
+  RT_FOR_EACH_FA_TILE(RT_LAUNCH, 64)
+  RT_FOR_EACH_FA_TILE(RT_LAUNCH, 128)
+#undef RT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+#endif

@@ -1,6 +1,7 @@
 // fp32 GEMM tile loop on Hopper's tensor cores at fp32 accuracy (3xTF32),
 // fed by a cp.async ring. Used by matmul.cu, im2col_gemm.cu and the
-// Winograd point-GEMM of winograd.cu.
+// Winograd point-GEMM of winograd.cu; its bf16 counterpart, for matmul.cu's
+// bf16 operands, is mma_bf16.cuh.
 //
 // One CTA computes a BM x BN tile of C[m, n] = sum_k A[m, k] * B[k, n] over
 // a K range [kbeg, kend). The caller's stage loader fills the shared-memory
@@ -67,8 +68,9 @@ struct Tile {
 };
 
 // Copy 16 bytes, of which the first `bytes` come from gmem and the rest
-// are zero; both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+// are zero; both addresses 16-byte aligned. Also the bf16 loaders' copy
+// (mma_bf16.cuh).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),

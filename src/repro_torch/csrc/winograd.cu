@@ -128,8 +128,10 @@ int launch_tile(const float* U, const float* V, float* O, float* ws, int N,
       U, V, O, ws, N, P, K, C, T, split, a16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
-  return rt::tc::launch_splitk_reduce(ws, nullptr, nullptr, O, K, T, split,
-                                      (long long)N * P * K * T, 0, stream);
+  return rt::tc::launch_splitk_reduce<const float*>(ws, nullptr, nullptr, O, K,
+                                                    T, split,
+                                                    (long long)N * P * K * T,
+                                                    0, stream);
 }
 
 // Every (BM, BN, BK) CTA tile ops.cta_plan may choose (winograd.TILE_M,

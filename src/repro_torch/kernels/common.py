@@ -1,13 +1,15 @@
 """Shared kernel plumbing: build, load, launch rule and launch counters.
 
-**Build.** Every CUDA source in ``src/repro_torch/csrc/*.cu`` is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library with a plain C
-interface, under ``build/kernels/`` at the repository root, and loaded with
-``ctypes``. The build happens at first use (or by calling
-``build_kernels()``): one ``nvcc`` process per source, all started together.
-A library's file name carries a digest of its source, the shared headers
-and the flags, so an edited source is rebuilt and never confused with an old
-build.
+**Build.** The CUDA sources in ``src/repro_torch/csrc/*.cu`` are compiled by
+``nvcc`` for ``sm_90a`` into shared libraries with a plain C interface
+(``LIBRARIES``), under ``build/kernels/`` at the repository root, and loaded
+with ``ctypes``. ``matmul.cu`` and ``flash_attention.cu`` build once per
+operand dtype (``-DRT_FP32`` / ``-DRT_BF16`` keep one dtype's entry points,
+so only that dtype's templates are instantiated), the other sources once.
+The build happens at first use (or by calling ``build_kernels()``): one
+``nvcc`` process per library, all started together. A library's file name
+carries a digest of its source, the shared headers and the flags, so an
+edited source is rebuilt and never confused with an old build.
 
 **Launch rule.** A wrapper whose tensors lie on the CPU computes the
 kernel's plain PyTorch version (the CPU tests rely on it); a wrapper whose
@@ -16,10 +18,19 @@ fallback from a kernel to its plain version. A kernel that cannot be built,
 loaded or launched raises :class:`KernelError`, so a caller (the serving
 core) can tell it from any other failure and never serve around it.
 
+**Dtypes.** ``DTYPES[name]`` is what a kernel takes: fp32 everywhere, and
+bf16 too for ``matmul``, ``matmul_batch`` and ``flash_attention`` (the
+dtypes the reference's kernels run at; fp16 is not ported). The operands
+of one call share a dtype; a matmul's bias and residual each have that
+dtype or fp32, the type its epilogue computes in. ``on_cpu`` raises
+``TypeError`` on anything else: no kernel converts an operand quietly.
+
 **Counters.** ``LAUNCHES[name]`` grows by one each time a wrapper launches
 its kernel, and nowhere else; ``SEEN[name]`` counts the launches per call
-signature (shapes, tile, epilogue flags), so a run can replay the exact
-shapes its main path gave a kernel. ``reset_launches()`` clears both.
+signature (shapes, tile, epilogue flags, and the dtypes of the kernels that
+take more than one: a matmul's bias and residual appear as their dtype's
+name, or False), so a run can replay the exact shapes and dtypes its main
+path gave a kernel. ``reset_launches()`` clears both.
 """
 from __future__ import annotations
 
@@ -46,11 +57,23 @@ KERNELS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
            "matmul_batch", "conv_im2col", "winograd_point_gemm",
            "flash_attention")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+# the operand dtypes each kernel takes (fp32 unless listed)
+DTYPES: Dict[str, Tuple[torch.dtype, ...]] = {
+    k: (torch.float32, torch.bfloat16)
+    for k in ("matmul", "matmul_batch", "flash_attention")}
 SEEN: Dict[str, Counter] = {k: Counter() for k in KERNELS}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "im2col_gemm", "winograd", "flash_attention")
+# library -> (source in csrc/, its extra nvcc flags)
+LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "matmul": ("matmul", ("-DRT_FP32",)),
+    "matmul_bf16": ("matmul", ("-DRT_BF16",)),
+    "im2col_gemm": ("im2col_gemm", ()),
+    "winograd": ("winograd", ()),
+    "flash_attention": ("flash_attention", ("-DRT_FP32",)),
+    "flash_attention_bf16": ("flash_attention", ("-DRT_BF16",)),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -68,6 +91,13 @@ def reset_launches() -> None:
         for k in KERNELS:
             LAUNCHES[k] = 0
             SEEN[k].clear()
+
+
+def snapshot() -> Tuple[Dict[str, int], Dict[str, Counter]]:
+    """Copies of ``LAUNCHES`` and ``SEEN`` taken together, under the lock the
+    launching threads (serving workers) count under."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES), {k: Counter(c) for k, c in SEEN.items()}
 
 
 def count_launch(name: str, signature: Tuple) -> None:
@@ -92,74 +122,77 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str) -> Path:
+    source, flags = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     h.update((CSRC / f"{source}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels() -> float:
-    """Compile every source that has no current build, one ``nvcc`` per
-    source in parallel. Returns the wall seconds spent (0.0 when all were
+    """Compile every library that has no current build, one ``nvcc`` per
+    library in parallel. Returns the wall seconds spent (0.0 when all were
     built already). Raises with the compiler's output on any failure."""
     t0 = time.perf_counter()
     with _LOCK:
-        todo = [s for s in SOURCES if not library_path(s).exists()]
+        todo = [n for n in LIBRARIES if not library_path(n).exists()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs = []
-        for s in todo:
-            tmp = library_path(s).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC),
-                   "-o", str(tmp), str(CSRC / f"{s}.cu")]
-            procs.append((s, tmp, subprocess.Popen(
+        for n in todo:
+            source, flags = LIBRARIES[n]
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC),
+                   "-o", str(tmp), str(CSRC / f"{source}.cu")]
+            procs.append((n, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for s, tmp, p in procs:
+        for n, tmp, p in procs:
             log, _ = p.communicate()
             if p.returncode != 0:
-                failed.append(f"nvcc {s}.cu failed ({p.returncode}):\n{log}")
+                failed.append(f"nvcc {n} failed ({p.returncode}):\n{log}")
             else:
                 if log.strip():
-                    print(f"[nvcc {s}.cu]\n{log.rstrip()}", flush=True)
-                os.replace(tmp, library_path(s))
+                    print(f"[nvcc {n}]\n{log.rstrip()}", flush=True)
+                os.replace(tmp, library_path(n))
         if failed:
             raise KernelError("\n".join(failed))
     return time.perf_counter() - t0
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<source>.cu``, built on first use."""
-    lib = _LIBS.get(source)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library ``name`` of ``LIBRARIES``, built on first
+    use."""
+    lib = _LIBS.get(name)
     if lib is None:
         build_kernels()
         with _LOCK:
-            lib = _LIBS.get(source)
+            lib = _LIBS.get(name)
             if lib is None:
                 try:
-                    lib = ctypes.CDLL(str(library_path(source)))
+                    lib = ctypes.CDLL(str(library_path(name)))
                 except OSError as e:
-                    raise KernelError(f"cannot load {source}: {e}") from e
-                _LIBS[source] = lib
+                    raise KernelError(f"cannot load {name}: {e}") from e
+                _LIBS[name] = lib
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
          n_longs: int = 0):
     """C function ``symbol(ptr * n_ptrs, int * n_ints, long long * n_longs,
-    float * n_floats, stream) -> int`` of a source's library, with its ctypes
+    float * n_floats, stream) -> int`` of library ``name``, with its ctypes
     signature set. Pointers and the stream are ``c_void_p`` — anything else
     would truncate them to 32 bits. A ``c_int`` wraps silently past 2**31 - 1:
     a wrapper checks its ints with ``check_int32`` or passes them as longs."""
     try:
-        fn = getattr(library(source), symbol)
+        fn = getattr(library(name), symbol)
     except AttributeError as e:
-        raise KernelError(f"{source} has no symbol {symbol}") from e
+        raise KernelError(f"{name} has no symbol {symbol}") from e
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_longlong] * n_longs + [ctypes.c_float] * n_floats
                    + [ctypes.c_void_p])
@@ -171,26 +204,49 @@ def bind(source: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0,
 # Operand checks and the launch rule
 # ---------------------------------------------------------------------------
 
-def on_cpu(name: str, *tensors: Optional[torch.Tensor]) -> bool:
-    """Check a kernel's operands and say which version runs: True for the
-    plain version (every operand on the CPU), False for the kernel (every
-    operand on one CUDA device). Raises on anything the kernel does not
-    take: a dtype other than float32, a non-contiguous operand, operands on
+def on_cpu(name: str, *operands: Optional[torch.Tensor],
+           epilogue: Tuple[Optional[torch.Tensor], ...] = ()) -> bool:
+    """Check a kernel's tensors and say which version runs: True for the
+    plain version (every tensor on the CPU), False for the kernel (every
+    tensor on one CUDA device). The ``operands`` share one dtype of
+    ``DTYPES[name]``; each ``epilogue`` tensor (a bias or residual, which
+    the kernel widens to fp32 as the reference's ``_finish`` does) has the
+    operands' dtype or fp32. Raises on anything the kernel does not take:
+    another dtype (``TypeError``), a non-contiguous tensor, tensors on
     different devices, or a device that is neither."""
-    ts = [t for t in tensors if t is not None]
-    dev = ts[0].device
-    for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: operands must be float32, got {t.dtype}")
+    takes = DTYPES.get(name, (torch.float32,))
+    ops = [t for t in operands if t is not None]
+    eps = [t for t in epilogue if t is not None]
+    dev, dtype = ops[0].device, ops[0].dtype
+    for t in (*ops, *eps):
+        if t.dtype not in takes:
+            raise TypeError(f"{name}: operands must be "
+                            f"{' or '.join(map(dtype_name, takes))}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
+    for t in ops:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands of one call share a dtype, got "
+                            f"{dtype} and {t.dtype}")
+    for t in eps:
+        if t.dtype not in (dtype, torch.float32):
+            raise TypeError(f"{name}: bias and residual share a dtype with the "
+                            f"operands or are float32, got {t.dtype} on "
+                            f"{dtype} operands")
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     return False
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: the dtype as a launch signature
+    records it."""
+    return str(dtype).removeprefix("torch.")
 
 
 def check_int32(name: str, **values: int) -> None:

@@ -1,12 +1,16 @@
-"""Causal or full fp32 flash attention over (BH, S, d): the port of the
-Pallas kernel ``repro.kernels.flash_attention.flash_attention.flash_attention``.
+"""Causal or full flash attention over (BH, S, d): the port of the Pallas
+kernel ``repro.kernels.flash_attention.flash_attention.flash_attention``,
+with its dtype contract (fp32 or bf16 q, k, v; fp32 inside; the output in
+q's dtype).
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors —
 one CTA per (bh, query block) walks the key blocks up to the causal
-diagonal with an online softmax, Q K^T and P V on the tensor cores at fp32
-accuracy (3xTF32), scores, running max, sum and output accumulator in fp32
-registers — and computes ``flash_attention_plain`` (the full score matrix,
-masked, softmax, times V) for CPU tensors. The CTA tile ``(bq, bkv)`` is one
+diagonal with an online softmax, Q K^T and P V on the tensor cores (fp32
+operands at fp32 accuracy by 3xTF32; bf16 operands read as bf16 on bf16
+mma with P in two bf16 parts), scores, running max, sum and output
+accumulator in fp32 registers — and computes ``flash_attention_plain`` (q,
+k, v upcast, the full score matrix, masked, softmax, times V, cast back)
+for CPU tensors. The CTA tile ``(bq, bkv)`` is one
 of the Hopper tiles in ``TILES``, not the TPU block; the kernel masks ragged
 edges, so the sequence lengths need not divide it. The kernel has no
 backward (the reference's Pallas kernel has no VJP): a call on CUDA tensors
@@ -21,7 +25,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (KernelError, bind, check_launch,
-                                        count_launch, on_cpu, ptr, stream_of)
+                                        count_launch, dtype_name, on_cpu, ptr,
+                                        stream_of)
 
 NEG_INF = -1e30                      # the reference's mask value
 HEAD_DIMS = (32, 64, 128)            # head dims the CUDA kernel instantiates
@@ -35,24 +40,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           scale: Optional[float] = None) -> torch.Tensor:
     """q (BH, Sq, d), k and v (BH, Sk, d) -> (BH, Sq, d): softmax((scale q)
     k^T) v with scores of key positions past the query's set to ``NEG_INF``
-    when ``causal`` (top-left aligned: query i sees keys 0..i)."""
+    when ``causal`` (top-left aligned: query i sees keys 0..i). As the
+    reference's kernel does, q, k and v are upcast to fp32 (at least),
+    everything is computed there, and the output is cast back to q's
+    dtype."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    dtype, up = q.dtype, torch.promote_types(q.dtype, torch.float32)
+    q, k, v = (t.to(up) for t in (q, k, v))
     s = (q * scale) @ k.transpose(1, 2)
     if causal:
         sq, sk = s.shape[-2:]
         pos = torch.arange(max(sq, sk), device=q.device)
         s = s.masked_fill(pos[:sq, None] < pos[None, :sk], NEG_INF)
-    return torch.softmax(s, dim=-1) @ v
+    return (torch.softmax(s, dim=-1) @ v).to(dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     bq: int = 64, bkv: int = 64) -> torch.Tensor:
-    """q (BH, Sq, d), k and v (BH, Sk, d) -> (BH, Sq, d) fp32, heads folded
-    into the batch dim (GQA callers repeat the KV heads first). ``scale``
-    defaults to 1/sqrt(d). The CTA tile covers ``bq`` queries by ``bkv``
-    keys, one of ``TILES``; the kernel takes d in ``HEAD_DIMS`` and
-    operands that start on a 16-byte boundary (its copies are 16 bytes)."""
+    """q (BH, Sq, d), k and v (BH, Sk, d), all fp32 or all bf16 -> (BH, Sq,
+    d) in q's dtype, heads folded into the batch dim (GQA callers repeat
+    the KV heads first). ``scale`` (default 1/sqrt(d)) multiplies the fp32
+    scores. The CTA tile covers ``bq`` queries by ``bkv`` keys, one of
+    ``TILES``; the kernel takes d in ``HEAD_DIMS`` and operands that start
+    on a 16-byte boundary (its copies are 16 bytes)."""
     bh, sq, d = q.shape
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -74,9 +85,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "boundary")
     sk = k.shape[1]
     out = torch.empty_like(q)
-    fn = bind("flash_attention", "rt_flash_attention_f32", 4, 7, 1)
+    lib, suffix = (("flash_attention_bf16", "bf16") if q.dtype == torch.bfloat16
+                   else ("flash_attention", "f32"))
+    fn = bind(lib, f"rt_flash_attention_{suffix}", 4, 7, 1)
     check_launch("flash_attention", fn(
         ptr(q), ptr(k), ptr(v), ptr(out), bh, sq, sk, d, int(causal), bq, bkv,
         scale, stream_of(q)))
-    count_launch("flash_attention", (bh, sq, sk, d, bool(causal), bq, bkv, scale))
+    count_launch("flash_attention", (bh, sq, sk, d, bool(causal), bq, bkv, scale,
+                                     dtype_name(q.dtype)))
     return out

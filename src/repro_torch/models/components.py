@@ -213,26 +213,26 @@ def flash_routed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  sc: float, causal: bool = True) -> torch.Tensor:
     """The reference's prefill attention on the flash attention kernel:
-    q scaled in its own dtype then upcast (as the reference does), K/V
-    repeated to the query heads (``jnp.repeat``) and upcast, heads folded
-    into the batch dim, the kernel at scale 1 under ``FLASH_VARIANT``'s
-    tile (it masks ragged edges, so any length runs), cast back to q's
-    dtype. On CPU tensors ``flash_attention`` computes its plain version,
-    which is how the CPU tests reach this glue."""
+    q scaled in its own dtype (as the reference does), K/V repeated to the
+    query heads (``jnp.repeat``), heads folded into the batch dim, the
+    kernel at scale 1 under ``FLASH_VARIANT``'s tile (it masks ragged
+    edges, so any length runs). q, k and v stay in their dtype, fp32 or
+    bf16: the kernel computes in fp32 inside and returns q's dtype, so a
+    bf16 prefill makes no fp32 copy of them. On CPU tensors
+    ``flash_attention`` computes its plain version, which is how the CPU
+    tests reach this glue."""
     B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
+    rep = Hq // k.shape[2]
 
-    def fold(t: torch.Tensor) -> torch.Tensor:
-        if rep > 1:
-            t = torch.repeat_interleave(t, rep, dim=2)
-        return t.float().transpose(1, 2).reshape(B * Hq, t.shape[1], hd).contiguous()
+    def fold(t: torch.Tensor, r: int) -> torch.Tensor:
+        if r > 1:
+            t = torch.repeat_interleave(t, r, dim=2)
+        return t.transpose(1, 2).reshape(B * Hq, t.shape[1], hd).contiguous()
 
-    qf = (q * sc).float().transpose(1, 2).reshape(B * Hq, Sq, hd).contiguous()
-    bq, bkv = cta_tile(FLASH_VARIANT, hd)
-    out = flash_attention(qf, fold(k), fold(v), causal=causal, scale=1.0,
-                          bq=bq, bkv=bkv)
-    return out.reshape(B, Hq, Sq, hd).transpose(1, 2).to(q.dtype)
+    bq, bkv = cta_tile(FLASH_VARIANT, hd, q.dtype)
+    out = flash_attention(fold(q * sc, 1), fold(k, rep), fold(v, rep),
+                          causal=causal, scale=1.0, bq=bq, bkv=bkv)
+    return out.reshape(B, Hq, Sq, hd).transpose(1, 2)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -387,17 +387,19 @@ def test_entry_point_phase_matches_reference(monkeypatch):
 
 
 def test_flash_attention_bound_at_the_3xtf32_rate():
-    """chip_smoke.py bounds the flash-attention kernel at the 3xTF32 rate
-    (it runs on the tensor cores) and prints the fp32-rate bound beside it:
-    for chatglm3_6b causal at S = 4,096 (32 heads, d = 128, the pairs the
-    mask keeps) 0.834 and 2.052 ms."""
+    """chip_smoke.py bounds the fp32 flash-attention kernel at the 3xTF32
+    rate (it runs on the tensor cores) and prints the fp32-rate bound
+    beside it: for chatglm3_6b causal at S = 4,096 (32 heads, d = 128, the
+    pairs the mask keeps) 0.834 and 2.052 ms. The rate is the signature's
+    dtype's: the launch signature ends with it."""
     smoke = _load_chip_smoke()
     spec = smoke.kernel_table(torch)["flash_attention"]
-    assert spec["flops_s"] == smoke.TF32_FLOPS / 3
     cfg = smoke.ATTENTION["chatglm3_6b_causal"]
     sig = (cfg["heads"], cfg["seq"], cfg["seq"], cfg["head_dim"], True,
-           *fa_cta_tile("fa-128x128", cfg["head_dim"]), cfg["head_dim"] ** -0.5)
+           *fa_cta_tile("fa-128x128", cfg["head_dim"]), cfg["head_dim"] ** -0.5,
+           "float32")
+    assert spec["flops_s"](sig) == smoke.TF32_FLOPS / 3
     flops, nbytes = spec["work"](sig)
-    bound = max(flops / spec["flops_s"], nbytes / smoke.HBM_BYTES_S) * 1e3
+    bound = max(flops / spec["flops_s"](sig), nbytes / smoke.HBM_BYTES_S) * 1e3
     bound32 = max(flops / smoke.FP32_FLOPS, nbytes / smoke.HBM_BYTES_S) * 1e3
     assert round(bound, 3) == 0.834 and round(bound32, 3) == 2.052

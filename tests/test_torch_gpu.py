@@ -50,9 +50,9 @@ from repro_torch.kernels.im2col_gemm.ops import CTA_TILES as CONV_TILES
 from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
                                                  conv_im2col_op)
 from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_cta_plan
-from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_M, TILE_N, matmul,
-                                               matmul_batch, matmul_batch_plain,
-                                               matmul_plain)
+from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_K_BF16, TILE_M,
+                                               TILE_N, matmul, matmul_batch,
+                                               matmul_batch_plain, matmul_plain)
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
 from repro_torch.kernels.matmul.ops import cta_plan, matmul_batch_op, matmul_op
 from repro_torch.kernels.winograd import winograd as wino_mod
@@ -638,6 +638,206 @@ def test_gpu_flash_attention_op_gqa(variant, cuda):
     want = flash_attention_plain(fold(q), fold(kr), fold(vr), causal=True)
     torch.testing.assert_close(got, want.reshape(2, 8, 256, 64).transpose(1, 2),
                                **GEMM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels: matmul, matmul_batch and flash attention on bf16 operands
+# ---------------------------------------------------------------------------
+
+# a whole bf16 model's outputs: the reference's _TOL[bfloat16]
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def _bf16_rand(gen, *shape, scale=1.0):
+    return _cuda_rand(gen, *shape, scale=scale).to(torch.bfloat16)
+
+
+def _hold_bf16(got, want32, rows=False):
+    """A kernel's bf16 output within one bf16 rounding (2^-8 of |result|,
+    half an ulp) of ``want32``, the fp32 result on the same values, plus
+    1e-4 of the largest |result| (of its row, the last dim, with ``rows``)
+    for the order of the fp32 sums."""
+    assert got.dtype == torch.bfloat16 and got.shape == want32.shape
+    mag = want32.abs()
+    scale = mag.amax(-1, keepdim=True) if rows else mag.max()
+    err = (got.float() - want32).abs()
+    assert (err <= 2 ** -8 * mag + 1e-4 * scale).all(), float(err.max())
+
+
+@pytest.mark.parametrize("variant", sorted(MM_TILES))
+def test_gpu_matmul_bf16_kernel_vs_plain(variant, cuda):
+    """Every variant's bf16 plan and epilogue (bf16 bias and residual), fp32
+    and bf16 outputs, at a ragged shape with 16-byte rows (K, N % 8 == 0)
+    and one with unaligned rows (K = 27, N odd: the element-wise loader)."""
+    gen = torch.Generator().manual_seed(0)
+    common.reset_launches()
+    for M, K, N in [(150, 272, 336), (150, 27, 333)]:
+        x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+        b, r = _bf16_rand(gen, M), _bf16_rand(gen, M, N)
+        for hb, hr, relu in EPILOGUES:
+            ep = dict(bias=b if hb else None, residual=r if hr else None, relu=relu)
+            want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+            got = matmul_op(x, y, variant=variant, out_dtype=torch.float32, **ep)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+            _hold_bf16(matmul_op(x, y, variant=variant, out_dtype=torch.bfloat16,
+                                 **ep), want)
+    assert common.LAUNCHES["matmul"] == 2 * 2 * len(EPILOGUES)
+    assert {sig[-2] for sig in common.SEEN["matmul"]} == {"bfloat16"}
+
+
+@pytest.mark.parametrize("bm", TILE_M)
+@pytest.mark.parametrize("bn", TILE_N)
+@pytest.mark.parametrize("bk", TILE_K_BF16)
+def test_gpu_matmul_bf16_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every bf16 tile, unsplit and split three ways (K long enough that
+    each slice owns a step at either depth), aligned and unaligned rows,
+    fp32 output held at 1e-4 (exact products, sum order only)."""
+    gen = torch.Generator().manual_seed(0)
+    for M, K, N in [(150, 272, 336), (37, 331, 334), (21, 363, 335)]:
+        x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+        b, r = _bf16_rand(gen, M), _bf16_rand(gen, M, N)
+        for split in (1, 3):
+            got = matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=b,
+                         residual=r, relu=True, out_dtype=torch.float32)
+            want = matmul_plain(x, y, bias=b, residual=r, relu=True,
+                                out_dtype=torch.float32)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("variant", sorted(MM_TILES))
+def test_gpu_matmul_batch_bf16_kernel_vs_plain(variant, cuda):
+    """resnet18-like per-image GEMMs in bf16: weights broadcast over the
+    batch, odd K and N (the element-wise loader) and 16-byte rows, the full
+    epilogue, both output dtypes, and the late layers' split K."""
+    gen = torch.Generator().manual_seed(0)
+    for B, M, K, N in [(3, 64, 147, 333), (3, 128, 576, 784), (8, 512, 4608, 9)]:
+        w = _bf16_rand(gen, M, K, scale=K ** -0.5)
+        y, b, r = _bf16_rand(gen, B, K, N), _bf16_rand(gen, M), _bf16_rand(gen, B, M, N)
+        x = w.expand(B, M, K)
+        ep = dict(bias=b, residual=r, relu=True)
+        want = matmul_batch_plain(x, y, out_dtype=torch.float32, **ep)
+        torch.testing.assert_close(
+            matmul_batch_op(x, y, variant=variant, out_dtype=torch.float32, **ep),
+            want, **GEMM_TOL)
+        _hold_bf16(matmul_batch_op(x, y, variant=variant, out_dtype=torch.bfloat16,
+                                   **ep), want)
+
+
+def test_gpu_matmul_bf16_deterministic(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x, y = _bf16_rand(gen, 64, 1152, scale=1152 ** -0.5), _bf16_rand(gen, 1152, 128)
+    xb, yb = _bf16_rand(gen, 512, 4608, scale=4608 ** -0.5), _bf16_rand(gen, 8, 4608, 9)
+    calls = [lambda: matmul_op(x, y, "mm-256x256x256", relu=True),
+             lambda: matmul_batch_op(xb.expand(8, 512, 4608), yb,
+                                     out_dtype=torch.float32)]
+    assert cta_plan(512, 9, 4608, 8, "mm-128x128x128", torch.bfloat16)[3] > 1
+    for call in calls:
+        assert torch.equal(call(), call())
+
+
+@pytest.mark.parametrize("split", [1, 3])
+def test_gpu_matmul_bf16_takes_an_fp32_bias_and_residual(split, cuda):
+    """bf16 operands with an fp32 bias and residual, and with a bf16 bias
+    beside an fp32 residual, unsplit and split, in matmul and matmul_batch:
+    the kernel reads each epilogue tensor at its own dtype (fp32 output at
+    1e-4 of the plain version, bf16 within one rounding of it), and the
+    launch signature names those dtypes."""
+    gen = torch.Generator().manual_seed(0)
+    M, K, N = 150, 272, 336
+    x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+    b, r = _cuda_rand(gen, M), _cuda_rand(gen, M, N)
+    common.reset_launches()
+    for bias in (b, b.bfloat16()):
+        ep = dict(bias=bias, residual=r, relu=True)
+        want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+        got = matmul(x, y, bm=64, bk=32, bn=64, split_k=split,
+                     out_dtype=torch.float32, **ep)
+        torch.testing.assert_close(got, want, **GEMM_TOL)
+        _hold_bf16(matmul(x, y, bm=64, bk=32, bn=64, split_k=split, **ep), want)
+        epb = dict(bias=bias, residual=torch.stack([r, r]), relu=True)
+        xb, yb = x.expand(2, M, K), torch.stack([y, y])
+        got = matmul_batch(xb, yb, bm=64, bk=32, bn=64, split_k=split,
+                           out_dtype=torch.float32, **epb)
+        torch.testing.assert_close(
+            got, matmul_batch_plain(xb, yb, out_dtype=torch.float32, **epb),
+            **GEMM_TOL)
+    assert {sig[7:9] for sig in common.SEEN["matmul"]} == {
+        ("float32", "float32"), ("bfloat16", "float32")}
+    assert {sig[10:12] for sig in common.SEEN["matmul_batch"]} == {
+        ("float32", "float32"), ("bfloat16", "float32")}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("tile", FA_KERNEL_TILES)
+def test_gpu_flash_attention_bf16_kernel_vs_plain(tile, d, cuda):
+    """Every tile and head dim on bf16 q, k, v (causal and not, ragged, Sq
+    != Sk): a bf16 output within the bf16 tolerance of the plain version,
+    and within one bf16 rounding (2^-8 relative) plus 1e-4 of the fp32
+    attention on the same values, so P's two bf16 parts keep it near fp32;
+    the launch signature carries the dtype."""
+    gen = torch.Generator().manual_seed(0)
+    bq, bkv = tile
+    common.reset_launches()
+    for (bh, sq, sk) in [(3, 256, 256), (2, 200, 200), (2, 96, 160), (2, 160, 96)]:
+        q, k, v = (_bf16_rand(gen, bh, s, d) for s in (sq, sk, sk))
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            assert got.dtype == torch.bfloat16
+            want32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=causal)
+            torch.testing.assert_close(got.float(), want32, rtol=2 ** -8, atol=1e-4)
+            _hold_bf16(got, want32, rows=True)
+    assert {sig[-1] for sig in common.SEEN["flash_attention"]} == {"bfloat16"}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_attention_bf16_long_and_large_scores(causal, cuda):
+    """S = 4,096 at d = 128 and scores of large magnitude (inputs x4): the
+    kernel's bf16 output within one bf16 rounding of the fp32 attention on
+    the same values, and a call repeats bit for bit."""
+    gen = torch.Generator().manual_seed(2)
+    for S, x in ((4096, 1.0), (300, 4.0)):
+        q, k, v = (_bf16_rand(gen, 1, S, 128, scale=x) for _ in range(3))
+        want32 = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        for bq, bkv in FA_KERNEL_TILES:
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            torch.testing.assert_close(got.float(), want32, rtol=2 ** -8, atol=1e-4)
+            assert torch.equal(flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv),
+                               got)
+
+
+@pytest.mark.parametrize("variant", sorted(FA_VARIANTS))
+def test_gpu_flash_attention_op_bf16_gqa(variant, cuda):
+    gen = torch.Generator().manual_seed(0)
+    q = _bf16_rand(gen, 2, 256, 8, 64)
+    k, v = _bf16_rand(gen, 2, 256, 2, 64), _bf16_rand(gen, 2, 256, 2, 64)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention_op(q, k, v, causal=True, variant=variant)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16
+    kr, vr = k.repeat_interleave(4, dim=2), v.repeat_interleave(4, dim=2)
+    fold = lambda t: t.transpose(1, 2).reshape(16, 256, 64)
+    want = flash_attention_plain(fold(q).float(), fold(kr).float(),
+                                 fold(vr).float(), causal=True)
+    _hold_bf16(got, want.reshape(2, 8, 256, 64).transpose(1, 2), rows=True)
+
+
+def test_gpu_bf16_kernels_refuse_fp16_and_the_conv_kernels_bf16(cuda):
+    """On the card too: fp16 and mixed dtypes raise before any launch, and
+    the conv kernel takes fp32 only."""
+    h = torch.zeros(16, 32, device="cuda", dtype=torch.float16)
+    before = dict(common.LAUNCHES)
+    with pytest.raises(TypeError):
+        matmul(h, h.T.contiguous())
+    with pytest.raises(TypeError):
+        matmul(h.bfloat16(), h.T.contiguous().float())
+    with pytest.raises(TypeError):
+        flash_attention(h[None], h[None], h[None])
+    with pytest.raises(TypeError):
+        conv_im2col(torch.zeros(4, 8, 8, device="cuda", dtype=torch.bfloat16),
+                    torch.zeros(4, 4, 3, 3, device="cuda", dtype=torch.bfloat16),
+                    1, bm=16, bk=16, bn=8)
+    assert dict(common.LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------
@@ -1248,6 +1448,30 @@ def test_gpu_lm_decode_run_defaults_to_the_card(cuda):
     assert common.LAUNCHES["flash_attention"] == before + cfg.n_layers
 
 
+def test_gpu_lm_bf16_prefill_runs_the_kernel_in_bf16(cuda, monkeypatch):
+    """A bf16 prefill sends bf16 q, k and v to the kernel (the launch
+    signature's dtype), once a layer, and its logits are those of the same
+    bf16 prefill on the card with the route off (the plain bf16 attention)
+    within the bf16 tolerance."""
+    import dataclasses
+    from repro_torch.models import components as C
+    from repro_torch.models import transformer as T
+    cfg, cpu, _ = _lm_model()
+    cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    card = T.map_params(lambda a: a.to("cuda", torch.bfloat16)
+                        if a.is_floating_point() else a.to("cuda"), cpu)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 45)))
+    common.reset_launches()
+    got, _ = T.prefill(card, cfg, tokens.cuda())
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert {sig[-1] for sig in common.SEEN["flash_attention"]} == {"bfloat16"}
+    monkeypatch.setattr(C, "flash_routed", lambda *a, **k: False)
+    want, _ = T.prefill(card, cfg, tokens.cuda())
+    assert common.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
 # ---------------------------------------------------------------------------
 # The LM families' serving path on the card
 # ---------------------------------------------------------------------------
@@ -1518,3 +1742,19 @@ def test_gpu_autotune_on_measured_costs(cuda):
     res = AT.autotune_arch(cfg, model, batch_tokens=1024, cost_fn=cost)
     assert res.predicted_s >= res.oracle_s * (1 - 1e-9) and res.default_s >= res.oracle_s
     assert set(res.assignment.values()) <= set(data.names)
+
+
+def test_gpu_autotune_times_bf16_gemms(cuda):
+    """``MeasuredCost`` times bf16 operands by default (the matmul kernel's
+    launch signature says so) and fp32 when asked; ``build_dataset``
+    records the dtype."""
+    from repro_torch.core import autotune as AT
+    from repro_torch.configs import base as cb
+    for dtype in (torch.bfloat16, torch.float32):
+        cost = AT.MeasuredCost() if dtype == torch.bfloat16 else AT.MeasuredCost(dtype=dtype)
+        common.reset_launches()
+        assert cost(512, 256, 384, "mm-256x256x256") > 0
+        assert {sig[-2] for sig in common.SEEN["matmul"]} == {str(dtype)[6:]}
+    data = AT.build_dataset(AT.MeasuredCost(), configs=[cb.get("chatglm3_6b")],
+                            batch_tokens=256, sample_rows=0)
+    assert data.dtype == torch.bfloat16 and (data.times > 0).all()
