@@ -261,8 +261,10 @@ Phases, each of which asserts:
    under the chosen variants, whose signatures must be among the
    autotune's own;
    (c) ``launch.dryrun --all``, the bytes of every cell against the card.
-   The autotune must launch the matmul kernel, on bf16 operands only; the
-   other paths' launches are recorded.
+   The autotune must launch the matmul kernel, on bf16 operands only, and
+   every launch at an LM site on the wgmma route (``csrc/matmul_wgmma.cu``;
+   the route stands beside each site's ms, and the site pass's launches
+   are counted per route); the other paths' launches are recorded.
 
 Every served response is held at rtol=atol=1e-3 against the port's
 interpreted executor on the card under the base (non-tile) columns — plain
@@ -276,7 +278,14 @@ The selected paths of phase 6 are timed the same way.
 The ``{"kernels": [...]}`` line has one row per kernel and operand dtype:
 the seven TPU kernels and the two Winograd transforms in fp32, and rows 1,
 4 and 7 (``matmul``, ``matmul_batch``, ``flash_attention``) again in bf16,
-each row's launches those of the paths of its dtype.
+each row's launches those of the paths of its dtype. The matmul kernels'
+rows also count their launches per route (``launches_by_route`` over the
+run, ``pass_launches_by_route`` over the timed pass: bf16 operands that
+TMA can address run ``csrc/matmul_wgmma.cu``, the rest ``csrc/matmul.cu``)
+and name the source of each route; a row's ``source`` is the route with
+most launches in its timed pass. Phase 5's matmul_batch passes
+print their launches per route, and the bf16 sweep at the largest
+signature covers the plans of both routes.
 The last line of output is the ``{"ok": true, "device": ...}`` record.
 The script fails (non-zero exit, no result) without a CUDA device.
 """
@@ -561,8 +570,10 @@ def main() -> int:
             entry_seen[k][name] = dict(common.SEEN[k])
             assert launches[name][k] > 0, (name, k, launches[name])
         assert all(n == 0 for k, n in launches[name].items() if k not in want)
+        routes = {k: PATH_ROUTES[name][k] for k in ROUTED if k in want}
         print(f"entry {name}: max |out - oracle| = {oracle_err[name]:.3g}, "
-              f"launches {({k: launches[name][k] for k in sorted(want)})}",
+              f"launches {({k: launches[name][k] for k in sorted(want)})}"
+              + (f", by dtype and route {routes}" if routes else ""),
               flush=True)
     for k in ENTRY_KERNELS:
         seen = set().union(*(set(c) for c in entry_seen[k].values()))
@@ -686,7 +697,18 @@ def main() -> int:
                     "float64_err": lm["float64_err_by_dtype"].get(dt),
                     "passes": {p: pt for p, pt in lm["passes"].items()
                                if pt["dtype"] == dt}}
-            rows.append({"name": k, "dtype": dt, "route": "cuda", "source": r["source"],
+            if k in ROUTED:
+                by_route = {}
+                for p in launches:
+                    for rt, n in PATH_ROUTES[p][k].get(dt, {}).items():
+                        by_route[rt] = by_route.get(rt, 0) + n
+                extra["launches_by_route"] = by_route
+                extra["pass_launches_by_route"] = t["routes"]
+                extra["sources_by_route"] = {rt: ROUTE_SOURCES[rt] for rt in by_route}
+                source = ROUTE_SOURCES[max(t["routes"], key=t["routes"].get)]
+            else:
+                source = r["source"]
+            rows.append({"name": k, "dtype": dt, "route": "cuda", "source": source,
                          "replaces": r["replaces"],
                          "launches": sum(PATH_DTYPES[p][k].get(dt, 0)
                                          for p in launches),
@@ -1594,9 +1616,11 @@ def serving_phase(torch, nets, weights, launches, transferred, pump_rates,
     zombies = drill._pool.zombies
     restarts = drill._pool.restarts
     assert restarts == 1 and zombies == 1, (restarts, zombies)
+    # the shed worker runs its plan once the hang ends: let it finish before
+    # the oracle runs, so its launches are not counted as the oracle's
+    until(lambda: drill._pool.zombies == 0)
     err_mix = check_responses(mix, weights["edge_cnn_mix"], [corrupt, hang],
                               [out_c, [t.result for t in hung]])
-    until(lambda: drill._pool.zombies == 0)
     after = drill.serve("edge_cnn_mix", list(hang))
     np.testing.assert_allclose(np.stack(after), np.stack([t.result for t in hung]),
                                **SERVE_TOL)
@@ -3099,7 +3123,8 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
     the card, (b) the matmul-site autotune on measured card costs, timed at
     bf16, (c) the single-card memory table. Launch counters are zeroed
     before each path and read after it; the autotune must launch the matmul
-    kernel, on bf16 operands. Returns (summary, {one layer of LM_ARCH's
+    kernel, on bf16 operands, and on the wgmma route at every LM site.
+    Returns (summary, {one layer of LM_ARCH's
     sites under the chosen variants: the matmul kernel's signatures}) for
     ``check_and_time``."""
     from repro_torch.configs import base as cb
@@ -3199,6 +3224,14 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
     (data, model, tuned), s = run(path, autotune, kernels=("matmul",))
     check_path_dtype(path, "bfloat16")
     autotune_seen = set(common.SEEN["matmul"])
+    # every launch at an LM site took the wgmma route, whatever the variant
+    sites = set(AT.site_shapes(cb.all_assigned()))
+    site_routes = {}
+    for sig in autotune_seen:
+        if tuple(sig[:3]) in sites:
+            site_routes.setdefault(tuple(sig[:3]), set()).add(sig_route(sig))
+    assert set(site_routes) == sites, sites - set(site_routes)
+    assert all(r == {"wgmma"} for r in site_routes.values()), site_routes
     assert data.dtype == torch.bfloat16, data.dtype
     mdrae = AT.mdrae_held_out(model, data, seed)
     print(f"autotune (b): dataset {data.feats.shape[0]} GEMMs ({data.n_sites} sites, "
@@ -3206,7 +3239,9 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
           f"timed at {dtype_name(data.dtype)}, "
           f"{data.seconds:.1f} s of timing; NN2 held-out MdRAE {mdrae!r} on "
           f"{len(data.split(seed)[2])} rows; phase (b) {s:.1f} s; "
-          f"{launches[path]['matmul']} matmul launches  ({smi})", flush=True)
+          f"{launches[path]['matmul']} matmul launches, by route "
+          f"{PATH_ROUTES[path]['matmul']}; all {len(sites)} LM sites on wgmma  ({smi})",
+          flush=True)
     out["autotune"] = {"rows": int(data.feats.shape[0]), "sites": data.n_sites,
                        "dtype": dtype_name(data.dtype),
                        "timing_s": data.seconds, "seconds": s, "mdrae_held_out": mdrae,
@@ -3219,7 +3254,7 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
     # per site: the chosen variant's bf16 time beside torch.matmul's on the
     # same bf16 operands, and the kernel held to its plain version at that
     # shape (fp32 output: exact products, so sum order only)
-    print("autotune (b) per site: arch site M K N | chosen variant ms | "
+    print("autotune (b) per site: arch site M K N | chosen variant route ms | "
           "torch.matmul ms (bf16) | max |kernel - plain| / max |plain|")
     seen = {}
     for c in cb.all_assigned():
@@ -3239,10 +3274,13 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
                 del x, y, want, got
             lib, rel = seen[(m, k, n, v)]
             ms = cost(m, k, n, v) * 1e3
-            print(f"  {c.name} {site} {m} {k} {n} | {v} {ms:.4f} | {lib * 1e3:.4f} | {rel:.3g}")
+            route = "/".join(sorted(site_routes[(m, k, n)]))
+            print(f"  {c.name} {site} {m} {k} {n} | {v} {route} {ms:.4f} | "
+                  f"{lib * 1e3:.4f} | {rel:.3g}")
             out["autotune"]["sites_ms"].append(
                 {"arch": c.name, "site": site, "M": m, "K": k, "N": n, "variant": v,
-                 "ms": ms, "torch_matmul_ms": lib * 1e3, "rel_err": rel})
+                 "route": route, "ms": ms, "torch_matmul_ms": lib * 1e3,
+                 "rel_err": rel})
     torch.cuda.empty_cache()
     # row 1's bf16 pass: one layer of LM_ARCH's GEMM sites run through
     # matmul_op under the chosen variants, on bf16 operands as the autotune
@@ -3261,6 +3299,10 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
     check_path_dtype(site_path, "bfloat16")
     site_pass = dict(common.SEEN["matmul"])
     assert set(site_pass) <= autotune_seen, set(site_pass) - autotune_seen
+    print(f"autotune (b) {site_path}: {sum(site_pass.values())} launches, by "
+          f"dtype and route {PATH_ROUTES[site_path]['matmul']}", flush=True)
+    assert PATH_ROUTES[site_path]["matmul"] == {"bfloat16": {"wgmma": len(
+        AT.matmul_sites(lm_cfg))}}, PATH_ROUTES[site_path]
     torch.cuda.empty_cache()
 
     # (c) the single-card memory table (meta tensors, no card work)
@@ -3381,6 +3423,11 @@ def bf16_entry_paths(net, layers, attention, batch):
 
 # path -> {kernel: {operand dtype: launches}} of each path's run (``took``)
 PATH_DTYPES: dict = {}
+# path -> {matmul kernel: {operand dtype: {route: launches}}} (``took``)
+PATH_ROUTES: dict = {}
+ROUTED = ("matmul", "matmul_batch")       # kernels with an mma.sync and a wgmma route
+ROUTE_SOURCES = {"mma.sync": "src/repro_torch/csrc/matmul.cu",
+                 "wgmma": "src/repro_torch/csrc/matmul_wgmma.cu"}
 
 
 def sig_dtype(kernel: str, sig) -> str:
@@ -3393,18 +3440,30 @@ def sig_dtype(kernel: str, sig) -> str:
     return sig[-1] if kernel == "flash_attention" else sig[-2]
 
 
+def sig_route(sig) -> str:
+    """The route of a matmul or matmul_batch launch signature: the field
+    before its stages and dtypes."""
+    return sig[-4]
+
+
 def took(path: str) -> dict:
     """Read the launch counters after ``path`` ran (zeroed just before it):
     its launches per kernel, returned, and per kernel and operand dtype,
-    from the launch signatures, kept in ``PATH_DTYPES[path]``."""
+    from the launch signatures, kept in ``PATH_DTYPES[path]``; the matmul
+    kernels' launches per dtype and route in ``PATH_ROUTES[path]``."""
     from repro_torch.kernels import common
     launches, seen = common.snapshot()
     by_dtype = {k: {} for k in common.KERNELS}
+    by_route = {k: {} for k in ROUTED}
     for k, counts in seen.items():
         for sig, n in counts.items():
             dt = sig_dtype(k, sig)
             by_dtype[k][dt] = by_dtype[k].get(dt, 0) + n
+            if k in ROUTED:
+                routes = by_route[k].setdefault(dt, {})
+                routes[sig_route(sig)] = routes.get(sig_route(sig), 0) + n
     PATH_DTYPES[path] = by_dtype
+    PATH_ROUTES[path] = by_route
     return launches
 
 
@@ -3574,11 +3633,12 @@ def kernel_table(torch):
     from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
     from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_plan
     from repro_torch.kernels.im2col_gemm.ref import conv_ref
-    from repro_torch.kernels.matmul.matmul import (matmul, matmul_batch,
+    from repro_torch.kernels.matmul.matmul import (MMA_STAGES, matmul,
+                                                   matmul_batch,
                                                    matmul_batch_plain,
                                                    matmul_plain)
     from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
-    from repro_torch.kernels.matmul.ops import cta_plan
+    from repro_torch.kernels.matmul.ops import cta_plan, wgmma_plan
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
     from repro_torch.kernels.winograd.ops import cta_plan as wino_plan
@@ -3602,10 +3662,16 @@ def kernel_table(torch):
         return BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS / 3
 
     def mm_plans(M, K, N, batch, dtype):
-        """(bm, bk, bn, split_k) of every variant's plan at one shape."""
-        return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (cta_plan(M, N, K, batch, v, getattr(torch, dtype))
-                 for v in MM_VARIANTS)]
+        """(bm, bk, bn, split_k, route, stages) of every variant's plan at
+        one shape on the mma.sync route and, where the shape takes it (bf16,
+        M >= 64, K and N multiples of 8), on the wgmma route."""
+        plans = [(bm, bk, bn, split, "mma.sync", MMA_STAGES) for bm, bn, bk, split
+                 in (cta_plan(M, N, K, batch, v, getattr(torch, dtype))
+                     for v in MM_VARIANTS)]
+        if dtype == "bfloat16" and M >= 64 and K % 8 == N % 8 == 0:
+            plans += [(bm, bk, bn, split, "wgmma", st) for bm, bn, bk, st, split
+                      in (wgmma_plan(M, N, K, batch, v) for v in MM_VARIANTS)]
+        return list(dict.fromkeys(plans))
 
     def mm_eps(dt):
         """The epilogue combinations of a matmul signature: bias and
@@ -3615,13 +3681,13 @@ def kernel_table(torch):
     def mm_ops(sig):
         """(kernel, plain version, library call, plain version in fp32):
         the last is the fp32 result a bf16 output is held to."""
-        M, K, N, bm, bk, bn, split, hb, hr, relu, dt, odt = sig
+        M, K, N, bm, bk, bn, split, hb, hr, relu, route, stages, dt, odt = sig
         x, y = rnd(M, K, scale=K ** -0.5, dtype=dt), rnd(K, N, dtype=dt)
         ep = dict(bias=rnd(M, dtype=hb) if hb else None,
                   residual=rnd(M, N, dtype=hr) if hr else None, relu=relu)
         out = getattr(torch, odt)
         return (lambda: matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split,
-                               out_dtype=out, **ep),
+                               out_dtype=out, route=route, stages=stages, **ep),
                 lambda: matmul_plain(x, y, out_dtype=out, **ep),
                 lambda: matmul_ref(x, y),
                 lambda: matmul_plain(x, y, out_dtype=torch.float32, **ep))
@@ -3632,7 +3698,7 @@ def kernel_table(torch):
         return isz(t) * n if t else 0
 
     def mm_work(sig):
-        M, K, N, *_, hb, hr, relu, dt, odt = sig
+        (M, K, N), (hb, hr, relu), (dt, odt) = sig[:3], sig[7:10], sig[-2:]
         return (2 * M * K * N + M * N * (bool(hb) + bool(hr) + relu),
                 isz(dt) * (M * K + K * N) + ep_bytes(hr, M * N) + ep_bytes(hb, M)
                 + isz(odt) * M * N)
@@ -3685,7 +3751,8 @@ def kernel_table(torch):
         return 2 * N * P * K * C * T, 4 * (P * K * C + N * P * C * T + N * P * K * T)
 
     def mmb_ops(sig):
-        B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu, dt, odt = sig
+        (B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu, route,
+         stages, dt, odt) = sig
         x = (rnd(M, K, scale=K ** -0.5, dtype=dt).expand(B, M, K) if x_bcast
              else rnd(B, M, K, scale=K ** -0.5, dtype=dt))
         y = rnd(K, N, dtype=dt).expand(B, K, N) if y_bcast else rnd(B, K, N, dtype=dt)
@@ -3693,13 +3760,15 @@ def kernel_table(torch):
                   residual=rnd(B, M, N, dtype=hr) if hr else None, relu=relu)
         out = getattr(torch, odt)
         return (lambda: matmul_batch(x, y, bm=bm, bk=bk, bn=bn, split_k=split,
-                                     out_dtype=out, **ep),
+                                     out_dtype=out, route=route, stages=stages,
+                                     **ep),
                 lambda: matmul_batch_plain(x, y, out_dtype=out, **ep),
                 lambda: matmul_ref(x, y),
                 lambda: matmul_batch_plain(x, y, out_dtype=torch.float32, **ep))
 
     def mmb_work(sig):
-        B, M, K, N, x_bcast, y_bcast, *_, hb, hr, relu, dt, odt = sig
+        (B, M, K, N, x_bcast, y_bcast), (hb, hr, relu), (dt, odt) = (
+            sig[:6], sig[10:13], sig[-2:])
         return (2 * B * M * K * N + B * M * N * (bool(hb) + bool(hr) + relu),
                 isz(dt) * ((1 if x_bcast else B) * M * K + (1 if y_bcast else B) * K * N)
                 + ep_bytes(hr, B * M * N) + ep_bytes(hb, M) + isz(odt) * B * M * N)
@@ -3800,10 +3869,10 @@ def kernel_table(torch):
         "matmul": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:140",
-            ops=mm_ops, work=mm_work, flops_s=lambda s: tc_rate(s[10]),
-            sweep=lambda s: [(*s[:3], *p, *e, *s[10:])
-                             for p in mm_plans(*s[:3], 1, s[10])
-                             for e in mm_eps(s[10])]),
+            ops=mm_ops, work=mm_work, flops_s=lambda s: tc_rate(s[-2]),
+            sweep=lambda s: [(*s[:3], *p[:4], *e, *p[4:], *s[-2:])
+                             for p in mm_plans(*s[:3], 1, s[-2])
+                             for e in mm_eps(s[-2])]),
         "conv_im2col_batch": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:155",
@@ -3829,10 +3898,10 @@ def kernel_table(torch):
         "matmul_batch": dict(
             source="src/repro_torch/csrc/matmul.cu",
             replaces="src/repro/kernels/matmul/matmul.py:87",
-            ops=mmb_ops, work=mmb_work, flops_s=lambda s: tc_rate(s[13]),
-            sweep=lambda s: [(*s[:6], *p, *e, *s[13:])
-                             for p in mm_plans(*s[1:4], s[0], s[13])
-                             for e in mm_eps(s[13])]),
+            ops=mmb_ops, work=mmb_work, flops_s=lambda s: tc_rate(s[-2]),
+            sweep=lambda s: [(*s[:6], *p[:4], *e, *p[4:], *s[-2:])
+                             for p in mm_plans(*s[1:4], s[0], s[-2])
+                             for e in mm_eps(s[-2])]),
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:76",
@@ -3984,6 +4053,10 @@ def check_and_time(torch, name, seen, passes, reps):
         t["bound_by"] = "operations" if flop_s >= byte_s else "bytes"
         t["launches"] = sum(counts.values())
         t["dtype"] = "/".join(sorted({sig_dtype(name, sig) for sig in counts}))
+        if name in ROUTED:                 # the pass's launches per route
+            t["routes"] = {}
+            for sig, n in counts.items():
+                t["routes"][sig_route(sig)] = t["routes"].get(sig_route(sig), 0) + n
         out[path] = t
         fp32 = f", fp32 bound {t['bound_fp32_ms']:.4f}" if tc else ""
         print(f"{name}: one pass of {path}: {t['launches']} launches, "

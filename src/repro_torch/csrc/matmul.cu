@@ -6,6 +6,20 @@
 // operands' type or fp32) and the output is stored as fp32 or bf16
 // (`out_bf16`).
 //
+// Two routes share the bf16 entry points' contract (kernels/matmul/ops.route
+// picks one per call before anything launches, and neither falls back to
+// the other). bf16 operands TMA can address (M >= 64, K and N multiples of
+// 8, 16-byte aligned bases and batch strides: every LM GEMM site of the
+// matmul-site autotune, 3 of resnet18's 20 convs as GEMMs) take
+// matmul_wgmma.cu: TMA, warpgroup MMA, clusters sharing B, persistent.
+// This file's bf16 tiles take the rest (K or N off a multiple of 8, such
+// as resnet18's K = 147 and N = oh ow = 11,881, M < 64, unaligned views)
+// and every call that names the
+// mma.sync route; fp32 operands always run here. What bounds the mma.sync
+// bf16 tiles: mma.sync from ldmatrix fragments reaches at most a quarter of
+// the bf16 tensor-core rate (1.47-5.57x bf16 torch.matmul's time at the LM
+// sites), which is why the aligned calls moved to wgmma.
+//
 // Replaces two TPU kernels:
 // - `matmul` (src/repro/kernels/matmul/matmul.py:140, body `_matmul_kernel`
 //   :44, epilogue `_finish` :33): a (bm, bk, bn) blocked MXU matmul with an

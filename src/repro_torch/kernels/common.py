@@ -5,7 +5,8 @@
 (``LIBRARIES``), under ``build/kernels/`` at the repository root, and loaded
 with ``ctypes``. ``matmul.cu`` and ``flash_attention.cu`` build once per
 operand dtype (``-DRT_FP32`` / ``-DRT_BF16`` keep one dtype's entry points,
-so only that dtype's templates are instantiated), the other sources once.
+so only that dtype's templates are instantiated), the other sources once
+(``matmul_wgmma.cu``, the bf16 matmul's wgmma route, among them).
 The build happens at first use (or by calling ``build_kernels()``): one
 ``nvcc`` process per library, all started together. A library's file name
 carries a digest of its source, the shared headers and the flags, so an
@@ -69,6 +70,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "matmul": ("matmul", ("-DRT_FP32",)),
     "matmul_bf16": ("matmul", ("-DRT_BF16",)),
+    "matmul_wgmma": ("matmul_wgmma", ()),
     "im2col_gemm": ("im2col_gemm", ()),
     "winograd": ("winograd", ()),
     "flash_attention": ("flash_attention", ("-DRT_FP32",)),

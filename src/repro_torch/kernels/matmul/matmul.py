@@ -2,22 +2,32 @@
 cores: the port of the Pallas kernels ``repro.kernels.matmul.matmul.matmul``
 and ``matmul_batch``, with their dtype contract.
 
-``matmul`` and ``matmul_batch`` launch ``csrc/matmul.cu`` for CUDA tensors
-and compute ``matmul_plain`` / ``matmul_batch_plain`` — the same functions
-in plain torch, no padding — for CPU tensors. Operands are fp32 (run at fp32
-accuracy, 3xTF32) or bf16 (one bf16 tensor-core product per fragment), the
-two of one call of one dtype; bias and residual each have the operands'
-dtype or fp32 (a bf16 product takes an fp32 bias or residual). The sum is
-fp32 and the epilogue runs on it in fp32, widening bias and residual, as
-the reference's ``_finish`` does; the output is stored once in
-``out_dtype`` (fp32 or bf16, default: the operands' dtype), the
-reference's signature. The caller names the launch plan: a CTA tile
-``(bm, bk, bn)`` that the source instantiates (``TILE_M`` x ``TILE_K`` x
-``TILE_N`` for fp32, ``TILE_K_BF16`` deep for bf16) and ``split_k``, the
-number of slices the K walk is cut into (``ops.cta_plan`` chooses both per
+``matmul`` and ``matmul_batch`` launch a kernel for CUDA tensors and
+compute ``matmul_plain`` / ``matmul_batch_plain`` — the same functions in
+plain torch, no padding — for CPU tensors. Operands are fp32 (run at fp32
+accuracy, 3xTF32) or bf16 (bf16 tensor-core products), the two of one call
+of one dtype; bias and residual each have the operands' dtype or fp32 (a
+bf16 product takes an fp32 bias or residual). The sum is fp32 and the
+epilogue runs on it in fp32, widening bias and residual, as the
+reference's ``_finish`` does; the output is stored once in ``out_dtype``
+(fp32 or bf16, default: the operands' dtype), the reference's signature.
+
+The caller names the kernel, ``route`` (``ROUTES``): ``"mma.sync"``
+(``csrc/matmul.cu``, either dtype, any shape) or, for bf16 operands that
+``takes_wgmma`` accepts, ``"wgmma"`` (``csrc/matmul_wgmma.cu``: TMA loads
+and Hopper's warpgroup MMA). ``ops.route`` is the rule the entry points
+use. A call that names ``"wgmma"`` on operands it cannot take raises
+``ValueError``; it is never run on the other route. The caller also names
+the launch plan: a tile ``(bm, bk, bn)`` that the route's source
+instantiates (mma.sync: ``TILE_M`` x ``TILE_K`` x ``TILE_N`` for fp32,
+``TILE_K_BF16`` deep for bf16; wgmma: ``bk`` = ``WGMMA_BK`` and ``(bm, bn,
+stages)`` one of ``WGMMA_TILES``) and ``split_k``, the number of slices the
+K walk is cut into (``ops.cta_plan`` / ``ops.wgmma_plan`` choose them per
 shape). With ``split_k > 1`` each slice writes its fp32 partial sum to a
 workspace allocated here, and a second kernel adds the slices in a fixed
-order and applies the epilogue once; the launch still counts once.
+order and applies the epilogue once. Either route counts its launch once,
+under ``matmul`` or ``matmul_batch``; the launch signature records the
+route and its ring's stages.
 """
 from __future__ import annotations
 
@@ -37,6 +47,16 @@ TILE_M = (16, 32, 64, 128)
 TILE_N = (8, 32, 64, 128)
 TILE_K = (16, 32)
 TILE_K_BF16 = (32, 64)
+MMA_STAGES = 3                 # the mma.sync ring (mma_tf32.cuh, mma_bf16.cuh)
+# (BM, BN, stages) tiles csrc/matmul_wgmma.cu instantiates
+# (RT_FOR_EACH_WGMMA_TILE), each WGMMA_BK deep: the six variant ceilings of
+# ops.WGMMA_CEILINGS and the smaller BM / BN that ops.wgmma_plan fits them to
+WGMMA_TILE_M = (64, 128)              # one or two consumer warpgroups
+WGMMA_TILE_N = (64, 128, 256)
+WGMMA_TILES = tuple((bm, bn, s) for s in (3, 4) for bm in WGMMA_TILE_M
+                    for bn in WGMMA_TILE_N) + ((64, 64, 8), (64, 128, 8))
+WGMMA_BK = 64                  # one 128-byte swizzle row of A
+ROUTES = ("mma.sync", "wgmma")
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 # operand dtype -> (library, suffix of its C entry points)
 _LIB = {torch.float32: ("matmul", "f32"), torch.bfloat16: ("matmul_bf16", "bf16")}
@@ -45,6 +65,59 @@ _LIB = {torch.float32: ("matmul", "f32"), torch.bfloat16: ("matmul_bf16", "bf16"
 def tile_k(dtype: torch.dtype) -> tuple:
     """The K depths instantiated for operands of ``dtype``."""
     return TILE_K_BF16 if dtype == torch.bfloat16 else TILE_K
+
+
+def takes_wgmma(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the wgmma route can take ``x`` (M, K) @ ``y`` (K, N), or the
+    batched (B, M, K) @ (B, K, N): bf16 operands, M >= 64, K and N positive
+    multiples of 8 (rows of 16 bytes), both base addresses 16-byte aligned
+    and batch strides (0 for a broadcast or a batch of one) multiples of 8
+    elements — what TMA needs to address every row. Plain comparisons: an
+    entry point asks on every call."""
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
+        return False
+    M, K, N = x.shape[-2], x.shape[-1], y.shape[-1]
+    if M < 64 or K < 8 or N < 8 or K % 8 or N % 8:
+        return False
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        return False
+    return _batch_stride_of(x) % 8 == 0 and _batch_stride_of(y) % 8 == 0
+
+
+def _batch_stride_of(t: torch.Tensor) -> int:
+    """The stride between the matrices of a batched operand: 0 for a 2-D
+    operand or a batch of one."""
+    return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
+
+
+def _route_plan(name: str, x, y, K: int, bm: int, bk, bn: int, split_k: int,
+                route: str, stages) -> tuple:
+    """Check the launch plan on ``route`` and return its (bk, stages): the
+    tile must be instantiated for the route and dtype, each split slice own
+    a step, and a wgmma call name operands ``takes_wgmma`` accepts."""
+    if route == "mma.sync":
+        bk = tile_k(x.dtype)[0] if bk is None else bk
+        if stages not in (None, MMA_STAGES):
+            raise ValueError(f"{name}: the mma.sync ring has {MMA_STAGES} "
+                             f"stages, got {stages}")
+        check_plan(name, K, bm, bk, bn, split_k, TILE_M, tile_k(x.dtype),
+                   TILE_N)
+        return bk, MMA_STAGES
+    if route != "wgmma":
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
+    if not takes_wgmma(x, y):
+        raise ValueError(f"{name}: the wgmma route takes bf16 operands with "
+                         f"M >= 64, K and N multiples of 8, 16-byte aligned "
+                         f"bases and batch strides; got {x.dtype} "
+                         f"{tuple(x.shape)} @ {tuple(y.shape)}")
+    bk = WGMMA_BK if bk is None else bk
+    stages = WGMMA_TILES[0][2] if stages is None else stages
+    check_plan(name, K, bm, bk, bn, split_k, WGMMA_TILE_M, (WGMMA_BK,),
+               WGMMA_TILE_N)
+    if (bm, bn, stages) not in WGMMA_TILES:
+        raise ValueError(f"{name}: ({bm}, {bk}, {bn}) x {stages} stages is not "
+                         f"an instantiated wgmma tile")
+    return bk, stages
 
 
 def _out_dtype(name: str, x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -88,12 +161,14 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
            bk: Optional[int] = None, bn: int = 64, split_k: int = 1,
            bias: Optional[torch.Tensor] = None,
            residual: Optional[torch.Tensor] = None,
-           relu: bool = False, out_dtype=None) -> torch.Tensor:
+           relu: bool = False, out_dtype=None, route: str = "mma.sync",
+           stages: Optional[int] = None) -> torch.Tensor:
     """x (M, K) @ y (K, N) -> (M, N) in ``out_dtype`` (default: the
     operands' dtype), the epilogue applied once to the fp32 sum. ``bias``
     is (M,), ``residual`` is (M, N). Ragged edges are zero-filled in the
-    kernel; shapes need not divide the tile. ``bk`` defaults to the
-    dtype's shallowest instantiated depth."""
+    kernel; shapes need not divide the tile. ``route`` names the kernel
+    (``ROUTES``); ``bk`` defaults to the route's shallowest instantiated
+    depth at the dtype, ``stages`` to the route's smallest ring."""
     M, K = x.shape
     K2, N = y.shape
     if K != K2:
@@ -103,9 +178,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     if residual is not None and tuple(residual.shape) != (M, N):
         raise ValueError(f"matmul: residual {tuple(residual.shape)} != ({M}, {N})")
     out_dtype = _out_dtype("matmul", x, out_dtype)
-    bk = tile_k(x.dtype)[0] if bk is None else bk
-    check_plan("matmul", K, bm, bk, bn, split_k, TILE_M, tile_k(x.dtype),
-               TILE_N)
+    bk, stages = _route_plan("matmul", x, y, K, bm, bk, bn, split_k, route,
+                             stages)
     check_int32("matmul", M=M, N=N, K=K)
     if on_cpu("matmul", x, y, epilogue=(bias, residual)):
         return matmul_plain(x, y, bias=bias, residual=residual, relu=relu,
@@ -113,16 +187,29 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ws = (torch.empty((split_k, M, N), dtype=torch.float32, device=x.device)
           if split_k > 1 else None)
-    lib, suffix = _LIB[x.dtype]
-    fn = bind(lib, f"rt_matmul_{suffix}", 6, 11)
-    check_launch("matmul", fn(ptr(x), ptr(y), ptr(bias), ptr(residual),
-                              ptr(out), ptr(ws), M, N, K, int(relu), bm, bn,
-                              bk, split_k, *_bf16(out_dtype, bias, residual),
-                              stream_of(x)))
+    if route == "wgmma":
+        err = _wgmma(x, y, bias, residual, out, ws, 1, M, N, K, relu, bm, bn,
+                     stages, split_k, out_dtype, 0, 0)
+    else:
+        lib, suffix = _LIB[x.dtype]
+        fn = bind(lib, f"rt_matmul_{suffix}", 6, 11)
+        err = fn(ptr(x), ptr(y), ptr(bias), ptr(residual), ptr(out), ptr(ws),
+                 M, N, K, int(relu), bm, bn, bk, split_k,
+                 *_bf16(out_dtype, bias, residual), stream_of(x))
+    check_launch("matmul", err)
     count_launch("matmul", (M, K, N, bm, bk, bn, split_k, _ep(bias),
-                            _ep(residual), bool(relu), dtype_name(x.dtype),
-                            dtype_name(out_dtype)))
+                            _ep(residual), bool(relu), route, stages,
+                            dtype_name(x.dtype), dtype_name(out_dtype)))
     return out
+
+
+def _wgmma(x, y, bias, residual, out, ws, B, M, N, K, relu, bm, bn, stages,
+           split_k, out_dtype, sx, sy) -> int:
+    """Launch csrc/matmul_wgmma.cu's kernel; its cudaError_t."""
+    fn = bind("matmul_wgmma", "rt_matmul_wgmma_bf16", 6, 12, n_longs=2)
+    return fn(ptr(x), ptr(y), ptr(bias), ptr(residual), ptr(out), ptr(ws), B,
+              M, N, K, int(relu), bm, bn, stages, split_k,
+              *_bf16(out_dtype, bias, residual), sx, sy, stream_of(x))
 
 
 def matmul_batch_plain(x: torch.Tensor, y: torch.Tensor, *,
@@ -139,21 +226,23 @@ def _batch_stride(name: str, t: torch.Tensor) -> int:
     matrices are each contiguous: 0 for a batch broadcast with ``expand``."""
     if not t[0].is_contiguous():
         raise ValueError(f"{name}: each matrix of the batch must be contiguous")
-    return t.stride(0) if t.shape[0] > 1 else 0
+    return _batch_stride_of(t)
 
 
 def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
                  bk: Optional[int] = None, bn: int = 64, split_k: int = 1,
                  bias: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None,
-                 relu: bool = False, out_dtype=None) -> torch.Tensor:
+                 relu: bool = False, out_dtype=None, route: str = "mma.sync",
+                 stages: Optional[int] = None) -> torch.Tensor:
     """x (B, M, K) @ y (B, K, N) -> (B, M, N) in ``out_dtype`` (default: the
     operands' dtype), the batch on the grid's z axis, with the epilogue
     applied once to the fp32 sum. ``bias`` is
     (M,), ``residual`` is (B, M, N). ``x`` and ``y`` may be broadcast over
     the batch (``expand``, batch stride 0): the kernel reads such an operand
     in place through its batch stride (passed as 64 bits), and no copy per
-    batch entry is made. Ragged edges are zero-filled in the kernel."""
+    batch entry is made. Ragged edges are zero-filled in the kernel.
+    ``route`` and ``stages`` as in ``matmul``."""
     B, M, K = x.shape
     B2, K2, N = y.shape
     if (B, K) != (B2, K2) or B < 1:
@@ -164,9 +253,8 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
         raise ValueError(f"matmul_batch: residual {tuple(residual.shape)} "
                          f"!= {(B, M, N)}")
     out_dtype = _out_dtype("matmul_batch", x, out_dtype)
-    bk = tile_k(x.dtype)[0] if bk is None else bk
-    check_plan("matmul_batch", K, bm, bk, bn, split_k, TILE_M,
-               tile_k(x.dtype), TILE_N)
+    bk, stages = _route_plan("matmul_batch", x, y, K, bm, bk, bn, split_k,
+                             route, stages)
     check_int32("matmul_batch", B=B, M=M, N=N, K=K)
     sx, sy = _batch_stride("matmul_batch", x), _batch_stride("matmul_batch", y)
     if on_cpu("matmul_batch", x[0], y[0], epilogue=(bias, residual)):
@@ -175,15 +263,18 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     out = torch.empty((B, M, N), dtype=out_dtype, device=x.device)
     ws = (torch.empty((split_k, B, M, N), dtype=torch.float32, device=x.device)
           if split_k > 1 else None)
-    lib, suffix = _LIB[x.dtype]
-    fn = bind(lib, f"rt_matmul_batch_{suffix}", 6, 12, n_longs=2)
-    check_launch("matmul_batch", fn(ptr(x), ptr(y), ptr(bias), ptr(residual),
-                                    ptr(out), ptr(ws), B, M, N, K, int(relu),
-                                    bm, bn, bk, split_k,
-                                    *_bf16(out_dtype, bias, residual), sx, sy,
-                                    stream_of(x)))
+    if route == "wgmma":
+        err = _wgmma(x, y, bias, residual, out, ws, B, M, N, K, relu, bm, bn,
+                     stages, split_k, out_dtype, sx, sy)
+    else:
+        lib, suffix = _LIB[x.dtype]
+        fn = bind(lib, f"rt_matmul_batch_{suffix}", 6, 12, n_longs=2)
+        err = fn(ptr(x), ptr(y), ptr(bias), ptr(residual), ptr(out), ptr(ws),
+                 B, M, N, K, int(relu), bm, bn, bk, split_k,
+                 *_bf16(out_dtype, bias, residual), sx, sy, stream_of(x))
+    check_launch("matmul_batch", err)
     count_launch("matmul_batch", (B, M, K, N, sx == 0, sy == 0, bm, bk, bn,
                                   split_k, _ep(bias), _ep(residual),
-                                  bool(relu), dtype_name(x.dtype),
-                                  dtype_name(out_dtype)))
+                                  bool(relu), route, stages,
+                                  dtype_name(x.dtype), dtype_name(out_dtype)))
     return out

@@ -31,6 +31,35 @@ rule). On a shape that fills the card with ceiling tiles the plan is the
 ceiling, so the six distinct ceilings stay six distinct kernels at each
 dtype and the selection's columns keep their meaning; the two capped keys
 run as their 256-row twins.
+
+**Routes.** ``route`` picks each call's kernel from the call alone, before
+anything launches: bf16 operands that TMA can address (``matmul.
+takes_wgmma``: M >= 64, K and N multiples of 8, 16-byte aligned bases and
+batch strides) take ``"wgmma"`` (``csrc/matmul_wgmma.cu``), everything else
+``"mma.sync"`` (``csrc/matmul.cu``) under ``cta_plan``, as before. On the
+wgmma route ``WGMMA_CEILINGS`` gives each key a (BM, BN, stages) ceiling, 64
+deep a stage: BM half the TPU's bm, capped at 128 (one or two consumer
+warpgroups of ``wgmma.m64nBNk16``), BN the TPU's bn, capped at 256, and a
+ring of as many stages as the TPU's bk asks and shared memory allows: 4
+for bk = 128 and 8 for bk = 256 where the tile is small, 3 and 4 where it
+is 128 x 256. The six distinct TPU blocks stay six distinct kernels:
+
+    variant            wgmma (BM, BK, BN) x stages   threads   shared memory
+    mm-128x128x128     ( 64, 64, 128) x 4              256      99,392 B
+    mm-256x128x128     (128, 64, 128) x 4              384     132,160 B
+    mm-128x128x256     ( 64, 64, 256) x 4              256     164,928 B
+    mm-256x128x256     (128, 64, 256) x 3              384     148,528 B
+    mm-512x128x128     (128, 64, 128) x 4              384     132,160 B   M block capped
+    mm-128x256x128     ( 64, 64, 128) x 8              256     197,760 B
+    mm-256x256x256     (128, 64, 256) x 4              384     197,696 B
+    mm-512x256x256     (128, 64, 256) x 4              384     197,696 B   M block capped
+
+(shared memory: 1,024 bytes of alignment, stages x (BM + BN) x 128 bytes,
+16 bytes of barriers a stage; the epilogue reuses the ring.)
+``wgmma_plan`` fits BM and BN to the shape as ``cta_plan`` does and splits K
+only where the output tiles cannot give every SM a CTA (a wgmma CTA of one
+or two consumer warpgroups fills an SM by itself, so the mma.sync rule's
+warps per SM do not apply), into as many slices as one wave holds.
 """
 from __future__ import annotations
 
@@ -39,8 +68,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels.common import SMS, WARPS_PER_SM, fit_plan  # noqa: F401
-from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, matmul,
-                                               matmul_batch)
+from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, WGMMA_BK,
+                                               WGMMA_TILE_M, WGMMA_TILE_N,
+                                               matmul, matmul_batch,
+                                               takes_wgmma)
 
 # (bm, bk, bn) TPU blocks, as in the reference
 VARIANTS: Dict[str, Tuple[int, int, int]] = {
@@ -67,6 +98,20 @@ CTA_TILES: Dict[str, Tuple[int, int, int]] = {
 }
 
 
+# (BM, BN, stages) wgmma ceiling per variant — the second table in the
+# docstring
+WGMMA_CEILINGS: Dict[str, Tuple[int, int, int]] = {
+    "mm-128x128x128": (64, 128, 4),
+    "mm-256x128x128": (128, 128, 4),
+    "mm-128x128x256": (64, 256, 4),
+    "mm-256x128x256": (128, 256, 3),
+    "mm-512x128x128": (128, 128, 4),
+    "mm-128x256x128": (64, 128, 8),
+    "mm-256x256x256": (128, 256, 4),
+    "mm-512x256x256": (128, 256, 4),
+}
+
+
 def ceiling(variant: str,
             dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
     """(BM, BK, BN) ceiling tile of ``variant`` for operands of ``dtype``:
@@ -86,24 +131,64 @@ def cta_plan(M: int, N: int, K: int, batch: int, variant: str,
     return fit_plan(M, N, K, batch, ceiling(variant, dtype), TILE_M, TILE_N)
 
 
+def wgmma_plan(M: int, N: int, K: int, batch: int,
+               variant: str) -> Tuple[int, int, int, int, int]:
+    """(BM, BN, BK, stages, split_k) for a (batch x) (M, K) @ (K, N) call
+    under ``variant`` on the wgmma route: BM and BN the smallest of
+    ``WGMMA_TILE_M`` / ``WGMMA_TILE_N`` covering min(M, ceiling BM) and
+    min(N, ceiling BN), BK 64, the ceiling's stages. K is split only where
+    the output tiles of all batch entries are fewer than the ``SMS``
+    streaming multiprocessors, into as many slices as one wave of CTAs
+    holds, ``want = min(steps, SMS // tiles)``, dealt out as whole 64-deep
+    steps: ``per = ceil(steps / want)`` a slice, split_k = ceil(steps /
+    per). So (5,120, 2,048, 768) under a 128 x 256 tile, 120 tiles, stays
+    whole, where a second slice would start a second wave."""
+    cm, cn, stages = WGMMA_CEILINGS[variant]
+    bm = next(t for t in WGMMA_TILE_M if t >= min(M, cm))
+    bn = next(t for t in WGMMA_TILE_N if t >= min(N, cn))
+    tiles = -(-M // bm) * -(-N // bn) * batch
+    steps = -(-K // WGMMA_BK)
+    if tiles == 0 or tiles >= SMS or steps <= 1:
+        return bm, bn, WGMMA_BK, stages, 1
+    per = -(-steps // min(steps, SMS // tiles))
+    return bm, bn, WGMMA_BK, stages, -(-steps // per)
+
+
+def route(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The kernel a call of ``x`` @ ``y`` (2-D, or batched 3-D) takes:
+    ``"wgmma"`` where ``matmul.takes_wgmma`` accepts the operands, else
+    ``"mma.sync"``. Decided from the call alone; neither route falls back
+    to the other."""
+    return "wgmma" if takes_wgmma(x, y) else "mma.sync"
+
+
+def plan(x: torch.Tensor, y: torch.Tensor, variant: str) -> dict:
+    """The launch arguments of ``x`` @ ``y`` under ``variant``: route, tile,
+    stages and split, as ``matmul`` / ``matmul_batch`` take them."""
+    M, K = x.shape[-2:]
+    N, batch = y.shape[-1], (x.shape[0] if x.dim() == 3 else 1)
+    if route(x, y) == "wgmma":
+        bm, bn, bk, stages, split = wgmma_plan(M, N, K, batch, variant)
+        return dict(bm=bm, bk=bk, bn=bn, split_k=split, route="wgmma",
+                    stages=stages)
+    bm, bn, bk, split = cta_plan(M, N, K, batch, variant, x.dtype)
+    return dict(bm=bm, bk=bk, bn=bn, split_k=split, route="mma.sync")
+
+
 def matmul_op(x, y, variant: str = "mm-128x128x128", bias=None,
               residual=None, relu: bool = False, out_dtype=None):
-    """(M, K) @ (K, N) under ``variant``'s plan for this shape and dtype,
-    epilogue applied once to the fp32 sum, stored as ``out_dtype`` (default:
-    the operands' dtype)."""
-    (M, K), N = x.shape, y.shape[1]
-    bm, bn, bk, split = cta_plan(M, N, K, 1, variant, x.dtype)
-    return matmul(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=bias,
-                  residual=residual, relu=relu, out_dtype=out_dtype)
+    """(M, K) @ (K, N) under ``variant``'s plan for this call's route,
+    shape and dtype, epilogue applied once to the fp32 sum, stored as
+    ``out_dtype`` (default: the operands' dtype)."""
+    return matmul(x, y, bias=bias, residual=residual, relu=relu,
+                  out_dtype=out_dtype, **plan(x, y, variant))
 
 
 def matmul_batch_op(x, y, variant: str = "mm-128x128x128", bias=None,
                     residual=None, relu: bool = False, out_dtype=None):
-    """(B, M, K) @ (B, K, N) under ``variant``'s plan for this shape and
-    dtype, the batch on the grid, epilogue applied once to the fp32 sum,
-    stored as ``out_dtype`` (default: the operands' dtype); ``x`` or ``y``
-    may be broadcast over B."""
-    B, M, K = x.shape
-    bm, bn, bk, split = cta_plan(M, y.shape[2], K, B, variant, x.dtype)
-    return matmul_batch(x, y, bm=bm, bk=bk, bn=bn, split_k=split, bias=bias,
-                        residual=residual, relu=relu, out_dtype=out_dtype)
+    """(B, M, K) @ (B, K, N) under ``variant``'s plan for this call's
+    route, shape and dtype, the batch on the grid, epilogue applied once to
+    the fp32 sum, stored as ``out_dtype`` (default: the operands' dtype);
+    ``x`` or ``y`` may be broadcast over B."""
+    return matmul_batch(x, y, bias=bias, residual=residual, relu=relu,
+                        out_dtype=out_dtype, **plan(x, y, variant))

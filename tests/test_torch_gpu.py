@@ -1,5 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card, at every tile the variant tables name and every epilogue combination;
+card, at every tile the variant tables name and every epilogue combination
+(the bf16 matmul's wgmma route: ``-k wgmma``, every instantiated tile on
+ragged shapes, split and not, batched and broadcast, the longest K of the
+LM sites, repeats bit for bit, the route rule on the card);
 the selection path's performance models on the card against the CPU
 (``-k select``: predictions at rtol=2e-5, the same assignments); training
 and profiling on the card (``-k "train or profile"``: a card fit against
@@ -51,8 +54,9 @@ from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
                                                  conv_im2col_op)
 from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_cta_plan
 from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_K_BF16, TILE_M,
-                                               TILE_N, matmul, matmul_batch,
-                                               matmul_batch_plain, matmul_plain)
+                                               TILE_N, WGMMA_TILES, matmul,
+                                               matmul_batch, matmul_batch_plain,
+                                               matmul_plain)
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
 from repro_torch.kernels.matmul.ops import cta_plan, matmul_batch_op, matmul_op
 from repro_torch.kernels.winograd import winograd as wino_mod
@@ -765,6 +769,134 @@ def test_gpu_matmul_bf16_takes_an_fp32_bias_and_residual(split, cuda):
         ("float32", "float32"), ("bfloat16", "float32")}
     assert {sig[10:12] for sig in common.SEEN["matmul_batch"]} == {
         ("float32", "float32"), ("bfloat16", "float32")}
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route of the bf16 matmul (csrc/matmul_wgmma.cu)
+# ---------------------------------------------------------------------------
+
+def _wgmma_routes():
+    """{kernel: set of routes} of the matmul launches since the last reset."""
+    return {k: {sig[-4] for sig in common.SEEN[k]} for k in ("matmul", "matmul_batch")}
+
+
+@pytest.mark.parametrize("tile", WGMMA_TILES, ids=lambda t: "x".join(map(str, t)))
+def test_gpu_wgmma_every_tile_vs_plain(tile, cuda):
+    """Every wgmma tile on aligned shapes ragged against it (a pair of CTAs
+    sharing B, and a single CTA), unsplit and split three ways, bias and
+    residual each fp32 and bf16, ReLU: fp32 output at 1e-4 of the plain
+    version, bf16 within one rounding of the plain fp32 result."""
+    bm, bn, stages = tile
+    gen = torch.Generator().manual_seed(0)
+    common.reset_launches()
+    for M, K, N in [(200, 264, 136), (72, 1032, 392)]:
+        x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+        b, r = _cuda_rand(gen, M), _cuda_rand(gen, M, N)
+        for split, ep_dtype in itertools.product((1, 3), (torch.float32, torch.bfloat16)):
+            ep = dict(bias=b.to(ep_dtype), residual=r.to(ep_dtype), relu=True)
+            plan = dict(bm=bm, bn=bn, stages=stages, split_k=split, route="wgmma")
+            want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+            got = matmul(x, y, out_dtype=torch.float32, **plan, **ep)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+            _hold_bf16(matmul(x, y, **plan, **ep), want)
+    assert _wgmma_routes()["matmul"] == {"wgmma"}
+
+
+@pytest.mark.parametrize("bcast", ["x", "y", "none"])
+@pytest.mark.parametrize("tile", [(128, 256, 4), (64, 128, 8), (128, 128, 3)],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_gpu_wgmma_batched_and_broadcast(tile, bcast, cuda):
+    """matmul_batch on the wgmma route: weights (x) or patches (y) broadcast
+    over the batch (read in place through a batch of one), or neither;
+    unsplit and split; the full epilogue; both output dtypes."""
+    bm, bn, stages = tile
+    gen = torch.Generator().manual_seed(1)
+    B, M, K, N = 3, 128, 576, 784
+    x = (_bf16_rand(gen, M, K, scale=K ** -0.5).expand(B, M, K) if bcast == "x"
+         else _bf16_rand(gen, B, M, K, scale=K ** -0.5))
+    y = _bf16_rand(gen, K, N).expand(B, K, N) if bcast == "y" else _bf16_rand(gen, B, K, N)
+    ep = dict(bias=_bf16_rand(gen, M), residual=_bf16_rand(gen, B, M, N), relu=True)
+    want = matmul_batch_plain(x, y, out_dtype=torch.float32, **ep)
+    common.reset_launches()
+    for split in (1, 3):
+        plan = dict(bm=bm, bn=bn, stages=stages, split_k=split, route="wgmma")
+        torch.testing.assert_close(
+            matmul_batch(x, y, out_dtype=torch.float32, **plan, **ep), want, **GEMM_TOL)
+        _hold_bf16(matmul_batch(x, y, **plan, **ep), want)
+    assert _wgmma_routes()["matmul_batch"] == {"wgmma"}
+
+
+@pytest.mark.parametrize("tile", [(128, 256, 4), (128, 128, 4)],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_gpu_wgmma_longest_site_k(tile, cuda):
+    """The longest K of the LM sites (16,384: qwen3's and mixtral's
+    (65,536, 16,384, 1,024)) with M cut to 1,024: a 128 x 256 tile sums
+    all of K in its accumulator, a 128 x 128 tile promotes every 256 deep;
+    both within 1e-4 of the largest |plain| (fp32 output) and within one
+    rounding of it (bf16)."""
+    bm, bn, stages = tile
+    gen = torch.Generator().manual_seed(2)
+    M, K, N = 1024, 16384, 1024
+    x, y = _bf16_rand(gen, M, K), _bf16_rand(gen, K, N)
+    want = matmul_plain(x, y, out_dtype=torch.float32)
+    plan = dict(bm=bm, bn=bn, stages=stages, route="wgmma")
+    got = matmul(x, y, out_dtype=torch.float32, **plan)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    _hold_bf16(matmul(x, y, **plan), want)
+
+
+@pytest.mark.parametrize("shape", [(64, 8, 8), (64, 16, 24), (72, 8, 200), (130, 40, 56)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gpu_wgmma_smallest_aligned_shapes(shape, cuda):
+    """The smallest calls the route rule sends to wgmma (M = 64, K or N = 8):
+    TMA boxes wider and deeper than the operands, zero-filled, under every
+    variant's plan (split where the plan splits), both output dtypes."""
+    M, K, N = shape
+    gen = torch.Generator().manual_seed(5)
+    x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+    ep = dict(bias=_bf16_rand(gen, M), residual=_cuda_rand(gen, M, N), relu=True)
+    want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+    common.reset_launches()
+    for variant in sorted(MM_TILES):
+        torch.testing.assert_close(
+            matmul_op(x, y, variant, out_dtype=torch.float32, **ep), want, **GEMM_TOL)
+        _hold_bf16(matmul_op(x, y, variant, **ep), want)
+    assert _wgmma_routes()["matmul"] == {"wgmma"}
+
+
+def test_gpu_wgmma_deterministic(cuda):
+    """Two identical calls are bit-equal: unsplit, split (the fp32 partials
+    added in split order), batched with a broadcast operand."""
+    gen = torch.Generator().manual_seed(3)
+    x, y = _bf16_rand(gen, 256, 4608, scale=4608 ** -0.5), _bf16_rand(gen, 4608, 256)
+    calls = [lambda: matmul_op(x, y, "mm-256x256x256", relu=True),
+             lambda: matmul(x, y, bm=64, bn=128, stages=8, split_k=6, route="wgmma",
+                            out_dtype=torch.float32),
+             lambda: matmul_batch_op(x.expand(4, 256, 4608), torch.stack([y] * 4),
+                                     "mm-128x128x256", out_dtype=torch.float32)]
+    for call in calls:
+        assert torch.equal(call(), call())
+
+
+def test_gpu_wgmma_route_rule_on_the_card(cuda):
+    """matmul_op takes wgmma on aligned bf16 operands and mma.sync on a view
+    one element off a 16-byte boundary (both held to plain), and an
+    explicit wgmma call on that view raises without launching."""
+    gen = torch.Generator().manual_seed(4)
+    x, y = _bf16_rand(gen, 200, 264, scale=264 ** -0.5), _bf16_rand(gen, 264, 136)
+    flat = torch.empty(200 * 264 + 1, dtype=torch.bfloat16, device="cuda")
+    xv = flat[1:].view(200, 264)
+    xv.copy_(x)
+    common.reset_launches()
+    want = matmul_plain(x, y, out_dtype=torch.float32)
+    torch.testing.assert_close(matmul_op(x, y, out_dtype=torch.float32), want, **GEMM_TOL)
+    assert _wgmma_routes()["matmul"] == {"wgmma"}
+    common.reset_launches()
+    torch.testing.assert_close(matmul_op(xv, y, out_dtype=torch.float32), want, **GEMM_TOL)
+    assert _wgmma_routes()["matmul"] == {"mma.sync"}
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        matmul(xv, y, bm=128, bn=128, route="wgmma")
+    assert common.LAUNCHES["matmul"] == 1
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
