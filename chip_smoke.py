@@ -45,20 +45,26 @@ Phases, each of which asserts:
    then held to its plain version at every signature the paths gave it and
    under every ``VARIANTS`` key at the largest (flash attention: under
    every instantiated tile, causal and not), and timed as in phase 2.
-   The kernels that take bf16 run two of these paths again on bf16
+   The kernels that take bf16 run four of these paths again on bf16
    operands (the paths named ``bf16``): ``matmul_batch_op`` on resnet18's
-   convs at b=8 and ``flash_attention_op`` on chatglm3_6b's causal
-   attention, each output (bf16) held to its fp32 oracle on the same
-   values within one bf16 rounding (``hold_bf16``) and each launch
-   signature carrying bf16; their passes are timed against the bf16 bound
-   (989 TFLOP/s, 2-byte traffic) and the bf16 library call
-   (``torch.matmul``, SDPA). The sweep of variants or tiles runs at the
-   largest signature of each operand dtype. A bf16 output is held to the
-   plain version's fp32 result on the same values within one bf16 rounding
-   (``hold_bf16``), an fp32 output to the plain version at ``KERNEL_TOL``.
-   Flash attention is also timed under every tile on each of its paths,
-   and one head of its largest signature of each dtype is held to a
-   float64 result: the kernel no further from it than twice the plain
+   convs at b=8 and ``flash_attention_op`` on the three attention shapes,
+   each output (bf16) held to its fp32 oracle on the same values within
+   one bf16 rounding (``hold_bf16``) and each launch signature carrying
+   bf16; their passes are timed against the bf16 bound (989 TFLOP/s,
+   2-byte traffic) and the bf16 library call (``torch.matmul``, SDPA).
+   Flash attention's K and V keep their KV heads (``rep`` in the
+   signature); every bf16 launch at d = 64 or 128 must run the wgmma route
+   (``csrc/flash_wgmma.cu``), every other one mma.sync. The sweep of
+   variants or tiles runs at the largest signature of each operand dtype
+   (flash attention: both routes' tiles where a bf16 call takes both). A
+   bf16 output is held to the plain version's fp32 result on the same
+   values within one bf16 rounding (``hold_bf16``), an fp32 output to the
+   plain version at ``KERNEL_TOL``. Flash attention is also timed (and
+   held) under every tile of each route on each of its paths, each bf16
+   pass on both routes in turns (mma.sync / wgmma / wgmma / mma.sync,
+   under ``AB_VARIANT``'s tiles) beside its bound and SDPA, and one head
+   of its largest signature of each dtype is held to a float64 result on
+   each route: the kernel no further from it than twice the plain
    version.
    The two Winograd transforms are held and timed over the served and the
    entry paths together.
@@ -162,7 +168,8 @@ Phases, each of which asserts:
    the port on the CPU; (c) ``lm_decode.run`` on the registered bf16
    config, prompt 512, 32 tokens, twice: prefill ms, decode tok/s, peak
    memory; every flash launch of (c) carries bf16 q, k and v (the bf16
-   kernel, no fp32 copy), of (a) and (b) fp32. Flash attention is then held
+   kernel, no fp32 copy) and runs the wgmma route, of (a) and (b) fp32;
+   every launch gets K and V at the config's 2 KV heads (rep 16). Flash attention is then held
    to its plain version at every signature the LM prefills launched, under
    every tile at the largest, and timed per prefill, at its dtype, beside
    its bound, plain version and SDPA.
@@ -206,7 +213,7 @@ Phases, each of which asserts:
    sets differ between the two printed; (c) ``lm_decode.run`` on the
    registered bf16 configs (mixtral cut to 16 of 32 layers), prompt 512,
    32 tokens, twice: prefill ms, decode tok/s, peak memory, every flash
-   launch of (c) on bf16 q, k and v. Flash
+   launch of (c) on bf16 q, k and v and on the wgmma route. Flash
    attention runs once a layer in a MoE prefill, 48 times in a Whisper
    prefill (its non-causal encoder and its causal decoder), never for MLA,
    SSM or zamba2 (head dim 80) and never in decode. Its new signatures are
@@ -278,12 +285,15 @@ The selected paths of phase 6 are timed the same way.
 The ``{"kernels": [...]}`` line has one row per kernel and operand dtype:
 the seven TPU kernels and the two Winograd transforms in fp32, and rows 1,
 4 and 7 (``matmul``, ``matmul_batch``, ``flash_attention``) again in bf16,
-each row's launches those of the paths of its dtype. The matmul kernels'
+each row's launches those of the paths of its dtype. The routed kernels'
 rows also count their launches per route (``launches_by_route`` over the
-run, ``pass_launches_by_route`` over the timed pass: bf16 operands that
-TMA can address run ``csrc/matmul_wgmma.cu``, the rest ``csrc/matmul.cu``)
-and name the source of each route; a row's ``source`` is the route with
-most launches in its timed pass. Phase 5's matmul_batch passes
+run, ``pass_launches_by_route`` over the timed pass: bf16 matmul operands
+that TMA can address run ``csrc/matmul_wgmma.cu``, the rest
+``csrc/matmul.cu``; bf16 attention at d = 64 or 128 runs
+``csrc/flash_wgmma.cu``, the rest ``csrc/flash_attention.cu``) and name
+the source of each route; a row's ``source`` is the route with most
+launches in its timed pass. The bf16 flash row also carries its pass's
+A/B of the two routes (``ab_ms``). Phase 5's matmul_batch passes
 print their launches per route, and the bf16 sweep at the largest
 signature covers the plans of both routes.
 The last line of output is the ``{"ok": true, "device": ...}`` record.
@@ -344,7 +354,9 @@ ATTENTION = {
     "chatglm3_6b_full": dict(heads=32, kv_heads=2, head_dim=128, seq=4096, causal=False),
     "internvl2_1b_causal": dict(heads=14, kv_heads=2, head_dim=64, seq=4096, causal=True),
 }
-ATTENTION_BF16 = ("chatglm3_6b_causal",)  # ... also driven with bf16 q, k, v
+ATTENTION_BF16 = tuple(ATTENTION)          # ... each also driven with bf16 q, k, v
+AB_VARIANT = "fa-128x128"                  # flash_attention_op's default variant and
+                                           # the LM prefill's (components.FLASH_VARIANT)
 ENTRY_BATCH = 8                           # matmul_batch_op: images per call
 
 # Phase 6: the committed arm model pair (artifacts/models/*/manifest.json) and
@@ -577,7 +589,8 @@ def main() -> int:
               flush=True)
     for k in ENTRY_KERNELS:
         seen = set().union(*(set(c) for c in entry_seen[k].values()))
-        report[k] = check_and_time(torch, k, seen, entry_seen[k], args.reps)
+        report[k] = check_and_time(torch, k, seen, entry_seen[k], args.reps,
+                                   ab=k == "flash_attention")
         report[k]["oracle_max_abs_err"] = max(
             oracle_err[p] for p in entry_seen[k])
     # the transforms: every signature of the served and the entry paths
@@ -638,7 +651,7 @@ def main() -> int:
         "float64_err_by_dtype": lm_kernel["float64_err_by_dtype"],
         "passes": {p: {key: t[key] for key in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_fp32_ms", "dtype")} for p, t in lm_kernel["passes"].items()}}
+            "bound_fp32_ms", "dtype", "routes")} for p, t in lm_kernel["passes"].items()}}
     # row 1's bf16 pass: the autotune's choice for one layer of LM_ARCH
     mm16 = check_and_time(torch, "matmul", set(next(iter(site_pass.values()))),
                           site_pass, args.reps)
@@ -674,14 +687,36 @@ def main() -> int:
               f"ms in the {len(by_op)} listed):")
         for op, ms in by_op:
             print(f"    device {ms:.4f} ms  {op}")
+    rows = kernel_rows(report, launches, entry_paths, smi)
+    print(json.dumps({"kernels": rows}))
+    print("selection: " + json.dumps(selection))
+    print("transfer: " + json.dumps(transfer))
+    print("serving: " + json.dumps(serving))
+    print("frontend: " + json.dumps(frontend))
+    print("lm: " + json.dumps(lm))
+    print("train: " + json.dumps(training))
+    print("families: " + json.dumps(families))
+    print("families_train: " + json.dumps(families_train))
+    print("examples: " + json.dumps(examples))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_rows(report: dict, launches: dict, entry_paths, smi: str) -> list:
+    """The rows of the ``{"kernels": [...]}`` line: one per kernel and
+    operand dtype, timed on its headline pass (a served kernel's path where
+    it does the most work; an entry kernel's first path; a bf16 pass where
+    it is the only one of its dtype). A routed kernel's row names the source
+    of the route that launched most on that pass."""
     rows = []
     for k, r in report.items():
         for dt, err in sorted(r["max_abs_err_by_dtype"].items(),
                               key=lambda de: de[0] != "float32"):
             passes = {p: t for p, t in r["passes"].items() if t["dtype"] == dt}
-            # headline times: a served kernel's path where it does the most
-            # work; an entry kernel's first path (the full-width shape
-            # above); a bf16 pass where it is the only one of its dtype
             path, t = (next(iter(passes.items())) if k in ENTRY_KERNELS or dt != "float32"
                        else max(passes.items(), key=lambda pt: pt[1]["bound_ms"]))
             timed_on = (path if path in entry_paths or dt != "float32"
@@ -704,10 +739,14 @@ def main() -> int:
                         by_route[rt] = by_route.get(rt, 0) + n
                 extra["launches_by_route"] = by_route
                 extra["pass_launches_by_route"] = t["routes"]
-                extra["sources_by_route"] = {rt: ROUTE_SOURCES[rt] for rt in by_route}
-                source = ROUTE_SOURCES[max(t["routes"], key=t["routes"].get)]
+                extra["sources_by_route"] = {rt: ROUTE_SOURCES[k][rt] for rt in by_route}
+                source = ROUTE_SOURCES[k][max(t["routes"], key=t["routes"].get)]
             else:
                 source = r["source"]
+            if "ab" in t:                  # both routes in turns on this pass
+                extra["ab_ms"] = t["ab"]
+            if dt in r.get("float64_err_by_route", {}):
+                extra["float64_err_by_route"] = r["float64_err_by_route"][dt]
             rows.append({"name": k, "dtype": dt, "route": "cuda", "source": source,
                          "replaces": r["replaces"],
                          "launches": sum(PATH_DTYPES[p][k].get(dt, 0)
@@ -719,22 +758,7 @@ def main() -> int:
                          "launches_per_pass": t["launches"],
                          "timed_on": timed_on,
                          **extra, "card": smi})
-    print(json.dumps({"kernels": rows}))
-    print("selection: " + json.dumps(selection))
-    print("transfer: " + json.dumps(transfer))
-    print("serving: " + json.dumps(serving))
-    print("frontend: " + json.dumps(frontend))
-    print("lm: " + json.dumps(lm))
-    print("train: " + json.dumps(training))
-    print("families: " + json.dumps(families))
-    print("families_train: " + json.dumps(families_train))
-    print("examples: " + json.dumps(examples))
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
-    print(f"card: {smi}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3229,7 +3253,7 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
     site_routes = {}
     for sig in autotune_seen:
         if tuple(sig[:3]) in sites:
-            site_routes.setdefault(tuple(sig[:3]), set()).add(sig_route(sig))
+            site_routes.setdefault(tuple(sig[:3]), set()).add(sig_route("matmul", sig))
     assert set(site_routes) == sites, sites - set(site_routes)
     assert all(r == {"wgmma"} for r in site_routes.values()), site_routes
     assert data.dtype == torch.bfloat16, data.dtype
@@ -3423,11 +3447,18 @@ def bf16_entry_paths(net, layers, attention, batch):
 
 # path -> {kernel: {operand dtype: launches}} of each path's run (``took``)
 PATH_DTYPES: dict = {}
-# path -> {matmul kernel: {operand dtype: {route: launches}}} (``took``)
+# path -> {routed kernel: {operand dtype: {route: launches}}} (``took``)
 PATH_ROUTES: dict = {}
-ROUTED = ("matmul", "matmul_batch")       # kernels with an mma.sync and a wgmma route
-ROUTE_SOURCES = {"mma.sync": "src/repro_torch/csrc/matmul.cu",
-                 "wgmma": "src/repro_torch/csrc/matmul_wgmma.cu"}
+# path -> {(operand dtype, head dim, route): launches} of flash attention
+PATH_FLASH: dict = {}
+# the kernels with an mma.sync and a wgmma route, and each route's source
+ROUTE_SOURCES = {
+    "matmul": {"mma.sync": "src/repro_torch/csrc/matmul.cu",
+               "wgmma": "src/repro_torch/csrc/matmul_wgmma.cu"},
+    "flash_attention": {"mma.sync": "src/repro_torch/csrc/flash_attention.cu",
+                        "wgmma": "src/repro_torch/csrc/flash_wgmma.cu"}}
+ROUTE_SOURCES["matmul_batch"] = ROUTE_SOURCES["matmul"]
+ROUTED = tuple(ROUTE_SOURCES)
 
 
 def sig_dtype(kernel: str, sig) -> str:
@@ -3440,40 +3471,60 @@ def sig_dtype(kernel: str, sig) -> str:
     return sig[-1] if kernel == "flash_attention" else sig[-2]
 
 
-def sig_route(sig) -> str:
-    """The route of a matmul or matmul_batch launch signature: the field
-    before its stages and dtypes."""
-    return sig[-4]
+def sig_route(kernel: str, sig) -> str:
+    """The route of a launch signature of a kernel in ``ROUTED``: for the
+    matmul kernels the field before the stages and dtypes, for flash
+    attention the field before the scale and the dtype."""
+    return sig[-3] if kernel == "flash_attention" else sig[-4]
+
+
+def flash_route_of(dtype: str, d: int) -> str:
+    """The route every main-path flash launch must take (``flash_attention.
+    route`` on the contiguous, allocator-aligned operands the paths give
+    it): wgmma for bf16 at the head dims it instantiates, else mma.sync."""
+    from repro_torch.kernels.flash_attention.flash_attention import WGMMA_HEAD_DIMS
+    return "wgmma" if dtype == "bfloat16" and d in WGMMA_HEAD_DIMS else "mma.sync"
 
 
 def took(path: str) -> dict:
     """Read the launch counters after ``path`` ran (zeroed just before it):
     its launches per kernel, returned, and per kernel and operand dtype,
-    from the launch signatures, kept in ``PATH_DTYPES[path]``; the matmul
-    kernels' launches per dtype and route in ``PATH_ROUTES[path]``."""
+    from the launch signatures, kept in ``PATH_DTYPES[path]``; the routed
+    kernels' launches per dtype and route in ``PATH_ROUTES[path]``, and
+    flash attention's per dtype, head dim and route in ``PATH_FLASH[path]``."""
     from repro_torch.kernels import common
     launches, seen = common.snapshot()
     by_dtype = {k: {} for k in common.KERNELS}
     by_route = {k: {} for k in ROUTED}
+    flash = {}
     for k, counts in seen.items():
         for sig, n in counts.items():
             dt = sig_dtype(k, sig)
             by_dtype[k][dt] = by_dtype[k].get(dt, 0) + n
             if k in ROUTED:
                 routes = by_route[k].setdefault(dt, {})
-                routes[sig_route(sig)] = routes.get(sig_route(sig), 0) + n
+                routes[sig_route(k, sig)] = routes.get(sig_route(k, sig), 0) + n
+            if k == "flash_attention":
+                key = (dt, sig[3], sig_route(k, sig))
+                flash[key] = flash.get(key, 0) + n
     PATH_DTYPES[path] = by_dtype
     PATH_ROUTES[path] = by_route
+    PATH_FLASH[path] = flash
     return launches
 
 
 def check_path_dtype(path: str, dtype: str) -> None:
     """Every launch of ``path`` (read by ``took``) ran on ``dtype`` operands
-    where its kernel takes more than fp32."""
+    where its kernel takes more than fp32, and every flash attention launch
+    on its route (``flash_route_of``): each bf16 launch at d = 64 or 128 on
+    the wgmma kernel."""
     from repro_torch.kernels.common import DTYPES
     for k in DTYPES:
         got = set(PATH_DTYPES[path][k])
         assert got <= {dtype}, (path, k, got)
+    wrong = {key: n for key, n in PATH_FLASH[path].items()
+             if key[2] != flash_route_of(*key[:2])}
+    assert not wrong, (path, "flash attention off its route", wrong)
 
 
 def _rand(torch, rng, device, *shape, scale=1.0):
@@ -3625,7 +3676,10 @@ def kernel_table(torch):
     """Per kernel: source, replaced TPU kernel, the wrapper / plain / library
     callables over one signature's operands, and the signature's work."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        TILES as FA_TILES, flash_attention, flash_attention_plain)
+        TILES as FA_TILES, WGMMA_TILES as FA_WGMMA_TILES, flash_attention,
+        flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import cta_tile as fa_cta_tile
+    from repro_torch.kernels.flash_attention.ops import wgmma_tile as fa_wgmma_tile
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.im2col_gemm.im2col_gemm import (
         conv_im2col, conv_im2col_batch, conv_im2col_batch_plain,
@@ -3835,34 +3889,69 @@ def kernel_table(torch):
         (the LM path pre-scales q by 1/sqrt(d) and runs at scale 1)."""
         return rnd(n, sq, d, scale=1.0 / (scale * math.sqrt(d)), dtype=dtype)
 
+    def fa_args(sig):
+        """q (bh rows), k and v (bh / rep rows) of a flash signature."""
+        bh, sq, sk, d, causal, bq, bkv, r, route, scale, dt = sig
+        return (fa_q(bh, sq, d, scale, dt), rnd(bh // r, sk, d, dtype=dt),
+                rnd(bh // r, sk, d, dtype=dt))
+
     def fa_ops(sig):
-        bh, sq, sk, d, causal, bq, bkv, scale, dt = sig
-        q, k, v = fa_q(bh, sq, d, scale, dt), rnd(bh, sk, d, dtype=dt), rnd(bh, sk, d, dtype=dt)
+        """The kernel on its route and tile, the plain version, SDPA (on K
+        and V repeated to the query rows beforehand: the fused SDPA kernels
+        take equal heads) and the plain version in fp32."""
+        bh, sq, sk, d, causal, bq, bkv, r, route, scale, dt = sig
+        q, k, v = fa_args(sig)
+        kr, vr = (t.repeat_interleave(r, 0) for t in (k, v))
         return (lambda: flash_attention(q, k, v, causal=causal, scale=scale,
-                                        bq=bq, bkv=bkv),
-                lambda: flash_attention_plain(q, k, v, causal=causal, scale=scale),
-                lambda: attention_ref(q, k, v, causal=causal, scale=scale),
+                                        bq=bq, bkv=bkv, rep=r, force_route=route),
+                lambda: flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                              rep=r),
+                lambda: attention_ref(q, kr, vr, causal=causal, scale=scale),
                 lambda: flash_attention_plain(q.float(), k.float(), v.float(),
-                                              causal=causal, scale=scale))
+                                              causal=causal, scale=scale, rep=r))
+
+    def fa_tiles(sig):
+        """Every (bq, bkv, route) a call of ``sig``'s dtype and head dim can
+        take: the mma.sync tiles, and the wgmma tiles at its head dim for
+        bf16 at d = 64 or 128."""
+        d, dt = sig[3], sig[-1]
+        tiles = [(bq, bkv, "mma.sync") for bq, bkv in FA_TILES]
+        if flash_route_of(dt, d) == "wgmma":
+            tiles += [(bq, bkv, "wgmma") for bq, bkv, dd in FA_WGMMA_TILES if dd == d]
+        return tiles
+
+    def fa_routes(sig):
+        """{route: signature} of ``sig`` on each route it can take, each
+        under ``AB_VARIANT``'s tile for that route (the tile the entry
+        point and the LM prefill run): the A/B of the two kernels."""
+        d, dt = sig[3], sig[-1]
+        tiles = {"mma.sync": fa_cta_tile(AB_VARIANT, d, getattr(torch, dt))}
+        if flash_route_of(dt, d) == "wgmma":
+            tiles["wgmma"] = fa_wgmma_tile(AB_VARIANT, d)
+        return {route: (*sig[:5], *tile, sig[7], route, *sig[9:])
+                for route, tile in tiles.items()}
 
     def fa_exact(sig):
-        """One head of ``sig``: the kernel's and the plain version's largest
-        distance from the float64 result."""
-        _, sq, sk, d, causal, bq, bkv, scale, dt = sig
+        """One query head (and its KV head) of ``sig``: the kernel's and the
+        plain version's largest distance from the float64 result."""
+        _, sq, sk, d, causal, bq, bkv, _, route, scale, dt = sig
         q, k, v = fa_q(1, sq, d, scale, dt), rnd(1, sk, d, dtype=dt), rnd(1, sk, d, dtype=dt)
         exact = flash_attention_plain(q.double(), k.double(), v.double(),
                                       causal=causal, scale=scale)
-        got = flash_attention(q, k, v, causal=causal, scale=scale, bq=bq, bkv=bkv)
+        got = flash_attention(q, k, v, causal=causal, scale=scale, bq=bq, bkv=bkv,
+                              force_route=route)
         plain = flash_attention_plain(q, k, v, causal=causal, scale=scale)
         return tuple(float((x.double() - exact).abs().max()) for x in (got, plain))
 
     def fa_work(sig):
         """Q K^T and P V over the (query, key) pairs the causal mask keeps,
-        the work these inputs need (masked pairs need none)."""
+        the work these inputs need (masked pairs need none); q and o of bh
+        rows, k and v of bh / rep rows, each moved once."""
         bh, sq, sk, d, causal = sig[:5]
         n = min(sq, sk)
         pairs = n * (n + 1) // 2 + (sq - n) * sk if causal else sq * sk
-        return 4 * d * pairs * bh, isz(sig[8]) * bh * d * 2 * (sq + sk)
+        return (4 * d * pairs * bh,
+                isz(sig[-1]) * d * 2 * (bh * sq + bh // sig[7] * sk))
 
     eps = list(itertools.product((False, True), repeat=3))
     return {
@@ -3918,12 +4007,13 @@ def kernel_table(torch):
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",
-            ops=fa_ops, work=fa_work, flops_s=lambda s: tc_rate(s[8]), rows=True,
-            sweep=lambda s: [(*s[:4], c, *t, *s[7:]) for c in (True, False)
-                             for t in FA_TILES],
-            tiles=lambda s: {f"{bq}x{bkv}": (*s[:5], bq, bkv, *s[7:])
-                             for bq, bkv in FA_TILES},
-            exact=fa_exact),
+            ops=fa_ops, work=fa_work, flops_s=lambda s: tc_rate(s[-1]), rows=True,
+            sweep=lambda s: [(*s[:4], c, bq, bkv, s[7], route, *s[9:])
+                             for c in (True, False) for bq, bkv, route in fa_tiles(s)],
+            tiles=lambda s: {f"{route} {bq}x{bkv}": (*s[:5], bq, bkv, s[7], route,
+                                                    *s[9:])
+                             for bq, bkv, route in fa_tiles(s)},
+            routes=fa_routes, exact=fa_exact),
     }
 
 
@@ -3978,7 +4068,7 @@ def _ms(v) -> str:
     return "none" if v is None else f"{v:.4f}"
 
 
-def check_and_time(torch, name, seen, passes, reps):
+def check_and_time(torch, name, seen, passes, reps, ab=False):
     """Hold ``name`` to its plain version at every signature in ``seen`` and
     across the tile/epilogue sweep at the largest of them of each operand
     dtype, and each call to its own repeat, bit for bit (split plans
@@ -3994,7 +4084,12 @@ def check_and_time(torch, name, seen, passes, reps):
     every signature with both. An fp32 output is held at ``KERNEL_TOL``
     (from bf16 operands too: the products are exact), a bf16 output to the
     plain version's fp32 result by ``hold_bf16``; the largest |kernel -
-    plain| is also kept per operand dtype (``max_abs_err_by_dtype``)."""
+    plain| is also kept per operand dtype (``max_abs_err_by_dtype``). For a
+    routed kernel with a ``routes`` entry (flash attention): with ``ab``,
+    each pass is also timed on both routes in turns (mma.sync, wgmma,
+    wgmma, mma.sync) where its signatures take both; every per-tile time
+    comes with the tile's output held as above; and the distance from
+    float64 is printed for each route at the largest signature."""
     from repro_torch.kernels import common
     spec = kernel_table(torch)[name]
     rate = spec.get("flops_s", FP32_FLOPS)
@@ -4056,7 +4151,8 @@ def check_and_time(torch, name, seen, passes, reps):
         if name in ROUTED:                 # the pass's launches per route
             t["routes"] = {}
             for sig, n in counts.items():
-                t["routes"][sig_route(sig)] = t["routes"].get(sig_route(sig), 0) + n
+                rt = sig_route(name, sig)
+                t["routes"][rt] = t["routes"].get(rt, 0) + n
         out[path] = t
         fp32 = f", fp32 bound {t['bound_fp32_ms']:.4f}" if tc else ""
         print(f"{name}: one pass of {path}: {t['launches']} launches, "
@@ -4074,21 +4170,48 @@ def check_and_time(torch, name, seen, passes, reps):
             times = {}
             for sig, n in counts.items():
                 for tile, tsig in spec["tiles"](sig).items():
-                    times[tile] = times.get(tile, 0.0) + n * time_ms(
-                        torch, spec["ops"](tsig)[0], reps)
+                    kern, _, _, *wide = spec["ops"](tsig)
+                    got = kern()
+                    if got.dtype == torch.bfloat16:
+                        hold_bf16(torch, got, wide[0](), KERNEL_TOL["atol"],
+                                  rows=spec.get("rows", False))
+                    del got
+                    times[tile] = times.get(tile, 0.0) + n * time_ms(torch, kern, reps)
+            t["tiles"] = times
             print(f"{name}: one pass of {path} per tile: " + ", ".join(
                 f"{tile} {ms:.4f}" for tile, ms in times.items()) + " ms",
                   flush=True)
+        if ab and "routes" in spec and all(
+                len(spec["routes"](sig)) == 2 for sig in counts):
+            # the two routes' kernels in turns, each summed over the pass
+            kerns = [{rt: spec["ops"](rs)[0] for rt, rs in spec["routes"](sig).items()}
+                     for sig in counts]
+            order = ("mma.sync", "wgmma", "wgmma", "mma.sync")
+            runs = [sum(n * time_ms(torch, k[rt], reps)
+                        for k, n in zip(kerns, counts.values())) for rt in order]
+            t["ab"] = {rt: [x for o, x in zip(order, runs) if o == rt] for rt in order[:2]}
+            print(f"{name}: A/B of {path} (mma.sync / wgmma / wgmma / mma.sync, "
+                  f"{AB_VARIANT} tiles): " + " / ".join(f"{x:.4f}" for x in runs)
+                  + f" ms; bound {t['bound_ms']:.4f}, library "
+                  f"{_ms(t['library_ms'])}", flush=True)
     extra = {}
     if "exact" in spec:              # distance from a float64 result
-        extra["float64_err_by_dtype"] = {}
+        extra["float64_err_by_dtype"], extra["float64_err_by_route"] = {}, {}
         for dt, sig in sorted(largest.items()):
-            got_err, plain_err = spec["exact"](sig)
-            print(f"{name}: one head at {sig}: max |kernel - float64| "
-                  f"{got_err:.3g}, max |plain - float64| {plain_err:.3g} "
-                  f"({got_err / plain_err:.2f}x)", flush=True)
-            assert got_err <= 2 * plain_err, (name, sig, got_err, plain_err)
-            extra["float64_err_by_dtype"][dt] = (got_err, plain_err)
+            on = spec["routes"](sig) if "routes" in spec else {None: sig}
+            if name in ROUTED:
+                on[sig_route(name, sig)] = sig
+            for rt, rsig in on.items():
+                got_err, plain_err = spec["exact"](rsig)
+                print(f"{name}: one head at {rsig}: max |kernel - float64| "
+                      f"{got_err:.3g}, max |plain - float64| {plain_err:.3g} "
+                      f"({got_err / plain_err:.2f}x)", flush=True)
+                assert got_err <= 2 * plain_err, (name, rsig, got_err, plain_err)
+                if rsig == sig:
+                    extra["float64_err_by_dtype"][dt] = (got_err, plain_err)
+                if rt is not None:
+                    extra["float64_err_by_route"].setdefault(dt, {})[rt] = (
+                        got_err, plain_err)
     common.reset_launches()          # the launches above were not the main path
     print(f"{name}: {len(seen)} main-path signatures + sweep at the largest of "
           f"each dtype ({', '.join(sorted(largest))}) hold to plain, max |err| "

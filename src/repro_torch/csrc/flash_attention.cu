@@ -3,6 +3,11 @@
 // products on the tensor cores: fp32 q, k, v at fp32 accuracy (3xTF32,
 // flash_kernel) and bf16 q, k, v on bf16 mma.sync with fp32 scores, softmax
 // state and accumulator (flash_kernel_bf16, below), the output in q's type.
+// k and v hold BH / rep heads: query row bh reads KV row bh / rep (grouped-
+// query attention without copying K and V to the query heads). bf16 calls
+// at d = 64 or 128 with aligned bases take flash_wgmma.cu instead (the
+// wgmma route); this file's bf16 kernel takes d = 32 and calls that name
+// the mma.sync route.
 //
 // Replaces the TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention/flash_attention.py:62, body
@@ -218,7 +223,7 @@ template <int BQ, int BKV, int D>
 __global__ void __launch_bounds__(FaTile<BQ, BKV, D>::kThreads, BQ == 64 ? 2 : 1)
 flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
              const float* __restrict__ V, float* __restrict__ O, int Sq,
-             int Sk, float qscale, int causal) {
+             int Sk, int rep, float qscale, int causal) {
   using T = FaTile<BQ, BKV, D>;
   // G: output columns of 8 whose P V partials are summed at a time
   constexpr int LD = T::LD, NS = BKV / 8, ND = D / 8, G = 4, SC = T::kSChunk;
@@ -231,10 +236,13 @@ flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   // the heaviest causal Q blocks (the last ones) are scheduled first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const long long bh = blockIdx.y;
+  // the query head's KV head, by a 32-bit division: a 64-bit one made
+  // the fp32 kernel 5-6% slower at d = 128 on an H100 (PERF.md section 6)
+  const long long kvh = (int)blockIdx.y / rep;
   Q += bh * Sq * D;
   O += bh * Sq * D;
-  K += bh * Sk * D;
-  V += bh * Sk * D;
+  K += kvh * Sk * D;
+  V += kvh * Sk * D;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wr = threadIdx.x / 32 * 16;           // warp's first tile row
   const int row0 = q0 + wr + g, row1 = row0 + 8;  // this lane's two rows
@@ -386,7 +394,7 @@ flash_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int BQ, int BKV, int D>
 int launch_tile(const float* q, const float* k, const float* v, float* o,
-                int BH, int Sq, int Sk, float scale, int causal,
+                int BH, int Sq, int Sk, int rep, float scale, int causal,
                 cudaStream_t stream) {
   using T = FaTile<BQ, BKV, D>;
   // raise the dynamic shared memory cap above 48 KB once per instantiation,
@@ -397,7 +405,7 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, BH);
   flash_kernel<BQ, BKV, D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      q, k, v, o, Sq, Sk, scale * LOG2E, causal);
+      q, k, v, o, Sq, Sk, rep, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -417,7 +425,7 @@ template <int BQ, int BKV, int D>
 __global__ void __launch_bounds__(FaTileBf16<BQ, BKV, D>::kThreads, BQ == 64 ? 2 : 1)
 flash_kernel_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                   const bf16* __restrict__ V, bf16* __restrict__ O, int Sq,
-                  int Sk, float qscale, int causal) {
+                  int Sk, int rep, float qscale, int causal) {
   using T = FaTileBf16<BQ, BKV, D>;
   using rt::bf::ldsm_x4;
   using rt::bf::ldsm_x4_t;
@@ -433,10 +441,13 @@ flash_kernel_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   // the heaviest causal Q blocks (the last ones) are scheduled first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const long long bh = blockIdx.y;
+  // the query head's KV head, by a 32-bit division: a 64-bit one made
+  // the fp32 kernel 5-6% slower at d = 128 on an H100 (PERF.md section 6)
+  const long long kvh = (int)blockIdx.y / rep;
   Q += bh * Sq * D;
   O += bh * Sq * D;
-  K += bh * Sk * D;
-  V += bh * Sk * D;
+  K += kvh * Sk * D;
+  V += kvh * Sk * D;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wr = threadIdx.x / 32 * 16;           // warp's first tile row
   const int row0 = q0 + wr + g, row1 = row0 + 8;  // this lane's two rows
@@ -566,7 +577,7 @@ flash_kernel_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 
 template <int BQ, int BKV, int D>
 int launch_tile_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                     int BH, int Sq, int Sk, float scale, int causal,
+                     int BH, int Sq, int Sk, int rep, float scale, int causal,
                      cudaStream_t stream) {
   using T = FaTileBf16<BQ, BKV, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -575,7 +586,7 @@ int launch_tile_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, BH);
   flash_kernel_bf16<BQ, BKV, D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      q, k, v, o, Sq, Sk, scale * LOG2E, causal);
+      q, k, v, o, Sq, Sk, rep, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -592,19 +603,21 @@ int launch_tile_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 #endif
 #if defined(RT_FP32)
 
-// q (BH, Sq, d), k and v (BH, Sk, d) -> o (BH, Sq, d), fp32 contiguous and
-// 16-byte aligned; q is multiplied by `scale` before Q K^T. Returns
-// cudaGetLastError() after the launch; an unknown tile or head dim returns
-// cudaErrorInvalidValue.
+// q (BH, Sq, d), k and v (BH / rep, Sk, d) -> o (BH, Sq, d), fp32
+// contiguous and 16-byte aligned; query row bh reads KV row bh / rep; q is
+// multiplied by `scale` before Q K^T. Returns cudaGetLastError() after the
+// launch; an unknown tile or head dim, or a rep that does not divide BH,
+// returns cudaErrorInvalidValue.
 extern "C" int rt_flash_attention_f32(const float* q, const float* k,
                                       const float* v, float* o, int BH, int Sq,
                                       int Sk, int d, int causal, int bq,
-                                      int bkv, float scale,
+                                      int bkv, int rep, float scale,
                                       cudaStream_t stream) {
+  if (rep < 1 || BH % rep != 0) return (int)cudaErrorInvalidValue;
 #define RT_LAUNCH(BQ_, BKV_, D_)                                            \
   if (bq == BQ_ && bkv == BKV_ && d == D_)                                 \
-    return launch_tile<BQ_, BKV_, D_>(q, k, v, o, BH, Sq, Sk, scale, causal, \
-                                      stream);
+    return launch_tile<BQ_, BKV_, D_>(q, k, v, o, BH, Sq, Sk, rep, scale,  \
+                                      causal, stream);
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 32)
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 64)
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 128)
@@ -619,12 +632,13 @@ extern "C" int rt_flash_attention_f32(const float* q, const float* k,
 extern "C" int rt_flash_attention_bf16(const bf16* q, const bf16* k,
                                        const bf16* v, bf16* o, int BH,
                                        int Sq, int Sk, int d, int causal,
-                                       int bq, int bkv, float scale,
+                                       int bq, int bkv, int rep, float scale,
                                        cudaStream_t stream) {
+  if (rep < 1 || BH % rep != 0) return (int)cudaErrorInvalidValue;
 #define RT_LAUNCH(BQ_, BKV_, D_)                                              \
   if (bq == BQ_ && bkv == BKV_ && d == D_)                                   \
-    return launch_tile_bf16<BQ_, BKV_, D_>(q, k, v, o, BH, Sq, Sk, scale,    \
-                                           causal, stream);
+    return launch_tile_bf16<BQ_, BKV_, D_>(q, k, v, o, BH, Sq, Sk, rep,      \
+                                           scale, causal, stream);
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 32)
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 64)
   RT_FOR_EACH_FA_TILE(RT_LAUNCH, 128)

@@ -1,8 +1,9 @@
 // Hopper's asynchronous GEMM building blocks for bf16 operands, as PTX:
 // TMA tile loads described by a tensor map, mbarriers that count their
 // bytes, and warpgroup MMAs (wgmma) that read both operands from shared
-// memory through matrix descriptors. matmul_wgmma.cu builds its GEMM from
-// them; nothing here knows a tile size.
+// memory through matrix descriptors (or A from registers).
+// matmul_wgmma.cu builds its GEMM from them, flash_wgmma.cu its attention;
+// nothing here knows a tile size.
 //
 // - Tensor maps are encoded on the host by cuTensorMapEncodeTiled, found
 //   through the runtime's driver entry point, so a library needs no -lcuda.
@@ -19,7 +20,12 @@
 //   BN / 64 boxes of 64 K-rows by 64 N-columns; inside a box 8 K-rows make
 //   an atom (SBO = 1,024 bytes between atoms along K), boxes lie 8,192 bytes
 //   apart along N (the leading byte offset, LBO), and the k-th step starts
-//   16 k rows (2,048 bytes) into the box.
+//   16 k rows (2,048 bytes) into the box. B (N, K) row-major (attention's
+//   K for S = Q K^T) is K-major, laid out as A is (TransB = 0).
+// - A from registers (wgmma_rs; attention's P for P V): each warp's 16 rows
+//   as mma.sync's m16n8k16 A fragment, so an m64nNk16 accumulator's 8-column
+//   tiles 2 k and 2 k + 1, packed to bf16 pairs, are the A fragment of the
+//   k-th 16-deep step as they lie.
 // - The accumulator of m64nNk16 (f32) is spread as mma.sync's m16n8 C
 //   fragment, one 16-row slab per warp: d[4 j + 2 h + e] is row 16 warp +
 //   lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e.
@@ -305,8 +311,12 @@ __device__ __forceinline__ void fence_regs_overwritten(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "=f"(r[i])::"memory");
 }
 
-// d (64 x N) += A (64 x 16, K-major) @ B (16 x N, MN-major), f32
-// accumulation; d = A @ B where scale_d == 0. Issued by a whole warpgroup.
+// d (64 x N) += A (64 x 16, K-major) @ B (16 x N), f32 accumulation; d =
+// A @ B where scale_d == 0. B is MN-major where TransB is 1 (the
+// instruction's transpose-B bit: a row-major (K, N) matrix), K-major where
+// it is 0 (a row-major (N, K) matrix, laid out as A is). Issued by a whole
+// warpgroup.
+template <int TransB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
                                           uint64_t b, int scale_d) {
   asm volatile(
@@ -317,7 +327,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -326,10 +336,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)
       : "memory");
 }
 
+template <int TransB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
                                            uint64_t b, int scale_d) {
   asm volatile(
@@ -344,7 +355,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -361,10 +372,11 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)
       : "memory");
 }
 
+template <int TransB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
                                            uint64_t b, int scale_d) {
   asm volatile(
@@ -387,7 +399,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -420,20 +432,101 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB)
       : "memory");
 }
 
-template <int N>
+template <int N, int TransB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
                                       uint64_t b, int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "instantiated wgmma widths");
   if constexpr (N == 64)
-    wgmma_n64(d, a, b, scale_d);
+    wgmma_n64<TransB>(d, a, b, scale_d);
   else if constexpr (N == 128)
-    wgmma_n128(d, a, b, scale_d);
+    wgmma_n128<TransB>(d, a, b, scale_d);
   else
-    wgmma_n256(d, a, b, scale_d);
+    wgmma_n256<TransB>(d, a, b, scale_d);
+}
+
+// d (64 x 64) += A (64 x 16, from registers) @ B (16 x 64, in shared
+// memory; MN-major where TransB is 1). A is the m16n8k16 A fragment of
+// each warp's 16 rows: a[0] rows g, columns 2 q, 2 q + 1 (g = lane / 4, q =
+// lane % 4), a[1] rows g + 8, a[2] and a[3] the same 8 columns on, each a
+// pair of bf16.
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TransB)
+      : "memory");
+}
+
+// The same, 128 wide.
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TransB)
+      : "memory");
+}
+
+template <int N, int TransB = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "instantiated register-A wgmma widths");
+  if constexpr (N == 64)
+    wgmma_rs_n64<TransB>(d, a, b, scale_d);
+  else
+    wgmma_rs_n128<TransB>(d, a, b, scale_d);
 }
 
 }  // namespace wg

@@ -6,7 +6,8 @@
 with ``ctypes``. ``matmul.cu`` and ``flash_attention.cu`` build once per
 operand dtype (``-DRT_FP32`` / ``-DRT_BF16`` keep one dtype's entry points,
 so only that dtype's templates are instantiated), the other sources once
-(``matmul_wgmma.cu``, the bf16 matmul's wgmma route, among them).
+(``matmul_wgmma.cu`` and ``flash_wgmma.cu``, the bf16 matmul's and flash
+attention's wgmma routes, among them).
 The build happens at first use (or by calling ``build_kernels()``): one
 ``nvcc`` process per library, all started together. A library's file name
 carries a digest of its source, the shared headers and the flags, so an
@@ -75,6 +76,7 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "winograd": ("winograd", ()),
     "flash_attention": ("flash_attention", ("-DRT_FP32",)),
     "flash_attention_bf16": ("flash_attention", ("-DRT_BF16",)),
+    "flash_wgmma": ("flash_wgmma", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -37,9 +37,32 @@ bytes). (* BQ capped at 128.)
     fa-256x256   (256, 256)      (128, 64)    (128, 32) (128, 64)  104,448 / 168,960   36,864 / 69,632 B
     fa-512x256   (512, 256)      (128, 64)*   (128, 32)*(128, 64)* 104,448 / 168,960   36,864 / 69,632 B
 
+**The wgmma route** (bf16 q, k, v at d = 64 or 128 with aligned bases;
+``flash_attention.route``) runs ``csrc/flash_wgmma.cu``, whose tiles are
+(BQ, BKV) per head dim (``WGMMA_TILES``). ``wgmma_tile(variant, d)`` maps
+each key by one rule: BQ half the TPU query block, capped at 128 (one or
+two consumer warpgroups of 64 rows); BKV half the TPU KV block, capped at
+128 at d = 64 and at 64 at d = 128 (a consumer holds S, P's two parts and O
+in registers). Shared memory: 1,024 bytes of alignment, Q (BQ d 2 bytes), a
+ring of K and V stages (2 BKV d 2 bytes each: as many as fit, at most 4,
+in half a block's 227 KB for BQ = 64, which runs two CTAs to an SM) and
+3 stages + 3 barriers of 8 bytes:
+
+    variant      d = 64 (BQ, BKV) stages   d = 128 (BQ, BKV) stages   shared memory d = 64 / 128
+    fa-128x128   ( 64,  64) x 4            ( 64, 64) x 2               74,872 /  83,016 B
+    fa-128x256   ( 64, 128) x 3            ( 64, 64) x 2              107,616 /  83,016 B
+    fa-256x128   (128,  64) x 4            (128, 64) x 4               83,064 / 164,984 B
+    fa-256x256   (128, 128) x 4            (128, 64) x 4              148,600 / 164,984 B
+    fa-512x256   (128, 128) x 4            (128, 64) x 4              148,600 / 164,984 B
+
+``plan(q, k, v, variant)`` gives a call's route and tile, as
+``flash_attention`` takes them.
+
 As in the reference, the TPU block is first clamped to the sequence
 (``bq = min(bq, Sq)``, ``bkv = min(bkv, Sk)``) and must then divide it; the
 CTA tile needs no such fit, since the kernel masks ragged edges.
+**GQA:** K and V keep their Hkv heads; the kernel reads KV head ``h //
+(H / Hkv)`` in place.
 """
 from __future__ import annotations
 
@@ -47,7 +70,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (WGMMA_TILES,
+                                                                 flash_attention,
+                                                                 route)
 
 # (bq, bkv) TPU blocks, as in the reference
 VARIANTS: Dict[str, Tuple[int, int]] = {
@@ -71,29 +96,52 @@ def cta_tile(variant: str, d: int,
     return min(bq // 2, 128), bkv
 
 
+def wgmma_tile(variant: str, d: int) -> Tuple[int, int]:
+    """(BQ, BKV) wgmma tile of ``variant`` at head dim ``d``: the rule in
+    the docstring."""
+    bq, bkv = VARIANTS[variant]
+    return min(bq // 2, 128), min(bkv // 2, 128 if d == 64 else 64)
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         variant: str) -> dict:
+    """The launch arguments of a folded call on ``q``, ``k``, ``v`` under
+    ``variant``: its route and that route's tile, as ``flash_attention``
+    takes them."""
+    d = q.shape[-1]
+    if route(q, k, v) == "wgmma":
+        bq, bkv = wgmma_tile(variant, d)
+        assert (bq, bkv, d) in WGMMA_TILES
+        return dict(bq=bq, bkv=bkv, force_route="wgmma")
+    bq, bkv = cta_tile(variant, d, q.dtype)
+    return dict(bq=bq, bkv=bkv, force_route="mma.sync")
+
+
+def fold_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, d) -> (B * heads, S, d) contiguous, heads folded into
+    the batch dim as ``b * heads + h``."""
+    B, S, H, d = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, d).contiguous()
+
+
 def flash_attention_op(q, k, v, causal: bool = True,
                        variant: str = "fa-128x128") -> torch.Tensor:
     """q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), GQA layout, fp32 or bf16
-    -> (B, Sq, H, hd) in q's dtype. KV heads are repeated to the full H and
-    the heads folded into the batch dim for the kernel, under ``variant``'s
-    CTA tile at this head dim."""
+    -> (B, Sq, H, hd) in q's dtype. The heads are folded into the batch dim
+    for the kernel, K and V with their Hkv heads (query head h reads KV
+    head h // (H / Hkv) in place), under ``variant``'s tile for this call's
+    route and head dim."""
     B, Sq, Hq, d = q.shape
     Hkv = k.shape[2]
-    if Hq != Hkv:
-        if Hq % Hkv:
-            raise ValueError(f"flash_attention_op: {Hq} query heads over {Hkv} KV heads")
-        rep = Hq // Hkv
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
-    qf = q.transpose(1, 2).reshape(B * Hq, Sq, d).contiguous()
-    kf = k.transpose(1, 2).reshape(B * Hq, -1, d).contiguous()
-    vf = v.transpose(1, 2).reshape(B * Hq, -1, d).contiguous()
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention_op: {Hq} query heads over {Hkv} KV heads")
+    qf, kf, vf = fold_heads(q), fold_heads(k), fold_heads(v)
     Sk = kf.shape[1]
     bq, bkv = VARIANTS[variant]
     bq, bkv = min(bq, Sq), min(bkv, Sk)
     if Sq % bq or Sk % bkv:
         raise ValueError(f"flash_attention_op: pad sequence to block multiples "
                          f"(Sq {Sq}, Sk {Sk}, {variant} blocks {bq}x{bkv})")
-    cq, ckv = cta_tile(variant, d, q.dtype)
-    out = flash_attention(qf, kf, vf, causal=causal, bq=cq, bkv=ckv)
+    out = flash_attention(qf, kf, vf, causal=causal, rep=Hq // Hkv,
+                          **plan(qf, kf, vf, variant))
     return out.reshape(B, Hq, Sq, d).transpose(1, 2)

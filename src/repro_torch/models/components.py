@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,
                                                                  flash_attention)
-from repro_torch.kernels.flash_attention.ops import cta_tile
+from repro_torch.kernels.flash_attention.ops import fold_heads, plan
 
 Params = Dict[str, Any]
 FLASH_VARIANT = "fa-128x128"         # the kernel tile the LM prefill runs under
@@ -213,25 +213,19 @@ def flash_routed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  sc: float, causal: bool = True) -> torch.Tensor:
     """The reference's prefill attention on the flash attention kernel:
-    q scaled in its own dtype (as the reference does), K/V repeated to the
-    query heads (``jnp.repeat``), heads folded into the batch dim, the
-    kernel at scale 1 under ``FLASH_VARIANT``'s tile (it masks ragged
-    edges, so any length runs). q, k and v stay in their dtype, fp32 or
-    bf16: the kernel computes in fp32 inside and returns q's dtype, so a
-    bf16 prefill makes no fp32 copy of them. On CPU tensors
-    ``flash_attention`` computes its plain version, which is how the CPU
-    tests reach this glue."""
+    q scaled in its own dtype (as the reference does), heads folded into
+    the batch dim, K and V with their own Hkv heads (the kernel reads KV
+    head h // rep in place, where the reference repeats them with
+    ``jnp.repeat``), the kernel at scale 1 under ``FLASH_VARIANT``'s plan
+    for this call's route (it masks ragged edges, so any length runs). q, k
+    and v stay in their dtype, fp32 or bf16: the kernel computes in fp32
+    inside and returns q's dtype, so a bf16 prefill makes no fp32 copy of
+    them. On CPU tensors ``flash_attention`` computes its plain version,
+    which is how the CPU tests reach this glue."""
     B, Sq, Hq, hd = q.shape
-    rep = Hq // k.shape[2]
-
-    def fold(t: torch.Tensor, r: int) -> torch.Tensor:
-        if r > 1:
-            t = torch.repeat_interleave(t, r, dim=2)
-        return t.transpose(1, 2).reshape(B * Hq, t.shape[1], hd).contiguous()
-
-    bq, bkv = cta_tile(FLASH_VARIANT, hd, q.dtype)
-    out = flash_attention(fold(q * sc, 1), fold(k, rep), fold(v, rep),
-                          causal=causal, scale=1.0, bq=bq, bkv=bkv)
+    qf, kf, vf = fold_heads(q * sc), fold_heads(k), fold_heads(v)
+    out = flash_attention(qf, kf, vf, causal=causal, scale=1.0,
+                          rep=Hq // k.shape[2], **plan(qf, kf, vf, FLASH_VARIANT))
     return out.reshape(B, Hq, Sq, hd).transpose(1, 2)
 
 

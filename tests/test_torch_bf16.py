@@ -365,11 +365,12 @@ def test_bf16_bounds_at_the_bf16_rate():
     """A bf16 signature is bounded at 989 TFLOP/s and 2-byte traffic: for
     chatglm3_6b causal at S = 4,096 0.139 ms (by operations), against the
     fp32 signature's 0.834 at the 3xTF32 rate; a bf16 matmul with a bf16
-    output moves half the bytes of the fp32 one."""
+    output moves half the bytes of the fp32 one. (A flash signature carries
+    K and V's rep, 16 here, and the route before the scale and dtype.)"""
     smoke = _load_chip_smoke()
     table = smoke.kernel_table(torch)
     fa = table["flash_attention"]
-    base = (32, 4096, 4096, 128, True, 64, 32, 128 ** -0.5)
+    base = (32, 4096, 4096, 128, True, 64, 32, 16, "mma.sync", 128 ** -0.5)
     bf, f32 = (*base, "bfloat16"), (*base, "float32")
     assert fa["flops_s"](bf) == smoke.BF16_FLOPS
     assert fa["work"](bf)[1] * 2 == fa["work"](f32)[1]

@@ -391,12 +391,14 @@ def test_flash_attention_bound_at_the_3xtf32_rate():
     rate (it runs on the tensor cores) and prints the fp32-rate bound
     beside it: for chatglm3_6b causal at S = 4,096 (32 heads, d = 128, the
     pairs the mask keeps) 0.834 and 2.052 ms. The rate is the signature's
-    dtype's: the launch signature ends with it."""
+    dtype's: the launch signature ends with it (after K and V's rep, the
+    query heads over the KV heads, and the route)."""
     smoke = _load_chip_smoke()
     spec = smoke.kernel_table(torch)["flash_attention"]
     cfg = smoke.ATTENTION["chatglm3_6b_causal"]
     sig = (cfg["heads"], cfg["seq"], cfg["seq"], cfg["head_dim"], True,
-           *fa_cta_tile("fa-128x128", cfg["head_dim"]), cfg["head_dim"] ** -0.5,
+           *fa_cta_tile("fa-128x128", cfg["head_dim"]),
+           cfg["heads"] // cfg["kv_heads"], "mma.sync", cfg["head_dim"] ** -0.5,
            "float32")
     assert spec["flops_s"](sig) == smoke.TF32_FLOPS / 3
     flops, nbytes = spec["work"](sig)

@@ -2,7 +2,9 @@
 card, at every tile the variant tables name and every epilogue combination
 (the bf16 matmul's wgmma route: ``-k wgmma``, every instantiated tile on
 ragged shapes, split and not, batched and broadcast, the longest K of the
-LM sites, repeats bit for bit, the route rule on the card);
+LM sites, repeats bit for bit, the route rule on the card; bf16 flash
+attention's wgmma route the same way, ``-k flash``, with K and V read at
+their own heads on every route);
 the selection path's performance models on the card against the CPU
 (``-k select``: predictions at rtol=2e-5, the same assignments); training
 and profiling on the card (``-k "train or profile"``: a card fit against
@@ -40,6 +42,8 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.flash_attention import TILES as FA_KERNEL_TILES
+from repro_torch.kernels.flash_attention.flash_attention import \
+    WGMMA_TILES as FA_WGMMA_TILES
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import VARIANTS as FA_VARIANTS
@@ -902,18 +906,20 @@ def test_gpu_wgmma_route_rule_on_the_card(cuda):
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("tile", FA_KERNEL_TILES)
 def test_gpu_flash_attention_bf16_kernel_vs_plain(tile, d, cuda):
-    """Every tile and head dim on bf16 q, k, v (causal and not, ragged, Sq
-    != Sk): a bf16 output within the bf16 tolerance of the plain version,
-    and within one bf16 rounding (2^-8 relative) plus 1e-4 of the fp32
-    attention on the same values, so P's two bf16 parts keep it near fp32;
-    the launch signature carries the dtype."""
+    """Every mma.sync tile and head dim on bf16 q, k, v (causal and not,
+    ragged, Sq != Sk), the route named (bf16 at d = 64 and 128 would take
+    wgmma by default): a bf16 output within the bf16 tolerance of the plain
+    version, and within one bf16 rounding (2^-8 relative) plus 1e-4 of the
+    fp32 attention on the same values, so P's two bf16 parts keep it near
+    fp32; the launch signature carries the dtype."""
     gen = torch.Generator().manual_seed(0)
     bq, bkv = tile
     common.reset_launches()
     for (bh, sq, sk) in [(3, 256, 256), (2, 200, 200), (2, 96, 160), (2, 160, 96)]:
         q, k, v = (_bf16_rand(gen, bh, s, d) for s in (sq, sk, sk))
         for causal in (True, False):
-            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                  force_route="mma.sync")
             assert got.dtype == torch.bfloat16
             want32 = flash_attention_plain(q.float(), k.float(), v.float(),
                                            causal=causal)
@@ -925,17 +931,18 @@ def test_gpu_flash_attention_bf16_kernel_vs_plain(tile, d, cuda):
 @pytest.mark.parametrize("causal", [True, False])
 def test_gpu_flash_attention_bf16_long_and_large_scores(causal, cuda):
     """S = 4,096 at d = 128 and scores of large magnitude (inputs x4): the
-    kernel's bf16 output within one bf16 rounding of the fp32 attention on
-    the same values, and a call repeats bit for bit."""
+    mma.sync kernel's bf16 output within one bf16 rounding of the fp32
+    attention on the same values, and a call repeats bit for bit."""
     gen = torch.Generator().manual_seed(2)
     for S, x in ((4096, 1.0), (300, 4.0)):
         q, k, v = (_bf16_rand(gen, 1, S, 128, scale=x) for _ in range(3))
         want32 = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
         for bq, bkv in FA_KERNEL_TILES:
-            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                  force_route="mma.sync")
             torch.testing.assert_close(got.float(), want32, rtol=2 ** -8, atol=1e-4)
-            assert torch.equal(flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv),
-                               got)
+            assert torch.equal(flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                               force_route="mma.sync"), got)
 
 
 @pytest.mark.parametrize("variant", sorted(FA_VARIANTS))
@@ -952,6 +959,125 @@ def test_gpu_flash_attention_op_bf16_gqa(variant, cuda):
     want = flash_attention_plain(fold(q).float(), fold(kr).float(),
                                  fold(vr).float(), causal=True)
     _hold_bf16(got, want.reshape(2, 8, 256, 64).transpose(1, 2), rows=True)
+
+
+# ---------------------------------------------------------------------------
+# bf16 flash attention on wgmma (csrc/flash_wgmma.cu), and K / V read in place
+# ---------------------------------------------------------------------------
+
+def _flash_routes():
+    """{(route, rep)} of the flash launches since the last reset."""
+    return {(sig[-3], sig[7]) for sig in common.SEEN["flash_attention"]}
+
+
+@pytest.mark.parametrize("tile", FA_WGMMA_TILES, ids=lambda t: "x".join(map(str, t)))
+def test_gpu_flash_wgmma_every_tile_vs_plain(tile, cuda):
+    """Every wgmma tile at its head dim, causal and not, on the ragged
+    shapes of the mma.sync test (a length no tile divides, Sq != Sk both
+    ways): within one bf16 rounding plus 1e-4 of the fp32 attention on the
+    same values, row by row; each call on the wgmma route."""
+    gen = torch.Generator().manual_seed(0)
+    bq, bkv, d = tile
+    common.reset_launches()
+    for (bh, sq, sk) in [(3, 256, 256), (2, 200, 200), (2, 96, 160), (2, 160, 96)]:
+        q, k, v = (_bf16_rand(gen, bh, s, d) for s in (sq, sk, sk))
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+            want32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=causal)
+            _hold_bf16(got, want32, rows=True)
+    assert _flash_routes() == {("wgmma", 1)}
+    assert common.LAUNCHES["flash_attention"] == 8
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_wgmma_long_and_large_scores(causal, cuda):
+    """S = 4,096 at d = 128 (Q K^T over all of d in one wgmma chain, O
+    accumulated in place over 4,096 keys) and inputs x4, under every d =
+    128 tile: within one bf16 rounding of the fp32 attention, no further
+    from the float64 result than twice the plain version, and a repeat bit
+    for bit."""
+    gen = torch.Generator().manual_seed(2)
+    for S, x in ((4096, 1.0), (300, 4.0)):
+        q, k, v = (_bf16_rand(gen, 1, S, 128, scale=x) for _ in range(3))
+        want32 = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        exact = flash_attention_plain(q.double(), k.double(), v.double(), causal=causal)
+        plain = flash_attention_plain(q, k, v, causal=causal)
+        bound = 2 * (plain.double() - exact).abs().max().item()
+        for bq, bkv, d in FA_WGMMA_TILES:
+            if d != 128:
+                continue
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv,
+                                  force_route="wgmma")
+            _hold_bf16(got, want32, rows=True)
+            assert (got.double() - exact).abs().max().item() <= bound
+            assert torch.equal(flash_attention(q, k, v, causal=causal, bq=bq,
+                                               bkv=bkv, force_route="wgmma"), got)
+
+
+@pytest.mark.parametrize("rep", [2, 7, 16])
+def test_gpu_flash_rep_on_every_route(rep, cuda):
+    """K and V of BH / rep heads, query row bh on KV row bh // rep, on the
+    wgmma route (bf16 d = 64 and 128), the bf16 mma.sync route and the fp32
+    kernel: each against the plain version on K and V repeated to the query
+    rows; the signatures carry rep."""
+    gen = torch.Generator().manual_seed(rep)
+    common.reset_launches()
+    for d in (64, 128):
+        q = _cuda_rand(gen, 2 * rep, 130, d)
+        k, v = _cuda_rand(gen, 2, 150, d), _cuda_rand(gen, 2, 150, d)
+        kr, vr = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
+        for causal in (True, False):
+            want = flash_attention_plain(q, kr, vr, causal=causal)
+            got = flash_attention(q, k, v, causal=causal, rep=rep)
+            torch.testing.assert_close(got, want, **GEMM_TOL)
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            want32 = flash_attention_plain(qb.float(), kb.float().repeat_interleave(
+                rep, 0), vb.float().repeat_interleave(rep, 0), causal=causal)
+            for r in ("wgmma", "mma.sync"):
+                _hold_bf16(flash_attention(qb, kb, vb, causal=causal, rep=rep, force_route=r),
+                           want32, rows=True)
+    assert _flash_routes() == {("wgmma", rep), ("mma.sync", rep)}
+    assert common.LAUNCHES["flash_attention"] == 12
+
+
+def test_gpu_flash_wgmma_refuses_a_misaligned_base(cuda):
+    """A bf16 operand 2 bytes off a 16-byte boundary is refused before any
+    launch: named on the wgmma route, and on the route the rule gives it
+    (mma.sync, whose copies are 16 bytes too)."""
+    q = torch.zeros(2 * 64 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(2, 64, 64)
+    k = torch.zeros(2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    before = dict(common.LAUNCHES)
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError, match="wgmma route takes"):
+            flash_attention(*args, force_route="wgmma")
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(*args)
+    assert dict(common.LAUNCHES) == before
+
+
+def test_gpu_flash_route_of_d32_and_fp32_is_mma_sync(cuda):
+    """A bf16 call at d = 32 and an fp32 call at d = 128 run mma.sync; a
+    bf16 call at d = 64 and 128 runs wgmma, and flash_attention_op gives
+    the kernel K and V with their own heads."""
+    from repro_torch.kernels.flash_attention.flash_attention import route
+    gen = torch.Generator().manual_seed(4)
+    common.reset_launches()
+    b32 = _bf16_rand(gen, 2, 64, 32)
+    f128 = _cuda_rand(gen, 2, 64, 128)
+    assert route(b32, b32, b32) == "mma.sync" and route(f128, f128, f128) == "mma.sync"
+    flash_attention(b32, b32, b32)
+    flash_attention(f128, f128, f128)
+    assert {sig[-3] for sig in common.SEEN["flash_attention"]} == {"mma.sync"}
+    for d in (64, 128):
+        b = _bf16_rand(gen, 2, 64, d)
+        assert route(b, b, b) == "wgmma"
+    q = _bf16_rand(gen, 1, 256, 32, 128)
+    kv = _bf16_rand(gen, 1, 256, 2, 128)
+    common.reset_launches()
+    flash_attention_op(q, kv, kv, causal=True)
+    (sig,) = common.SEEN["flash_attention"]
+    assert sig[:3] == (32, 256, 256) and sig[7:9] == (16, "wgmma")
 
 
 def test_gpu_bf16_kernels_refuse_fp16_and_the_conv_kernels_bf16(cuda):
