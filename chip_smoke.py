@@ -45,13 +45,21 @@ Phases, each of which asserts:
    then held to its plain version at every signature the paths gave it and
    under every ``VARIANTS`` key at the largest (flash attention: under
    every instantiated tile, causal and not), and timed as in phase 2.
-   The kernels that take bf16 run four of these paths again on bf16
-   operands (the paths named ``bf16``): ``matmul_batch_op`` on resnet18's
-   convs at b=8 and ``flash_attention_op`` on the three attention shapes,
-   each output (bf16) held to its fp32 oracle on the same values within
-   one bf16 rounding (``hold_bf16``) and each launch signature carrying
-   bf16; their passes are timed against the bf16 bound (989 TFLOP/s,
-   2-byte traffic) and the bf16 library call (``torch.matmul``, SDPA).
+   The kernels that take bf16 run bf16 paths too (named ``bf16``), on
+   bf16 operands: ``matmul_batch_op`` on resnet18's convs at b=8,
+   ``conv_im2col_op`` on each conv of one image and
+   ``conv_im2col_batch_op`` on each conv at b=8 (bias and residual bf16,
+   ReLU), ``winograd_point_gemm`` and ``winograd_point_gemm_batch`` (b=8)
+   on each 3x3 stride-1 conv's F(2x2) U and V (made by the weight and
+   input transforms in fp32, then rounded once to bf16), and
+   ``flash_attention_op`` on the three attention shapes, each output
+   (bf16) held to its fp32 oracle on the same values within one bf16
+   rounding (``hold_bf16``; ``F.conv2d`` + the epilogue, the fp32 product)
+   and each launch signature carrying bf16; their passes are timed against
+   the bf16 bound (989 TFLOP/s, 2-byte traffic) and the bf16 library call
+   (``torch.matmul``, ``F.conv2d``, a broadcast ``torch.matmul``, SDPA).
+   The bf16 passes of the batched conv and point-GEMM join those kernels'
+   fp32 served passes of phase 2.
    Flash attention's K and V keep their KV heads (``rep`` in the
    signature); every bf16 launch at d = 64 or 128 must run the wgmma route
    (``csrc/flash_wgmma.cu``), every other one mma.sync. The sweep of
@@ -283,9 +291,9 @@ burst under ``torch.profiler`` and the device ops that took most of it, by
 device event and by the CPU op that launched it.
 The selected paths of phase 6 are timed the same way.
 The ``{"kernels": [...]}`` line has one row per kernel and operand dtype:
-the seven TPU kernels and the two Winograd transforms in fp32, and rows 1,
-4 and 7 (``matmul``, ``matmul_batch``, ``flash_attention``) again in bf16,
-each row's launches those of the paths of its dtype. The routed kernels'
+the seven TPU kernels and the two Winograd transforms in fp32, and the
+seven TPU kernels again in bf16 (sixteen rows), each row's launches those
+of the paths of its dtype. The routed kernels'
 rows also count their launches per route (``launches_by_route`` over the
 run, ``pass_launches_by_route`` over the timed pass: bf16 matmul operands
 that TMA can address run ``csrc/matmul_wgmma.cu``, the rest
@@ -569,14 +577,13 @@ def main() -> int:
                                   ENTRY_BATCH)
     entry_paths = {**entry_point_paths("resnet18", resnet18, ATTENTION, ENTRY_BATCH),
                    **bf16_paths}
-    entry_seen = {k: {} for k in (*ENTRY_KERNELS, *WINO_TRANSFORMS)}
+    entry_seen = {k: {} for k in common.KERNELS}
     oracle_err = {}
-    for name, (kernel, drive) in entry_paths.items():
+    for name, (kernel, drive, want) in entry_paths.items():
         common.reset_launches()
         oracle_err[name] = drive(torch, "cuda", np.random.default_rng(args.seed))
         torch.cuda.synchronize()
         launches[name] = took(name)
-        want = {kernel, *(WINO_TRANSFORMS if kernel == "winograd_point_gemm" else ())}
         check_path_dtype(name, "bfloat16" if name in bf16_paths else "float32")
         for k in want:
             entry_seen[k][name] = dict(common.SEEN[k])
@@ -591,8 +598,16 @@ def main() -> int:
         seen = set().union(*(set(c) for c in entry_seen[k].values()))
         report[k] = check_and_time(torch, k, seen, entry_seen[k], args.reps,
                                    ab=k == "flash_attention")
-        report[k]["oracle_max_abs_err"] = max(
-            oracle_err[p] for p in entry_seen[k])
+    # rows 2 and 3: their bf16 phase-5 passes join their fp32 served passes
+    for k in ("conv_im2col_batch", "winograd_point_gemm_batch"):
+        seen = set().union(*(set(c) for c in entry_seen[k].values()))
+        join_passes(report[k], check_and_time(torch, k, seen, entry_seen[k],
+                                              args.reps))
+    for k in (*ENTRY_KERNELS, "conv_im2col_batch", "winograd_point_gemm_batch"):
+        by_dtype = report[k]["oracle_max_abs_err_by_dtype"] = {}
+        for p in entry_seen[k]:
+            dt = "bfloat16" if p in bf16_paths else "float32"
+            by_dtype[dt] = max(by_dtype.get(dt, 0.0), oracle_err[p])
     # the transforms: every signature of the served and the entry paths
     for k in WINO_TRANSFORMS:
         seen = seen_all[k].union(*(set(c) for c in entry_seen[k].values()))
@@ -653,12 +668,9 @@ def main() -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_fp32_ms", "dtype", "routes")} for p, t in lm_kernel["passes"].items()}}
     # row 1's bf16 pass: the autotune's choice for one layer of LM_ARCH
-    mm16 = check_and_time(torch, "matmul", set(next(iter(site_pass.values()))),
-                          site_pass, args.reps)
-    mm = report["matmul"]
-    mm["passes"].update(mm16["passes"])
-    mm["max_abs_err_by_dtype"].update(mm16["max_abs_err_by_dtype"])
-    mm["max_abs_err"] = max(mm["max_abs_err"], mm16["max_abs_err"])
+    join_passes(report["matmul"], check_and_time(
+        torch, "matmul", set(next(iter(site_pass.values()))), site_pass,
+        args.reps))
 
     # -- report -----------------------------------------------------------
     summary = {k: {"launches": {p: launches[p][k] for p in launches},
@@ -706,6 +718,14 @@ def main() -> int:
     return 0
 
 
+def join_passes(r: dict, extra: dict) -> None:
+    """Add the passes of ``extra``, a ``check_and_time`` of one kernel's
+    passes of another dtype, to that kernel's report ``r``."""
+    r["passes"].update(extra["passes"])
+    r["max_abs_err_by_dtype"].update(extra["max_abs_err_by_dtype"])
+    r["max_abs_err"] = max(r["max_abs_err"], extra["max_abs_err"])
+
+
 def kernel_rows(report: dict, launches: dict, entry_paths, smi: str) -> list:
     """The rows of the ``{"kernels": [...]}`` line: one per kernel and
     operand dtype, timed on its headline pass (a served kernel's path where
@@ -717,11 +737,14 @@ def kernel_rows(report: dict, launches: dict, entry_paths, smi: str) -> list:
         for dt, err in sorted(r["max_abs_err_by_dtype"].items(),
                               key=lambda de: de[0] != "float32"):
             passes = {p: t for p, t in r["passes"].items() if t["dtype"] == dt}
+            served = {p: t for p, t in passes.items() if p not in entry_paths}
             path, t = (next(iter(passes.items())) if k in ENTRY_KERNELS or dt != "float32"
-                       else max(passes.items(), key=lambda pt: pt[1]["bound_ms"]))
+                       else max(served.items(), key=lambda pt: pt[1]["bound_ms"]))
             timed_on = (path if path in entry_paths or dt != "float32"
                         else f"{path} b=8 forward")
-            extra = {key: r[key] for key in ("oracle_max_abs_err",) if key in r}
+            extra = {}
+            if dt in r.get("oracle_max_abs_err_by_dtype", {}):
+                extra["oracle_max_abs_err"] = r["oracle_max_abs_err_by_dtype"][dt]
             if dt in r.get("float64_err_by_dtype", {}):
                 extra["float64_err"], extra["plain_float64_err"] = (
                     r["float64_err_by_dtype"][dt])
@@ -3410,38 +3433,71 @@ def conv_layers(spec):
 
 
 def entry_point_paths(net, layers, attention, batch):
-    """{path: (kernel, drive)} of phase 5 over ``net``'s conv ``layers`` and
-    the ``attention`` shapes; ``drive(torch, device, rng)`` runs one path
-    through its ``ops`` entry point and returns the largest |output -
-    oracle|, having asserted it within tolerance."""
+    """{path: (kernel, drive, launched)} of phase 5 over ``net``'s conv
+    ``layers`` and the ``attention`` shapes; ``drive(torch, device, rng)``
+    runs one path through its ``ops`` entry point and returns the largest
+    |output - oracle|, having asserted it within tolerance; ``kernel`` is
+    the kernel the path is timed for, ``launched`` every kernel it must
+    launch (and no other)."""
     wino = [l for l in layers if l[4] == 3 and l[5] == 1]
+    winograd = {"winograd_point_gemm", *WINO_TRANSFORMS}
     paths = {
         f"{net} convs as GEMMs, b={batch}": (
-            "matmul_batch", lambda t, d, r: drive_matmul_batch(t, d, r, layers, batch)),
+            "matmul_batch", lambda t, d, r: drive_matmul_batch(t, d, r, layers, batch),
+            {"matmul_batch"}),
         f"{net} convs, 1 image": (
-            "conv_im2col", lambda t, d, r: drive_conv_im2col(t, d, r, layers)),
+            "conv_im2col", lambda t, d, r: drive_conv_im2col(t, d, r, layers),
+            {"conv_im2col"}),
         f"{net} 3x3 s1, 1 image, F(2x2) winograd_conv_op": (
-            "winograd_point_gemm", lambda t, d, r: drive_winograd(t, d, r, wino, 2)),
+            "winograd_point_gemm", lambda t, d, r: drive_winograd(t, d, r, wino, 2),
+            winograd),
         f"{net} 3x3 s1, 1 image, F(4x4) winograd_conv": (
-            "winograd_point_gemm", lambda t, d, r: drive_winograd(t, d, r, wino, 4)),
+            "winograd_point_gemm", lambda t, d, r: drive_winograd(t, d, r, wino, 4),
+            winograd),
     }
     for name, cfg in attention.items():
         paths[f"{name} S={cfg['seq']} B=1"] = (
-            "flash_attention", lambda t, d, r, cfg=cfg: drive_attention(t, d, r, **cfg))
+            "flash_attention", lambda t, d, r, cfg=cfg: drive_attention(t, d, r, **cfg),
+            {"flash_attention"})
     return paths
 
 
 def bf16_entry_paths(net, layers, attention, batch):
-    """The bf16 passes of phase 5, as ``entry_point_paths`` gives them: the
-    batched matmul over ``net``'s conv ``layers`` and flash attention on
-    the ``attention`` shapes, every operand bf16."""
-    paths = {f"{net} convs as GEMMs, b={batch} bf16": (
-        "matmul_batch",
-        lambda t, d, r: drive_matmul_batch(t, d, r, layers, batch, bf16=True))}
+    """The bf16 passes of phase 5, as ``entry_point_paths`` gives them, every
+    operand bf16: over ``net``'s conv ``layers`` the batched matmul, the
+    implicit-GEMM conv on one image and on ``batch``, the Winograd
+    point-GEMM of each 3x3 stride-1 layer on one image and on ``batch``
+    (F(2x2), its U and V made by the weight and input transforms in fp32,
+    then rounded once to bf16); flash attention on the ``attention``
+    shapes."""
+    wino = [l for l in layers if l[4] == 3 and l[5] == 1]
+    paths = {
+        f"{net} convs as GEMMs, b={batch} bf16": (
+            "matmul_batch",
+            lambda t, d, r: drive_matmul_batch(t, d, r, layers, batch, bf16=True),
+            {"matmul_batch"}),
+        f"{net} convs, 1 image bf16": (
+            "conv_im2col",
+            lambda t, d, r: drive_conv_im2col(t, d, r, layers, bf16=True),
+            {"conv_im2col"}),
+        f"{net} convs, b={batch} bf16": (
+            "conv_im2col_batch",
+            lambda t, d, r: drive_conv_im2col(t, d, r, layers, batch, bf16=True),
+            {"conv_im2col_batch"}),
+        f"{net} 3x3 s1 point-GEMMs, 1 image, F(2x2) bf16": (
+            "winograd_point_gemm",
+            lambda t, d, r: drive_point_gemm(t, d, r, wino),
+            {"winograd_point_gemm", "winograd_input_transform"}),
+        f"{net} 3x3 s1 point-GEMMs, b={batch}, F(2x2) bf16": (
+            "winograd_point_gemm_batch",
+            lambda t, d, r: drive_point_gemm(t, d, r, wino, batch),
+            {"winograd_point_gemm_batch", "winograd_input_transform"}),
+    }
     for name, cfg in attention.items():
         paths[f"{name} S={cfg['seq']} B=1 bf16"] = (
             "flash_attention",
-            lambda t, d, r, cfg=cfg: drive_attention(t, d, r, bf16=True, **cfg))
+            lambda t, d, r, cfg=cfg: drive_attention(t, d, r, bf16=True, **cfg),
+            {"flash_attention"})
     return paths
 
 
@@ -3462,13 +3518,15 @@ ROUTED = tuple(ROUTE_SOURCES)
 
 
 def sig_dtype(kernel: str, sig) -> str:
-    """The operand dtype of one launch signature of ``kernel``: its last
-    field for flash attention, the one before the output dtype for the
-    matmul kernels, fp32 for the kernels that take nothing else."""
+    """The operand dtype of one launch signature of ``kernel``: the field
+    before the output dtype for the matmul kernels, the last field for the
+    other kernels that take bf16 (the convs, the point-GEMMs, flash
+    attention), fp32 for the kernels that take nothing else (the Winograd
+    transforms)."""
     from repro_torch.kernels.common import DTYPES
     if kernel not in DTYPES:
         return "float32"
-    return sig[-1] if kernel == "flash_attention" else sig[-2]
+    return sig[-2] if kernel in ("matmul", "matmul_batch") else sig[-1]
 
 
 def sig_route(kernel: str, sig) -> str:
@@ -3602,20 +3660,62 @@ def drive_matmul_batch(torch, device, rng, layers, batch, bf16=False) -> float:
     return worst
 
 
-def drive_conv_im2col(torch, device, rng, layers) -> float:
-    """Each conv on one image through ``conv_im2col_op``, bias (K,) and
-    residual (K, oh, ow) fused, ReLU. Oracle: ``F.conv2d`` + the epilogue."""
+def drive_conv_im2col(torch, device, rng, layers, batch=None,
+                      bf16=False) -> float:
+    """Each conv on one image through ``conv_im2col_op`` or, with ``batch``,
+    on ``batch`` images through ``conv_im2col_batch_op``, bias (K,) and
+    residual fused, ReLU; with ``bf16`` every operand in bf16 and the output
+    bf16 (x's dtype). Oracle: ``F.conv2d`` + the epilogue in fp32 on the
+    same values, a bf16 output held by ``hold_bf16`` (``ORACLE_TOL`` for
+    the fp32 part)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.im2col_gemm.ops import conv_im2col_op
+    from repro_torch.kernels.im2col_gemm.ops import conv_im2col_batch_op, conv_im2col_op
+    lead = () if batch is None else (batch,)
+    op = conv_im2col_op if batch is None else conv_im2col_batch_op
     worst = 0.0
     for _, C, H, K, f, s in layers:
         oh = (H - f) // s + 1
-        x = _rand(torch, rng, device, C, H, H)
+        x = _rand(torch, rng, device, *lead, C, H, H)
         w = _rand(torch, rng, device, K, C, f, f, scale=(C * f * f) ** -0.5)
-        b, r = _rand(torch, rng, device, K), _rand(torch, rng, device, K, oh, oh)
-        y = conv_im2col_op(x, w, s, bias=b, residual=r, relu=True)
-        want = _epilogue(F.conv2d(x[None], w, stride=s)[0], b, r, 0)
-        worst = max(worst, _hold(torch, y, want, ORACLE_TOL))
+        b, r = _rand(torch, rng, device, K), _rand(torch, rng, device, *lead, K, oh, oh)
+        if bf16:
+            x, w, b, r = (t.bfloat16() for t in (x, w, b, r))
+        y = op(x, w, s, bias=b, residual=r, relu=True)
+        assert y.dtype == x.dtype
+        xb = x.float() if batch else x.float()[None]
+        want = F.conv2d(xb, w.float(), stride=s)
+        want = _epilogue(want if batch else want[0], b.float(), r.float(), len(lead))
+        worst = max(worst, hold_bf16(torch, y, want, ORACLE_TOL["atol"]) if bf16
+                    else _hold(torch, y, want, ORACLE_TOL))
+    return worst
+
+
+def drive_point_gemm(torch, device, rng, layers, batch=None) -> float:
+    """The F(2x2) point-GEMMs of each 3x3 stride-1 conv, in bf16, through
+    ``winograd_point_gemm`` on one image or, with ``batch``,
+    ``winograd_point_gemm_batch`` on ``batch`` images, under
+    ``wino-128x128``'s bf16 plan: U and V from the port's weight transform
+    and input transform kernel (fp32), rounded once to bf16. Oracle: the
+    fp32 product of the same bf16 values, the output held by ``hold_bf16``
+    (``KERNEL_TOL`` for the fp32 part)."""
+    from repro_torch.kernels.winograd.ops import cta_plan, weight_transform
+    from repro_torch.kernels.winograd.winograd import (winograd_input_transform,
+                                                       winograd_point_gemm,
+                                                       winograd_point_gemm_batch)
+    worst = 0.0
+    for _, C, H, K, _, _ in layers:
+        x = _rand(torch, rng, device, batch or 1, C, H, H)
+        w = _rand(torch, rng, device, K, C, 3, 3, scale=(C * 9) ** -0.5)
+        u = weight_transform(w, 2).bfloat16()                    # (16, K, C)
+        v = winograd_input_transform(x, 2).bfloat16()            # (N, 16, C, T)
+        if batch is None:
+            v = v[0]
+        bm, bn, bk, split = cta_plan(K, v.shape[-1], C, u.shape[0] * (batch or 1),
+                                     "wino-128x128", torch.bfloat16)
+        fn = winograd_point_gemm if batch is None else winograd_point_gemm_batch
+        y = fn(u, v, bm=bm, bk=bk, bn=bn, split_k=split)
+        worst = max(worst, hold_bf16(torch, y, torch.matmul(u.float(), v.float()),
+                                     KERNEL_TOL["atol"]))
     return worst
 
 
@@ -3757,52 +3857,78 @@ def kernel_table(torch):
                 isz(dt) * (M * K + K * N) + ep_bytes(hr, M * N) + ep_bytes(hb, M)
                 + isz(odt) * M * N)
 
-    def conv_plans(N, C, H, W, K, f, s):
-        """(bm, bk, bn, split_k) of every variant's plan at one conv."""
+    def conv_plans(N, C, H, W, K, f, s, dtype):
+        """(bm, bk, bn, split_k) of every variant's plan at one conv on
+        operands of ``dtype``."""
         P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
         return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (conv_plan(K, P, C * f * f, v) for v in CONV_VARIANTS)]
+                (conv_plan(K, P, C * f * f, v, getattr(torch, dtype))
+                 for v in CONV_VARIANTS)]
+
+    def f32(t):
+        return None if t is None else t.float()
 
     def conv_ops(sig):
-        N, C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu = sig
+        """(kernel, plain version, library call, plain version in fp32) of a
+        batched conv signature; one image (``conv_im2col``'s signature) where
+        it has no N."""
+        one = len(sig) == 14
+        N, C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu, dt = (
+            (1, *sig) if one else sig)
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
-        x, w = rnd(N, C, H, W), rnd(K, C, f, f, scale=(C * f * f) ** -0.5)
-        ep = dict(bias=rnd(K) if hb else None,
-                  residual=rnd(N, K, oh, ow) if hr else None, relu=relu)
-        return (lambda: conv_im2col_batch(x, w, s, bm=bm, bk=bk, bn=bn,
-                                          split_k=split, **ep),
-                lambda: conv_im2col_batch_plain(x, w, s, **ep),
-                lambda: conv_ref(x, w, s))
+        lead = () if one else (N,)
+        x = rnd(*lead, C, H, W, dtype=dt)
+        w = rnd(K, C, f, f, scale=(C * f * f) ** -0.5, dtype=dt)
+        ep = dict(bias=rnd(K, dtype=hb) if hb else None,
+                  residual=rnd(*lead, K, oh, ow, dtype=hr) if hr else None,
+                  relu=relu)
+        ep32 = dict(bias=f32(ep["bias"]), residual=f32(ep["residual"]), relu=relu)
+        kern, plain = ((conv_im2col, conv_im2col_plain) if one
+                       else (conv_im2col_batch, conv_im2col_batch_plain))
+        return (lambda: kern(x, w, s, bm=bm, bk=bk, bn=bn, split_k=split, **ep),
+                lambda: plain(x, w, s, **ep),
+                lambda: conv_ref(x[None] if one else x, w, s),
+                lambda: plain(x.float(), w.float(), s, **ep32))
 
     def conv_work(sig):
-        """FLOPs, and bytes counting only the rows and columns of x that
-        some window reads (a 1x1 s2 conv reads a quarter of x)."""
-        N, C, H, W, K, f, s, *_, hb, hr, relu = sig
+        """FLOPs, and bytes at the signature's dtypes counting only the rows
+        and columns of x that some window reads (a 1x1 s2 conv reads a
+        quarter of x)."""
+        N, C, H, W, K, f, s, *_, hb, hr, relu, dt = sig
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
         rows, cols = ((o * f if f < s else (o - 1) * s + f) for o in (oh, ow))
         P = N * oh * ow
-        return (2 * P * K * C * f * f + P * K * (hb + hr + relu),
-                4 * (N * C * rows * cols + K * C * f * f + P * K * (1 + hr)
-                     + K * hb))
+        return (2 * P * K * C * f * f + P * K * (bool(hb) + bool(hr) + relu),
+                isz(dt) * (N * C * rows * cols + K * C * f * f + P * K)
+                + ep_bytes(hr, P * K) + ep_bytes(hb, K))
 
-    def wino_plans(K, C, T, batch):
+    def wino_plans(K, C, T, batch, dtype):
         """(bm, bk, bn, split_k) of every wino-* and mm-* plan at one
-        point-GEMM shape, ``batch`` = images x points."""
+        point-GEMM shape, ``batch`` = images x points, on operands of
+        ``dtype``."""
         return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (wino_plan(K, T, C, batch, v)
+                (wino_plan(K, T, C, batch, v, getattr(torch, dtype))
                  for v in (*WINO_VARIANTS, *MM_VARIANTS))]
 
     def wino_ops(sig):
-        N, P, K, C, T, bm, bk, bn, split = sig
-        u, v = rnd(P, K, C, scale=C ** -0.5), rnd(N, P, C, T)
-        return (lambda: winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn,
-                                                  split_k=split),
-                lambda: winograd_point_gemm_batch_plain(u, v),
-                lambda: point_gemm_ref(u, v))
+        """(kernel, plain version, library call, plain version in fp32) of a
+        batched point-GEMM signature; one image (``winograd_point_gemm``'s
+        signature) where it has no N."""
+        one = len(sig) == 9
+        N, P, K, C, T, bm, bk, bn, split, dt = (1, *sig) if one else sig
+        u = rnd(P, K, C, scale=C ** -0.5, dtype=dt)
+        v = rnd(P, C, T, dtype=dt) if one else rnd(N, P, C, T, dtype=dt)
+        kern, plain = ((winograd_point_gemm, winograd_point_gemm_plain) if one
+                       else (winograd_point_gemm_batch, winograd_point_gemm_batch_plain))
+        return (lambda: kern(u, v, bm=bm, bk=bk, bn=bn, split_k=split),
+                lambda: plain(u, v),
+                lambda: point_gemm_ref(u, v),
+                lambda: plain(u.float(), v.float()))
 
     def wino_work(sig):
         N, P, K, C, T = sig[:5]
-        return 2 * N * P * K * C * T, 4 * (P * K * C + N * P * C * T + N * P * K * T)
+        return (2 * N * P * K * C * T,
+                isz(sig[-1]) * (P * K * C + N * P * C * T + N * P * K * T))
 
     def mmb_ops(sig):
         (B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu, route,
@@ -3826,25 +3952,6 @@ def kernel_table(torch):
         return (2 * B * M * K * N + B * M * N * (bool(hb) + bool(hr) + relu),
                 isz(dt) * ((1 if x_bcast else B) * M * K + (1 if y_bcast else B) * K * N)
                 + ep_bytes(hr, B * M * N) + ep_bytes(hb, M) + isz(odt) * B * M * N)
-
-    def conv1_ops(sig):
-        C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu = sig
-        oh, ow = (H - f) // s + 1, (W - f) // s + 1
-        x, w = rnd(C, H, W), rnd(K, C, f, f, scale=(C * f * f) ** -0.5)
-        ep = dict(bias=rnd(K) if hb else None,
-                  residual=rnd(K, oh, ow) if hr else None, relu=relu)
-        return (lambda: conv_im2col(x, w, s, bm=bm, bk=bk, bn=bn,
-                                    split_k=split, **ep),
-                lambda: conv_im2col_plain(x, w, s, **ep),
-                lambda: conv_ref(x[None], w, s))
-
-    def wino1_ops(sig):
-        P, K, C, T, bm, bk, bn, split = sig
-        u, v = rnd(P, K, C, scale=C ** -0.5), rnd(P, C, T)
-        return (lambda: winograd_point_gemm(u, v, bm=bm, bk=bk, bn=bn,
-                                            split_k=split),
-                lambda: winograd_point_gemm_plain(u, v),
-                lambda: point_gemm_ref(u, v))
 
     def nnz(m, which):
         """Nonzero entries of F(mxm, 3x3)'s A^T (0) or B^T (2): the products
@@ -3965,15 +4072,16 @@ def kernel_table(torch):
         "conv_im2col_batch": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:155",
-            ops=conv_ops, work=conv_work, flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:7], *p, *e) for p in conv_plans(*s[:7])
-                             for e in eps]),
+            ops=conv_ops, work=conv_work, flops_s=lambda s: tc_rate(s[-1]),
+            sweep=lambda s: [(*s[:7], *p, *e, s[-1])
+                             for p in conv_plans(*s[:7], s[-1])
+                             for e in mm_eps(s[-1])]),
         "winograd_point_gemm_batch": dict(
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/winograd.py:77",
-            ops=wino_ops, work=wino_work, flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:5], *p) for p in
-                             wino_plans(*s[2:5], s[0] * s[1])]),
+            ops=wino_ops, work=wino_work, flops_s=lambda s: tc_rate(s[-1]),
+            sweep=lambda s: [(*s[:5], *p, s[-1]) for p in
+                             wino_plans(*s[2:5], s[0] * s[1], s[-1])]),
         "winograd_input_transform": dict(
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/ops.py:97",
@@ -3994,16 +4102,18 @@ def kernel_table(torch):
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:76",
-            ops=conv1_ops, flops_s=TF32_FLOPS / 3,
+            ops=conv_ops, flops_s=lambda s: tc_rate(s[-1]),
             work=lambda s: conv_work((1, *s)),
-            sweep=lambda s: [(*s[:6], *p, *e) for p in conv_plans(1, *s[:6])
-                             for e in eps]),
+            sweep=lambda s: [(*s[:6], *p, *e, s[-1])
+                             for p in conv_plans(1, *s[:6], s[-1])
+                             for e in mm_eps(s[-1])]),
         "winograd_point_gemm": dict(
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/winograd.py:36",
-            ops=wino1_ops, work=lambda s: wino_work((1, *s)),
-            flops_s=TF32_FLOPS / 3,
-            sweep=lambda s: [(*s[:4], *p) for p in wino_plans(*s[1:4], s[0])]),
+            ops=wino_ops, work=lambda s: wino_work((1, *s)),
+            flops_s=lambda s: tc_rate(s[-1]),
+            sweep=lambda s: [(*s[:4], *p, s[-1])
+                             for p in wino_plans(*s[1:4], s[0], s[-1])]),
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:62",

@@ -3,11 +3,11 @@
 **Build.** The CUDA sources in ``src/repro_torch/csrc/*.cu`` are compiled by
 ``nvcc`` for ``sm_90a`` into shared libraries with a plain C interface
 (``LIBRARIES``), under ``build/kernels/`` at the repository root, and loaded
-with ``ctypes``. ``matmul.cu`` and ``flash_attention.cu`` build once per
-operand dtype (``-DRT_FP32`` / ``-DRT_BF16`` keep one dtype's entry points,
-so only that dtype's templates are instantiated), the other sources once
-(``matmul_wgmma.cu`` and ``flash_wgmma.cu``, the bf16 matmul's and flash
-attention's wgmma routes, among them).
+with ``ctypes``. ``matmul.cu``, ``im2col_gemm.cu``, ``winograd.cu`` and
+``flash_attention.cu`` build once per operand dtype (``-DRT_FP32`` /
+``-DRT_BF16`` keep one dtype's entry points, so only that dtype's templates
+are instantiated), the other sources once (``matmul_wgmma.cu`` and
+``flash_wgmma.cu``, the bf16 matmul's and flash attention's wgmma routes).
 The build happens at first use (or by calling ``build_kernels()``): one
 ``nvcc`` process per library, all started together. A library's file name
 carries a digest of its source, the shared headers and the flags, so an
@@ -21,17 +21,19 @@ loaded or launched raises :class:`KernelError`, so a caller (the serving
 core) can tell it from any other failure and never serve around it.
 
 **Dtypes.** ``DTYPES[name]`` is what a kernel takes: fp32 everywhere, and
-bf16 too for ``matmul``, ``matmul_batch`` and ``flash_attention`` (the
-dtypes the reference's kernels run at; fp16 is not ported). The operands
-of one call share a dtype; a matmul's bias and residual each have that
-dtype or fp32, the type its epilogue computes in. ``on_cpu`` raises
-``TypeError`` on anything else: no kernel converts an operand quietly.
+bf16 too for the seven that port the reference's Pallas kernels (the two
+matmuls, the two convs, the two Winograd point-GEMMs, flash attention: the
+dtypes those run at; fp16 is not ported). The Winograd transforms take fp32 only, as the
+reference computes them in fp32. The operands of one call share a dtype; a
+bias and residual each have that dtype or fp32, the type the epilogue
+computes in. ``on_cpu`` raises ``TypeError`` on anything else: no kernel
+converts an operand quietly.
 
 **Counters.** ``LAUNCHES[name]`` grows by one each time a wrapper launches
 its kernel, and nowhere else; ``SEEN[name]`` counts the launches per call
 signature (shapes, tile, epilogue flags, and the dtypes of the kernels that
-take more than one: a matmul's bias and residual appear as their dtype's
-name, or False), so a run can replay the exact shapes and dtypes its main
+take more than one: a bias and residual appear as their dtype's name, or
+False), so a run can replay the exact shapes and dtypes its main
 path gave a kernel. ``reset_launches()`` clears both.
 """
 from __future__ import annotations
@@ -62,7 +64,9 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # the operand dtypes each kernel takes (fp32 unless listed)
 DTYPES: Dict[str, Tuple[torch.dtype, ...]] = {
     k: (torch.float32, torch.bfloat16)
-    for k in ("matmul", "matmul_batch", "flash_attention")}
+    for k in ("matmul", "matmul_batch", "conv_im2col", "conv_im2col_batch",
+              "winograd_point_gemm", "winograd_point_gemm_batch",
+              "flash_attention")}
 SEEN: Dict[str, Counter] = {k: Counter() for k in KERNELS}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -72,8 +76,10 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "matmul": ("matmul", ("-DRT_FP32",)),
     "matmul_bf16": ("matmul", ("-DRT_BF16",)),
     "matmul_wgmma": ("matmul_wgmma", ()),
-    "im2col_gemm": ("im2col_gemm", ()),
-    "winograd": ("winograd", ()),
+    "im2col_gemm": ("im2col_gemm", ("-DRT_FP32",)),
+    "im2col_gemm_bf16": ("im2col_gemm", ("-DRT_BF16",)),
+    "winograd": ("winograd", ("-DRT_FP32",)),
+    "winograd_bf16": ("winograd", ("-DRT_BF16",)),
     "flash_attention": ("flash_attention", ("-DRT_FP32",)),
     "flash_attention_bf16": ("flash_attention", ("-DRT_BF16",)),
     "flash_wgmma": ("flash_wgmma", ()),
@@ -251,6 +257,18 @@ def dtype_name(dtype: torch.dtype) -> str:
     """``torch.bfloat16`` -> ``"bfloat16"``: the dtype as a launch signature
     records it."""
     return str(dtype).removeprefix("torch.")
+
+
+def ep_name(t: Optional[torch.Tensor]):
+    """A bias or residual as a launch signature records it: its dtype's
+    name, or False where the call has none."""
+    return False if t is None else dtype_name(t.dtype)
+
+
+def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` widened to fp32 (itself if it is fp32), None where it is None:
+    what a plain version computes on, as the kernels widen bf16 operands."""
+    return None if t is None else t.float()
 
 
 def check_int32(name: str, **values: int) -> None:

@@ -1,7 +1,12 @@
 """Implicit-GEMM valid convolution with a fused bias -> residual -> ReLU
-epilogue, on the tensor cores at fp32 accuracy (3xTF32): the port of the
-Pallas kernels ``repro.kernels.im2col_gemm.im2col_gemm.conv_im2col_batch``
-and ``conv_im2col`` (one image).
+epilogue, on the tensor cores: the port of the Pallas kernels
+``repro.kernels.im2col_gemm.im2col_gemm.conv_im2col_batch`` and
+``conv_im2col`` (one image), with their dtype contract. ``x`` and ``w`` are
+fp32 (run at fp32 accuracy, 3xTF32) or bf16 (bf16 tensor-core products),
+both of one dtype; bias and residual each have that dtype or fp32. The sum
+is fp32, the epilogue runs on it in fp32, widening bias and residual, and
+the output is stored once in x's dtype, as the reference's fused kernel
+does.
 
 ``conv_im2col_batch`` and ``conv_im2col`` launch ``csrc/im2col_gemm.cu`` for
 CUDA tensors — each CTA gathers its slice of the patch matrix into shared
@@ -10,10 +15,12 @@ memory — and compute ``conv_im2col_batch_plain`` / ``conv_im2col_plain``
 (explicit patch matrix + matmul) for CPU tensors. The caller names the
 launch plan: a CTA tile ``(bm, bk, bn)`` that the source instantiates
 (``TILE_M`` x ``TILE_K`` x ``TILE_N``) and ``split_k``, the number of slices
-the C*f*f reduction is cut into (``ops.cta_plan`` chooses both per shape).
-With ``split_k > 1`` each slice writes its partial sum to a workspace
-allocated here, and a second kernel adds the slices in a fixed order and
-applies the epilogue once; the launch still counts once.
+the C*f*f reduction is cut into (``ops.cta_plan`` chooses both per shape
+and dtype: a bf16 tile is ``TILE_K_BF16`` deep). With ``split_k > 1`` each
+slice writes its fp32 partial sum to a workspace allocated here, and a
+second kernel adds the slices in a fixed order and applies the epilogue
+once; the launch still counts once. The launch signature ends with the
+dtypes: bias and residual as their dtype's name (or False), then x's.
 """
 from __future__ import annotations
 
@@ -22,15 +29,27 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import (bind, check_int32, check_launch,
-                                        check_plan, count_launch, epilogue,
-                                        on_cpu, ptr, stream_of)
+from repro_torch.kernels.common import (as_f32, bind, check_int32,
+                                        check_launch, check_plan,
+                                        count_launch, dtype_name, ep_name,
+                                        epilogue, on_cpu, ptr, stream_of)
 
-# CTA tile sizes csrc/im2col_gemm.cu instantiates (RT_FOR_EACH_CONV_TILE):
-# every BM of TILE_M with every BN of TILE_N and every BK of TILE_K
+# CTA tile sizes csrc/im2col_gemm.cu instantiates (RT_FOR_EACH_CONV_TILE,
+# RT_FOR_EACH_CONV_BF16_TILE): every BM of TILE_M with every BN of TILE_N
+# and every BK of TILE_K (fp32) or TILE_K_BF16 (bf16: a stage of the same
+# bytes)
 TILE_M = (16, 32, 64, 128)
 TILE_N = (8, 32, 64)
 TILE_K = (16,)
+TILE_K_BF16 = (32,)
+# operand dtype -> (library, suffix of its C entry points)
+_LIB = {torch.float32: ("im2col_gemm", "f32"),
+        torch.bfloat16: ("im2col_gemm_bf16", "bf16")}
+
+
+def tile_k(dtype: torch.dtype) -> tuple:
+    """The K depths instantiated for operands of ``dtype``."""
+    return TILE_K_BF16 if dtype == torch.bfloat16 else TILE_K
 
 
 def _check_sizes(name: str, N: int, C: int, H: int, W: int, K: int, f: int,
@@ -46,13 +65,15 @@ def conv_im2col_batch_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *
                             bias: Optional[torch.Tensor] = None,
                             residual: Optional[torch.Tensor] = None,
                             relu: bool = False) -> torch.Tensor:
-    """Explicit (c, a, b)-ordered patch matrix, one matmul, then the epilogue."""
+    """Explicit (c, a, b)-ordered patch matrix, one matmul, then the
+    epilogue, all in fp32 on the operands' values; one cast to x's dtype."""
     N, C, H, W = x.shape
     K, _, f, _ = w.shape
     oh, ow = (H - f) // stride + 1, (W - f) // stride + 1
-    cols = F.unfold(x, f, stride=stride)                 # (N, C*f*f, oh*ow)
-    y = (w.reshape(K, -1) @ cols).reshape(N, K, oh, ow)
-    return epilogue(y, bias, residual, relu, channel_axis=1)
+    cols = F.unfold(x.float(), f, stride=stride)         # (N, C*f*f, oh*ow)
+    y = (w.float().reshape(K, -1) @ cols).reshape(N, K, oh, ow)
+    y = epilogue(y, as_f32(bias), as_f32(residual), relu, channel_axis=1)
+    return y.to(x.dtype)
 
 
 def _conv(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
@@ -75,36 +96,42 @@ def _conv(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
     if residual is not None and tuple(residual.shape) != shape:
         raise ValueError(f"{name}: residual {tuple(residual.shape)} != {shape}")
     bm, bk, bn, split_k = plan
-    check_plan(name, C * f * f, bm, bk, bn, split_k, TILE_M, TILE_K, TILE_N)
+    check_plan(name, C * f * f, bm, bk, bn, split_k, TILE_M, tile_k(x.dtype),
+               TILE_N)
     _check_sizes(name, N, C, H, W, K, f, stride, oh, ow)
-    if on_cpu(name, x, w, bias, residual):
+    if on_cpu(name, x, w, epilogue=(bias, residual)):
         return plain(x, w, stride, bias=bias, residual=residual, relu=relu)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
     ws = (torch.empty((split_k, *shape), dtype=torch.float32, device=x.device)
           if split_k > 1 else None)
     sizes = (C, H, W, K, f, stride) if one else (N, C, H, W, K, f, stride)
-    fn = bind("im2col_gemm", "rt_conv_im2col_f32" if one
-              else "rt_conv_im2col_batch_f32", 6, len(sizes) + 7)
+    lib, suffix = _LIB[x.dtype]
+    fn = bind(lib, f"rt_conv_im2col_{suffix}" if one
+              else f"rt_conv_im2col_batch_{suffix}", 6, len(sizes) + 9)
     check_launch(name, fn(ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(out),
                           ptr(ws), *sizes, oh, ow, int(relu), bm, bn, bk,
-                          split_k, stream_of(x)))
-    count_launch(name, (*sizes, bm, bk, bn, split_k, bias is not None,
-                        residual is not None, bool(relu)))
+                          split_k, *(int(ep_name(t) == "bfloat16")
+                                     for t in (bias, residual)),
+                          stream_of(x)))
+    count_launch(name, (*sizes, bm, bk, bn, split_k, ep_name(bias),
+                        ep_name(residual), bool(relu), dtype_name(x.dtype)))
     return out
 
 
 def conv_im2col_batch(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
-                      bm: int = 128, bk: int = 16, bn: int = 64,
+                      bm: int = 128, bk: Optional[int] = None, bn: int = 64,
                       split_k: int = 1, bias: Optional[torch.Tensor] = None,
                       residual: Optional[torch.Tensor] = None,
                       relu: bool = False) -> torch.Tensor:
-    """x (N, C, H, W), w (K, C, f, f) -> (N, K, oh, ow), valid padding, the
-    epilogue applied once to the full sum. ``bias`` is (K,), ``residual`` is
-    (N, K, oh, ow). The CTA tile covers ``bm`` output channels by ``bn``
-    output pixels (batch folded in), with a reduction depth of ``bk`` patch
-    rows; ``split_k`` slices of the C*f*f reduction run side by side."""
+    """x (N, C, H, W), w (K, C, f, f) -> (N, K, oh, ow) in x's dtype, valid
+    padding, the epilogue applied once to the full fp32 sum. ``bias`` is
+    (K,), ``residual`` is (N, K, oh, ow). The CTA tile covers ``bm`` output
+    channels by ``bn`` output pixels (batch folded in), with a reduction
+    depth of ``bk`` patch rows (default: the dtype's instantiated depth);
+    ``split_k`` slices of the C*f*f reduction run side by side."""
     if x.dim() != 4:
         raise ValueError(f"conv_im2col_batch: x {tuple(x.shape)} is not 4-D")
+    bk = tile_k(x.dtype)[0] if bk is None else bk
     return _conv("conv_im2col_batch", x, w, stride, (bm, bk, bn, split_k),
                  bias, residual, relu, conv_im2col_batch_plain)
 
@@ -114,27 +141,31 @@ def conv_im2col_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
                       residual: Optional[torch.Tensor] = None,
                       relu: bool = False) -> torch.Tensor:
     """One image: explicit (c, a, b)-ordered (C*f*f, oh*ow) patch matrix, one
-    matmul, then the epilogue."""
+    matmul, then the epilogue, all in fp32 on the operands' values; one
+    cast to x's dtype."""
     C, H, W = x.shape
     K, _, f, _ = w.shape
     oh, ow = (H - f) // stride + 1, (W - f) // stride + 1
-    cols = F.unfold(x[None], f, stride=stride)[0]        # (C*f*f, oh*ow)
-    y = (w.reshape(K, -1) @ cols).reshape(K, oh, ow)
-    return epilogue(y, bias, residual, relu, channel_axis=0)
+    cols = F.unfold(x.float()[None], f, stride=stride)[0]  # (C*f*f, oh*ow)
+    y = (w.float().reshape(K, -1) @ cols).reshape(K, oh, ow)
+    y = epilogue(y, as_f32(bias), as_f32(residual), relu, channel_axis=0)
+    return y.to(x.dtype)
 
 
 def conv_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
-                bm: int = 128, bk: int = 16, bn: int = 64, split_k: int = 1,
-                bias: Optional[torch.Tensor] = None,
+                bm: int = 128, bk: Optional[int] = None, bn: int = 64,
+                split_k: int = 1, bias: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None,
                 relu: bool = False) -> torch.Tensor:
-    """x (C, H, W), w (K, C, f, f) -> (K, oh, ow), valid padding, the
-    epilogue applied once to the full sum. ``bias`` is (K,), ``residual`` is
-    (K, oh, ow), read in place (the TPU kernel transposes it to (oh, K, ow)
-    for its row grid). The CTA tile covers ``bm`` output channels by ``bn``
-    output pixels with a reduction depth of ``bk`` patch rows; ``split_k``
-    slices of the C*f*f reduction run side by side."""
+    """x (C, H, W), w (K, C, f, f) -> (K, oh, ow) in x's dtype, valid
+    padding, the epilogue applied once to the full fp32 sum. ``bias`` is
+    (K,), ``residual`` is (K, oh, ow), read in place (the TPU kernel
+    transposes it to (oh, K, ow) for its row grid). The CTA tile covers
+    ``bm`` output channels by ``bn`` output pixels with a reduction depth
+    of ``bk`` patch rows (default: the dtype's instantiated depth);
+    ``split_k`` slices of the C*f*f reduction run side by side."""
     if x.dim() != 3:
         raise ValueError(f"conv_im2col: x {tuple(x.shape)} is not 3-D")
+    bk = tile_k(x.dtype)[0] if bk is None else bk
     return _conv("conv_im2col", x, w, stride, (bm, bk, bn, split_k), bias,
                  residual, relu, conv_im2col_plain)

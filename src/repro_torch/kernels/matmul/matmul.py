@@ -35,8 +35,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (bind, check_int32, check_launch,
-                                        check_plan, count_launch, dtype_name,
+from repro_torch.kernels.common import (as_f32, bind, check_int32,
+                                        check_launch, check_plan,
+                                        count_launch, dtype_name, ep_name,
                                         epilogue, on_cpu, ptr, stream_of)
 from repro_torch.kernels.common import cta_warps  # noqa: F401  (re-exported)
 
@@ -128,12 +129,6 @@ def _out_dtype(name: str, x: torch.Tensor, out_dtype) -> torch.dtype:
     return out_dtype
 
 
-def _ep(t: Optional[torch.Tensor]):
-    """An epilogue tensor as a launch signature records it: its dtype's
-    name, or False where the call has none."""
-    return False if t is None else dtype_name(t.dtype)
-
-
 def _bf16(out_dtype, bias, residual) -> tuple:
     """The entry points' flags (out_bf16, bias_bf16, res_bf16)."""
     ep = [None if t is None else t.dtype for t in (bias, residual)]
@@ -143,8 +138,8 @@ def _bf16(out_dtype, bias, residual) -> tuple:
 def _plain(x, y, bias, residual, relu, out_dtype, channel_axis):
     """The product in fp32 on the operands' values, the epilogue in fp32,
     one cast to ``out_dtype`` (or the operands' dtype)."""
-    f = lambda t: None if t is None else t.float()  # noqa: E731
-    out = epilogue(f(x) @ f(y), f(bias), f(residual), relu, channel_axis)
+    out = epilogue(as_f32(x) @ as_f32(y), as_f32(bias), as_f32(residual),
+                   relu, channel_axis)
     return out.to(x.dtype if out_dtype is None else out_dtype)
 
 
@@ -197,8 +192,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
                  M, N, K, int(relu), bm, bn, bk, split_k,
                  *_bf16(out_dtype, bias, residual), stream_of(x))
     check_launch("matmul", err)
-    count_launch("matmul", (M, K, N, bm, bk, bn, split_k, _ep(bias),
-                            _ep(residual), bool(relu), route, stages,
+    count_launch("matmul", (M, K, N, bm, bk, bn, split_k, ep_name(bias),
+                            ep_name(residual), bool(relu), route, stages,
                             dtype_name(x.dtype), dtype_name(out_dtype)))
     return out
 
@@ -274,7 +269,7 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
                  *_bf16(out_dtype, bias, residual), sx, sy, stream_of(x))
     check_launch("matmul_batch", err)
     count_launch("matmul_batch", (B, M, K, N, sx == 0, sy == 0, bm, bk, bn,
-                                  split_k, _ep(bias), _ep(residual),
+                                  split_k, ep_name(bias), ep_name(residual),
                                   bool(relu), route, stages,
                                   dtype_name(x.dtype), dtype_name(out_dtype)))
     return out

@@ -1,9 +1,12 @@
 """Winograd F(mxm, 3x3) kernels: the point-GEMM ``M[n, p] = U[p] @ V[n, p]``,
 the port of the Pallas kernels
 ``repro.kernels.winograd.winograd.winograd_point_gemm_batch`` and
-``winograd_point_gemm`` (one image), on the tensor cores at fp32 accuracy
-(3xTF32); and the input and inverse transforms around it, which the
-reference leaves to XLA.
+``winograd_point_gemm`` (one image), on the tensor cores, with their dtype
+contract: fp32 u and v at fp32 accuracy (3xTF32), or bf16 u and v (bf16
+tensor-core products, fp32 sums), M stored once in u's dtype, as the
+reference's kernels store it from their fp32 VMEM accumulator; and the
+input and inverse transforms around it, which the reference leaves to XLA
+and computes in fp32 (they take fp32 only).
 
 For CUDA tensors each wrapper launches its kernel in ``csrc/winograd.cu``;
 for CPU tensors it computes its plain version (``*_plain``), the same
@@ -12,11 +15,12 @@ function in plain torch.
 - ``winograd_point_gemm_batch`` / ``winograd_point_gemm``: U is shared
   across the batch and read in place, never copied per image. The caller
   names the launch plan, a CTA tile ``(bm, bk, bn)`` the source
-  instantiates (``TILE_M`` x ``TILE_K`` x ``TILE_N``) and ``split_k``, the
-  number of slices of the C reduction (``ops.cta_plan`` chooses both per
-  shape). With ``split_k > 1`` each slice writes its partial sum to a
-  workspace allocated here and a second kernel adds the slices in a fixed
-  order; the launch still counts once.
+  instantiates (``TILE_M`` x ``TILE_K`` x ``TILE_N``, ``TILE_K_BF16`` deep
+  for bf16) and ``split_k``, the number of slices of the C reduction
+  (``ops.cta_plan`` chooses both per shape and dtype). With ``split_k > 1``
+  each slice writes its fp32 partial sum to a workspace allocated here and
+  a second kernel adds the slices in a fixed order; the launch still counts
+  once. The launch signature ends with the operands' dtype.
 - ``winograd_input_transform``: x (N, C, H, W) -> V (N, n², C, T), one
   pass over x, zero past its edges.
 - ``winograd_inverse_transform``: M (N, n², K, T) -> y (N, K, oh, ow), with
@@ -31,15 +35,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import (bind, check_int32, check_launch,
-                                        check_plan, count_launch, epilogue,
-                                        on_cpu, ptr, stream_of)
+                                        check_plan, count_launch, dtype_name,
+                                        epilogue, on_cpu, ptr, stream_of)
 from repro_torch.primitives.conv import _WINO_SETS
 
-# CTA tile sizes csrc/winograd.cu instantiates (RT_FOR_EACH_WINO_TILE):
-# every BM of TILE_M with every BN of TILE_N and every BK of TILE_K
+# CTA tile sizes csrc/winograd.cu instantiates (RT_FOR_EACH_WINO_TILE,
+# RT_FOR_EACH_WINO_BF16_TILE): every BM of TILE_M with every BN of TILE_N
+# and every BK of TILE_K (fp32) or TILE_K_BF16 (bf16: a stage of the same
+# bytes)
 TILE_M = (16, 32, 64, 128)
 TILE_N = (8, 32, 64, 128)
 TILE_K = (16, 32)
+TILE_K_BF16 = (32, 64)
+# operand dtype -> (library, suffix of its C entry points)
+_LIB = {torch.float32: ("winograd", "f32"),
+        torch.bfloat16: ("winograd_bf16", "bf16")}
 TILE_SIZES = (2, 4)             # the output tile m of the F(mxm, 3x3) kernels
 
 
@@ -47,16 +57,24 @@ TILE_SIZES = (2, 4)             # the output tile m of the F(mxm, 3x3) kernels
 # Point-GEMM
 # ---------------------------------------------------------------------------
 
+def tile_k(dtype: torch.dtype) -> tuple:
+    """The K (channel) depths instantiated for operands of ``dtype``."""
+    return TILE_K_BF16 if dtype == torch.bfloat16 else TILE_K
+
+
 def winograd_point_gemm_batch_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u (P, K, C), v (N, P, C, T) -> (N, P, K, T), contiguous as the
-    kernel's output."""
-    return torch.einsum("pkc,npct->npkt", u, v).contiguous()
+    kernel's output: in fp32 on the operands' values, one cast to u's
+    dtype."""
+    y = torch.einsum("pkc,npct->npkt", u.float(), v.float())
+    return y.to(u.dtype).contiguous()
 
 
 def winograd_point_gemm_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u (P, K, C), v (P, C, T) -> (P, K, T), contiguous as the kernel's
-    output."""
-    return torch.einsum("pkc,pct->pkt", u, v).contiguous()
+    output: in fp32 on the operands' values, one cast to u's dtype."""
+    y = torch.einsum("pkc,pct->pkt", u.float(), v.float())
+    return y.to(u.dtype).contiguous()
 
 
 def _point_gemm(name: str, u: torch.Tensor, v: torch.Tensor, plan: tuple,
@@ -71,30 +89,33 @@ def _point_gemm(name: str, u: torch.Tensor, v: torch.Tensor, plan: tuple,
     if (P, C) != (P2, C2):
         raise ValueError(f"{name}: u {tuple(u.shape)} v {tuple(v.shape)}")
     bm, bk, bn, split_k = plan
-    check_plan(name, C, bm, bk, bn, split_k, TILE_M, TILE_K, TILE_N)
+    bk = tile_k(u.dtype)[0] if bk is None else bk
+    check_plan(name, C, bm, bk, bn, split_k, TILE_M, tile_k(u.dtype), TILE_N)
     check_int32(name, N=N, P=P, K=K, C=C, T=T)
     if on_cpu(name, u, v):
         return plain(u, v)
     shape = (P, K, T) if one else (N, P, K, T)
-    out = torch.empty(shape, dtype=torch.float32, device=u.device)
+    out = torch.empty(shape, dtype=u.dtype, device=u.device)
     ws = (torch.empty((split_k, *shape), dtype=torch.float32, device=u.device)
           if split_k > 1 else None)
     sizes = (P, K, C, T) if one else (N, P, K, C, T)
-    fn = bind("winograd", "rt_winograd_point_gemm_f32" if one
-              else "rt_winograd_point_gemm_batch_f32", 4, len(sizes) + 4)
+    lib, suffix = _LIB[u.dtype]
+    fn = bind(lib, f"rt_winograd_point_gemm_{suffix}" if one
+              else f"rt_winograd_point_gemm_batch_{suffix}", 4, len(sizes) + 4)
     check_launch(name, fn(ptr(u), ptr(v), ptr(out), ptr(ws), *sizes, bm, bn,
                           bk, split_k, stream_of(u)))
-    count_launch(name, (*sizes, bm, bk, bn, split_k))
+    count_launch(name, (*sizes, bm, bk, bn, split_k, dtype_name(u.dtype)))
     return out
 
 
 def winograd_point_gemm_batch(u: torch.Tensor, v: torch.Tensor, *,
-                              bm: int = 64, bk: int = 16, bn: int = 64,
-                              split_k: int = 1) -> torch.Tensor:
+                              bm: int = 64, bk: Optional[int] = None,
+                              bn: int = 64, split_k: int = 1) -> torch.Tensor:
     """u (P, K, C) shared weights, v (N, P, C, T) batched input transform ->
-    (N, P, K, T). The CTA tile covers ``bm`` of K by ``bn`` of T with a
-    reduction depth of ``bk`` channels; one CTA column per (n, p, slice),
-    the images of one point p next to each other on the grid."""
+    (N, P, K, T) in u's dtype. The CTA tile covers ``bm`` of K by ``bn`` of
+    T with a reduction depth of ``bk`` channels (default: the dtype's
+    shallowest instantiated depth); one CTA column per (n, p, slice), the
+    images of one point p next to each other on the grid."""
     if v.dim() != 4:
         raise ValueError(f"winograd_point_gemm_batch: v {tuple(v.shape)} is "
                          f"not 4-D")
@@ -103,11 +124,12 @@ def winograd_point_gemm_batch(u: torch.Tensor, v: torch.Tensor, *,
 
 
 def winograd_point_gemm(u: torch.Tensor, v: torch.Tensor, *, bm: int = 64,
-                        bk: int = 16, bn: int = 64,
+                        bk: Optional[int] = None, bn: int = 64,
                         split_k: int = 1) -> torch.Tensor:
-    """u (P, K, C), v (P, C, T) -> (P, K, T): one image's P point-GEMMs. The
-    CTA tile covers ``bm`` of K by ``bn`` of T with a reduction depth of
-    ``bk`` channels; one CTA column per (p, slice)."""
+    """u (P, K, C), v (P, C, T) -> (P, K, T) in u's dtype: one image's P
+    point-GEMMs. The CTA tile covers ``bm`` of K by ``bn`` of T with a
+    reduction depth of ``bk`` channels (default: the dtype's shallowest
+    instantiated depth); one CTA column per (p, slice)."""
     if v.dim() != 3:
         raise ValueError(f"winograd_point_gemm: v {tuple(v.shape)} is not 3-D")
     return _point_gemm("winograd_point_gemm", u, v, (bm, bk, bn, split_k),

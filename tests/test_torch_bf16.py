@@ -1,7 +1,8 @@
 """The kernels' bfloat16 contract against the JAX reference, on the CPU:
 ``matmul``, ``matmul_batch`` and ``flash_attention`` take bf16 operands,
 compute in fp32 and store ``out_dtype`` (matmul; default the operands'
-dtype) or q's dtype (attention), as the reference's Pallas kernels do.
+dtype) or q's dtype (attention), as the reference's Pallas kernels do (the
+convs and the Winograd point-GEMMs: ``tests/test_torch_bf16_conv.py``).
 
 Inputs are numpy normals from a seed, rounded once to bf16; the same bf16
 values go through the reference in interpret mode and through the port's
@@ -18,9 +19,11 @@ on outputs up to 3.2, and 3.9e-2 on fp32 logits up to 3.1).
 Also: an fp32 bias and residual on bf16 operands (the reference's
 ``_finish`` widens either), ``cta_plan``'s bf16 tile rule,
 ``MeasuredCost``'s dtype, ``chip_smoke.py``'s bf16 check rejecting a wrong
-attention that the 5e-2 tolerance would pass, and the refusals: the conv
-and Winograd kernels take fp32 only, no kernel takes fp16 or operands of
-mixed dtypes (``TypeError``, never a quiet upcast).
+attention that the 5e-2 tolerance would pass, its bf16 phase-5 passes, the
+signatures and bounds of its bf16 conv and point-GEMM rows, and the
+refusals: the Winograd transforms take fp32 only (as the reference's do),
+no kernel takes fp16 or operands of mixed dtypes (``TypeError``, never a
+quiet upcast).
 On the card the bf16 kernels are held to these plain versions in
 ``tests/test_torch_gpu.py`` (``-k bf16``) and ``chip_smoke.py``.
 """
@@ -347,17 +350,23 @@ def _load_chip_smoke():
 
 def test_bf16_entry_paths_hold_their_oracle():
     """Phase 5's bf16 passes at edge_cnn's widths and a small GQA attention:
-    ``matmul_batch_op`` and ``flash_attention_op`` on bf16 operands give
-    bf16 outputs within one bf16 rounding of the fp32 oracle on the same
-    values (each drive asserts it through ``hold_bf16``)."""
+    ``matmul_batch_op``, ``conv_im2col_op``, ``conv_im2col_batch_op``, the
+    two point-GEMMs (on U and V from the transforms, rounded to bf16) and
+    ``flash_attention_op`` on bf16 operands give bf16 outputs within one
+    bf16 rounding of the fp32 oracle on the same values (each drive asserts
+    it through ``hold_bf16``); each path names the kernels it launches."""
     from repro_torch.models import cnn_zoo
     smoke = _load_chip_smoke()
     layers = [l for l in smoke.conv_layers(cnn_zoo.get("edge_cnn"))
               if l[0].split("/")[1] in ("conv0", "exp12", "conv9", "conv10")]
     attention = {"gqa_d64": dict(heads=4, kv_heads=2, head_dim=64, seq=256, causal=True)}
     paths = smoke.bf16_entry_paths("edge_cnn", layers, attention, batch=2)
-    assert [k for k, _ in paths.values()] == ["matmul_batch", "flash_attention"]
-    for _, drive in paths.values():
+    assert [k for k, *_ in paths.values()] == [
+        "matmul_batch", "conv_im2col", "conv_im2col_batch", "winograd_point_gemm",
+        "winograd_point_gemm_batch", "flash_attention"]
+    for kernel, drive, launched in paths.values():
+        assert launched == {kernel, *(("winograd_input_transform",)
+                                      if "point_gemm" in kernel else ())}
         assert np.isfinite(drive(torch, "cpu", np.random.default_rng(0)))
 
 
@@ -386,6 +395,109 @@ def test_bf16_bounds_at_the_bf16_rate():
     assert mm["flops_s"]((*sig, False, False, False, "bfloat16", "float32")) == \
         smoke.BF16_FLOPS
     assert mm["flops_s"](f32) == smoke.TF32_FLOPS / 3
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """The conv and point-GEMM wrappers' launch path on CPU tensors, with a
+    stand-in for each C entry point: every call's (library, symbol, number
+    of arguments bound, arguments) is recorded, and the launch counted as on
+    the card."""
+    from repro_torch.kernels.im2col_gemm import im2col_gemm as conv_mod
+    from repro_torch.kernels.winograd import winograd as wino_mod
+    calls = []
+
+    def bind(lib, symbol, n_ptrs, n_ints):
+        return lambda *args: calls.append((lib, symbol, n_ptrs + n_ints + 1, args)) or 0
+    for mod in (conv_mod, wino_mod):
+        monkeypatch.setattr(mod, "on_cpu", lambda *a, **kw: False)
+        monkeypatch.setattr(mod, "bind", bind)
+        monkeypatch.setattr(mod, "stream_of", lambda t: 0)
+    common.reset_launches()
+    yield calls
+    common.reset_launches()
+
+
+def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
+    """A bf16 conv or point-GEMM launch binds the bf16 library's entry point
+    with as many arguments as it declares, records the operand dtype last
+    (a conv's bias and residual as their dtype's name), and chip_smoke.py
+    reads that dtype (``sig_dtype``) and bounds the signature at 989 TFLOP/s
+    and 2-byte traffic, an fp32 bias at 4 bytes; fp32 launches keep the
+    3xTF32 rate and 4-byte traffic."""
+    smoke = _load_chip_smoke()
+    table = smoke.kernel_table(torch)
+    bf, f32 = torch.bfloat16, torch.float32
+    x, w = torch.zeros(2, 8, 10, 10, dtype=bf), torch.zeros(16, 8, 3, 3, dtype=bf)
+    b, r = torch.zeros(16), torch.zeros(2, 16, 8, 8, dtype=bf)
+    conv_im2col_batch(x, w, 1, bm=16, bn=64, bias=b, residual=r, relu=True)
+    conv_im2col(x[0].float(), w.float(), 1, bm=16, bn=64, split_k=2)
+    u, v = torch.zeros(16, 8, 24, dtype=bf), torch.zeros(2, 16, 24, 9, dtype=bf)
+    winograd_point_gemm_batch(u, v, bm=16, bn=8)
+    winograd_point_gemm(u.float(), v[0].float(), bm=16, bn=8)
+    assert [(lib, sym) for lib, sym, *_ in launched] == [
+        ("im2col_gemm_bf16", "rt_conv_im2col_batch_bf16"),
+        ("im2col_gemm", "rt_conv_im2col_f32"),
+        ("winograd_bf16", "rt_winograd_point_gemm_batch_bf16"),
+        ("winograd", "rt_winograd_point_gemm_f32")]
+    assert all(n == len(args) for *_, n, args in launched)
+    assert launched[0][3][-3:-1] == (0, 1)            # bias fp32, residual bf16
+    (cb,), (c1,) = common.SEEN["conv_im2col_batch"], common.SEEN["conv_im2col"]
+    (wb,), (w1,) = (common.SEEN["winograd_point_gemm_batch"],
+                    common.SEEN["winograd_point_gemm"])
+    assert cb == (2, 8, 10, 10, 16, 3, 1, 16, 32, 64, 1, "float32", "bfloat16",
+                  True, "bfloat16")
+    assert c1 == (8, 10, 10, 16, 3, 1, 16, 16, 64, 2, False, False, False, "float32")
+    assert wb == (2, 16, 8, 24, 9, 16, 32, 8, 1, "bfloat16")
+    assert w1 == (16, 8, 24, 9, 16, 16, 8, 1, "float32")
+    for name, sig, dt in (("conv_im2col_batch", cb, "bfloat16"), ("conv_im2col", c1, "float32"),
+                          ("winograd_point_gemm_batch", wb, "bfloat16"),
+                          ("winograd_point_gemm", w1, "float32")):
+        assert smoke.sig_dtype(name, sig) == dt
+        want = smoke.BF16_FLOPS if dt == "bfloat16" else smoke.TF32_FLOPS / 3
+        assert table[name]["flops_s"](sig) == want
+    P, Pw = 2 * 8 * 8, 2 * 16 * 24 * 9
+    assert table["conv_im2col_batch"]["work"](cb) == (
+        2 * P * 16 * 72 + P * 16 * 3,
+        2 * (2 * 8 * 10 * 10 + 16 * 72 + P * 16) + 4 * 16 + 2 * P * 16)
+    assert table["conv_im2col"]["work"](c1)[1] == 4 * (8 * 100 + 16 * 72 + 64 * 16)
+    assert table["winograd_point_gemm_batch"]["work"](wb) == (
+        2 * 2 * 16 * 8 * 24 * 9, 2 * (16 * 8 * 24 + Pw + 2 * 16 * 8 * 9))
+    assert table["winograd_point_gemm"]["work"](w1)[1] == 4 * (
+        16 * 8 * 24 + 16 * 24 * 9 + 16 * 8 * 9)
+    # the sweep at a bf16 signature stays in bf16: bf16 depths, bf16 or no epilogue
+    sweep = table["conv_im2col_batch"]["sweep"](cb)
+    assert {s[8] for s in sweep} == {32} and {s[-1] for s in sweep} == {"bfloat16"}
+    assert {s[11] for s in sweep} == {False, "bfloat16"}
+    assert {s[6] for s in table["winograd_point_gemm"]["sweep"](
+        (16, 8, 24, 9, 16, 32, 8, 1, "bfloat16"))} <= {32, 64}
+
+
+def test_chip_smoke_served_rows_are_timed_on_served_passes(monkeypatch):
+    """A served kernel's fp32 row in the ``{"kernels": [...]}`` line is
+    timed on the served pass where it does the most work, even where a
+    phase-5 pass of the same dtype (the input transform under the bf16
+    point-GEMM paths) has a larger bound; its bf16 row on its bf16 pass."""
+    smoke = _load_chip_smoke()
+
+    def t(dt, bound):
+        return dict(dtype=dt, ms=2 * bound, plain_ms=3 * bound, bound_ms=bound,
+                    bound_by="bytes", library_ms=None, bound_fp32_ms=bound,
+                    launches=13)
+    passes = {"edge_cnn_mix": t("float32", 0.01), "resnet18_mix": t("float32", 0.17),
+              "phase 5 fp32": t("float32", 0.19), "phase 5 bf16": t("bfloat16", 0.02)}
+    r = {"max_abs_err_by_dtype": {"float32": 1e-5, "bfloat16": 1e-2},
+         "passes": passes, "source": "src/repro_torch/csrc/winograd.cu",
+         "replaces": "x.py:1"}
+    monkeypatch.setattr(smoke, "PATH_DTYPES", {
+        p: {"winograd_point_gemm_batch": {pt["dtype"]: 13}} for p, pt in passes.items()})
+    rows = smoke.kernel_rows({"winograd_point_gemm_batch": r},
+                             dict.fromkeys(passes), {"phase 5 fp32", "phase 5 bf16"},
+                             "card")
+    assert [(row["dtype"], row["timed_on"], row["bound_ms"]) for row in rows] == [
+        ("float32", "resnet18_mix b=8 forward", 0.17),
+        ("bfloat16", "phase 5 bf16", 0.02)]
+    assert [row["launches"] for row in rows] == [39, 13]
 
 
 def _attention_p_parts(q, k, v, parts):
@@ -469,15 +581,23 @@ def test_build_dataset_records_the_cost_dtype(dtype):
 # Refusals
 # ---------------------------------------------------------------------------
 
-def _conv_calls(dt):
-    x, w = torch.zeros(1, 4, 8, 8, dtype=dt), torch.zeros(4, 4, 3, 3, dtype=dt)
-    u, v = torch.zeros(16, 4, 4, dtype=dt), torch.zeros(1, 16, 4, 9, dtype=dt)
+# the conv and Winograd kernels that take bf16 (the ports of Pallas kernels)
+CONV_BF16 = ("conv_im2col", "conv_im2col_batch", "winograd_point_gemm",
+             "winograd_point_gemm_batch")
+
+
+def _conv_calls(dt, dt2=None):
+    """The conv and Winograd kernels with operands of ``dt``, the weights
+    (the point-GEMM's v) of ``dt2`` where given."""
+    dt2 = dt2 or dt
+    x, w = torch.zeros(1, 4, 8, 8, dtype=dt), torch.zeros(4, 4, 3, 3, dtype=dt2)
+    u, v = torch.zeros(16, 4, 4, dtype=dt), torch.zeros(1, 16, 4, 9, dtype=dt2)
     return {
-        "conv_im2col": lambda: conv_im2col(x[0], w, 1, bm=16, bk=16, bn=8),
-        "conv_im2col_batch": lambda: conv_im2col_batch(x, w, 1, bm=16, bk=16, bn=8),
-        "winograd_point_gemm": lambda: winograd_point_gemm(u, v[0], bm=16, bk=16, bn=8),
+        "conv_im2col": lambda: conv_im2col(x[0], w, 1, bm=16, bn=8),
+        "conv_im2col_batch": lambda: conv_im2col_batch(x, w, 1, bm=16, bn=8),
+        "winograd_point_gemm": lambda: winograd_point_gemm(u, v[0], bm=16, bn=8),
         "winograd_point_gemm_batch": lambda: winograd_point_gemm_batch(
-            u, v, bm=16, bk=16, bn=8),
+            u, v, bm=16, bn=8),
         "winograd_input_transform": lambda: winograd_input_transform(x, 2),
         "winograd_inverse_transform": lambda: winograd_inverse_transform(
             torch.zeros(1, 16, 4, 9, dtype=dt), 2, 6, 6),
@@ -499,12 +619,25 @@ def _bf16_calls(dt, dt2=None):
 
 @pytest.mark.parametrize("name", sorted(_conv_calls(torch.float32)))
 def test_conv_and_winograd_kernels_refuse_bf16_and_fp16(name):
-    """fp32 only: a bf16 or fp16 operand raises, never upcast quietly."""
-    _conv_calls(torch.float32)[name]()                 # the fp32 call runs
+    """The two convs and the two point-GEMMs run fp32 and bf16, the output
+    in the operands' dtype, and refuse fp16 and operands of two dtypes; the
+    two Winograd transforms (fp32 in the reference too) refuse bf16 and
+    fp16. A refused operand raises, never upcast quietly."""
+    if name in CONV_BF16:
+        for dt in (torch.float32, torch.bfloat16):
+            assert _conv_calls(dt)[name]().dtype == dt
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            _conv_calls(torch.float16)[name]()
+        for dt, dt2 in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            with pytest.raises(TypeError, match="share a dtype"):
+                _conv_calls(dt, dt2)[name]()
+        assert common.DTYPES[name] == (torch.float32, torch.bfloat16)
+        return
+    assert _conv_calls(torch.float32)[name]().dtype == torch.float32
     for dt in (torch.bfloat16, torch.float16):
         with pytest.raises(TypeError, match="float32"):
             _conv_calls(dt)[name]()
-    assert common.DTYPES.get(name, (torch.float32,)) == (torch.float32,)
+    assert name not in common.DTYPES
 
 
 @pytest.mark.parametrize("name", sorted(_bf16_calls(torch.float32)))

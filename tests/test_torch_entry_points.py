@@ -359,8 +359,9 @@ def test_entry_point_phase_matches_reference(monkeypatch):
     attention = {"gqa_d32": dict(heads=8, kv_heads=2, head_dim=32, seq=128, causal=True),
                  "gqa_d64": dict(heads=4, kv_heads=2, head_dim=64, seq=256, causal=False)}
     paths = smoke.entry_point_paths("edge_cnn", layers, attention, batch=2)
-    assert sorted({k for k, _ in paths.values()}) == sorted(smoke.ENTRY_KERNELS)
-    for kernel, drive in paths.values():
+    assert sorted({k for k, *_ in paths.values()}) == sorted(smoke.ENTRY_KERNELS)
+    for kernel, drive, launched in paths.values():
+        assert kernel in launched
         assert drive(torch, "cpu", np.random.default_rng(0)) < 1e-3
 
     def n(t):

@@ -4,7 +4,9 @@ card, at every tile the variant tables name and every epilogue combination
 ragged shapes, split and not, batched and broadcast, the longest K of the
 LM sites, repeats bit for bit, the route rule on the card; bf16 flash
 attention's wgmma route the same way, ``-k flash``, with K and V read at
-their own heads on every route);
+their own heads on every route; the bf16 implicit-GEMM convs and Winograd
+point-GEMMs, ``-k bf16``, every instantiated tile split and not on aligned
+and unaligned rows, resnet18's shapes, repeats bit for bit);
 the selection path's performance models on the card against the CPU
 (``-k select``: predictions at rtol=2e-5, the same assignments); training
 and profiling on the card (``-k "train or profile"``: a card fit against
@@ -776,6 +778,160 @@ def test_gpu_matmul_bf16_takes_an_fp32_bias_and_residual(split, cuda):
 
 
 # ---------------------------------------------------------------------------
+# The bf16 implicit-GEMM convs and Winograd point-GEMMs
+# ---------------------------------------------------------------------------
+
+def _f32(t):
+    return None if t is None else t.float()
+
+
+def _conv_bf16_operands(gen, N, C, H, K, f, s, ep_dtype=torch.bfloat16):
+    """bf16 x and w of a conv (N = 0: one image), bias and residual of
+    ``ep_dtype``."""
+    x, w, b, r = _conv_operands(gen, N, C, H, K, f, s)
+    return x.bfloat16(), w.bfloat16(), b.to(ep_dtype), r.to(ep_dtype)
+
+
+def _split_of(K, bk):
+    """The most slices, up to three, a K walk of ``bk`` steps can be split
+    into with a step in each (1 where K is one step)."""
+    steps = -(-K // bk)
+    return next(n for n in (3, 2, 1) if n == 1 or (n - 1) * -(-steps // n) < steps)
+
+
+def _hold_conv_bf16(call, plain, x, w, s, **ep):
+    """``call()`` (bf16) within one bf16 rounding of the plain version's fp32
+    result on the same values, and equal to its own repeat bit for bit."""
+    got = call()
+    ep32 = dict(ep, bias=_f32(ep.get("bias")), residual=_f32(ep.get("residual")))
+    _hold_bf16(got, plain(x.float(), w.float(), s, **ep32))
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.parametrize("bm", conv_mod.TILE_M)
+@pytest.mark.parametrize("bn", conv_mod.TILE_N)
+@pytest.mark.parametrize("bk", conv_mod.TILE_K_BF16)
+def test_gpu_conv_bf16_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every bf16 tile csrc/im2col_gemm.cu instantiates, unsplit and split
+    (three ways, or as many as R's steps allow), batched and on one image, bf16
+    bias and residual, ReLU: R = 27 and 147 (element loads of the weights),
+    R = 40, 144 and 576 (16-byte copies), R = 36 (unaligned, two steps),
+    f in {1, 3, 7}, s in {1, 2}, output channels and N*oh*ow no multiple of
+    any tile. Each held within one bf16 rounding of the plain version's
+    fp32 result, and each repeat bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    for sig in [(3, 3, 17, 37, 3, 1), (2, 3, 23, 70, 7, 2), (3, 40, 13, 21, 1, 1),
+                (2, 36, 15, 130, 1, 2), (2, 16, 11, 45, 3, 2), (2, 64, 9, 20, 3, 1)]:
+        N, C, H, K, f, s = sig
+        x, w, b, r = _conv_bf16_operands(gen, *sig)
+        for split in {1, _split_of(C * f * f, bk)}:
+            kw = dict(bm=bm, bk=bk, bn=bn, split_k=split)
+            ep = dict(bias=b, residual=r, relu=True)
+            _hold_conv_bf16(lambda: conv_im2col_batch(x, w, s, **kw, **ep),
+                            conv_im2col_batch_plain, x, w, s, **ep)
+            ep1 = dict(bias=b, residual=r[0], relu=True)
+            _hold_conv_bf16(lambda: conv_im2col(x[0], w, s, **kw, **ep1),
+                            conv_im2col_plain, x[0], w, s, **ep1)
+
+
+@pytest.mark.parametrize("ep_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sig", RESNET18_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_gpu_conv_bf16_resnet18_signatures(sig, ep_dtype, cuda):
+    """Each resnet18 conv in bf16 on one image through ``conv_im2col_op`` and
+    on b=2 through ``conv_im2col_batch_op`` (the late layers split R), bias
+    and residual bf16 or fp32, ReLU; one launch a call, its signature
+    naming the dtypes."""
+    gen = torch.Generator().manual_seed(0)
+    x, w, b, r = _conv_bf16_operands(gen, 2, *sig, ep_dtype=ep_dtype)
+    s = sig[-1]
+    common.reset_launches()
+    ep = dict(bias=b, residual=r, relu=True)
+    _hold_conv_bf16(lambda: conv_im2col_batch_op(x, w, s, **ep),
+                    conv_im2col_batch_plain, x, w, s, **ep)
+    ep1 = dict(bias=b, residual=r[0], relu=True)
+    _hold_conv_bf16(lambda: conv_im2col_op(x[0], w, s, **ep1),
+                    conv_im2col_plain, x[0], w, s, **ep1)
+    name = common.dtype_name(ep_dtype)
+    for k in ("conv_im2col_batch", "conv_im2col"):
+        assert common.LAUNCHES[k] == 2
+        assert {sig[-4:] for sig in common.SEEN[k]} == {(name, name, True, "bfloat16")}
+
+
+@pytest.mark.parametrize("bm", wino_mod.TILE_M)
+@pytest.mark.parametrize("bn", wino_mod.TILE_N)
+@pytest.mark.parametrize("bk", wino_mod.TILE_K_BF16)
+def test_gpu_point_gemm_bf16_every_instantiated_tile(bm, bn, bk, cuda):
+    """Every bf16 tile csrc/winograd.cu instantiates, unsplit and split,
+    batched and on one image: T = 1 with a ragged C, C = 3, odd T (element
+    loads), C and T % 8 == 0 (16-byte copies), and resnet18's T = 27^2 =
+    729. Each held within one bf16 rounding of the fp32 product, and each
+    repeat bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    for N, P, K, C, T in [(3, 16, 37, 70, 1), (2, 16, 21, 3, 25), (2, 16, 130, 72, 45),
+                          (2, 16, 64, 96, 128), (2, 16, 64, 128, 729)]:
+        u = _bf16_rand(gen, P, K, C, scale=C ** -0.5)
+        v = _bf16_rand(gen, N, P, C, T)
+        for split in {1, _split_of(C, bk)}:
+            kw = dict(bm=bm, bk=bk, bn=bn, split_k=split)
+            for call, want in (
+                    (lambda: winograd_point_gemm_batch(u, v, **kw), u.float() @ v.float()),
+                    (lambda: winograd_point_gemm(u, v[1], **kw), u.float() @ v[1].float())):
+                got = call()
+                _hold_bf16(got, want)
+                assert torch.equal(call(), got)
+
+
+@pytest.mark.parametrize("sig", WINO_CONVS[:13], ids=lambda s: "x".join(map(str, s)))
+def test_gpu_point_gemm_bf16_resnet18_signatures(sig, cuda):
+    """Each resnet18 Winograd conv's point-GEMM in bf16 under its variant's
+    bf16 plan, at b=8 and on one image, against the fp32 product of the
+    same values; one launch a call, its signature ending with bf16."""
+    gen = torch.Generator().manual_seed(0)
+    C, H, K, m, variant = sig
+    P, T = (m + 2) ** 2, wino_mod.tiles_of(H - 2, H - 2, m)[0] ** 2
+    u = _bf16_rand(gen, P, K, C, scale=C ** -0.5)
+    v = _bf16_rand(gen, 8, P, C, T)
+    common.reset_launches()
+    bm, bn, bk, split = wino_cta_plan(K, T, C, 8 * P, variant, torch.bfloat16)
+    _hold_bf16(winograd_point_gemm_batch(u, v, bm=bm, bk=bk, bn=bn, split_k=split),
+               winograd_point_gemm_batch_plain(u.float(), v.float()))
+    bm, bn, bk, split = wino_cta_plan(K, T, C, P, variant, torch.bfloat16)
+    _hold_bf16(winograd_point_gemm(u, v[0], bm=bm, bk=bk, bn=bn, split_k=split),
+               winograd_point_gemm_plain(u.float(), v[0].float()))
+    for k in ("winograd_point_gemm_batch", "winograd_point_gemm"):
+        assert common.LAUNCHES[k] == 1
+        assert {sig[-1] for sig in common.SEEN[k]} == {"bfloat16"}
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_gpu_winograd_conv_bf16_transforms_in_fp32(m, cuda):
+    """``winograd_conv`` and ``winograd_conv_batch`` on bf16 x, w, bias and
+    residual return bf16 within one bf16 rounding (plus 1e-3 of the
+    largest value, the fp32 Winograd conv's tolerance) of the plain
+    convolution on the same values,
+    running the fp32 point-GEMM between the fp32 transforms, as the
+    reference does."""
+    gen = torch.Generator().manual_seed(0)
+    C, H, K = 64, 30, 48
+    x, w, b, r = _conv_bf16_operands(gen, 2, C, H, K, 3, 1)
+    common.reset_launches()
+    ep = dict(bias=b, residual=r, relu=True)
+    got = winograd_conv_batch(x, w, m=m, **ep)
+    want = conv_im2col_batch_plain(x.float(), w.float(), 1, bias=b.float(),
+                                   residual=r.float(), relu=True)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want).abs()
+    assert (err <= 2 ** -8 * want.abs() + 1e-3 * want.abs().max()).all()
+    got1 = winograd_conv(x[0], w, m=m, bias=b, residual=r[0], relu=True)
+    assert got1.dtype == torch.bfloat16
+    err = (got1.float() - want[0]).abs()
+    assert (err <= 2 ** -8 * want[0].abs() + 1e-3 * want[0].abs().max()).all()
+    for k in ("winograd_point_gemm_batch", "winograd_point_gemm"):
+        assert {sig[-1] for sig in common.SEEN[k]} == {"float32"}
+    assert common.LAUNCHES["winograd_inverse_transform"] == 2
+
+
+# ---------------------------------------------------------------------------
 # The wgmma route of the bf16 matmul (csrc/matmul_wgmma.cu)
 # ---------------------------------------------------------------------------
 
@@ -1081,8 +1237,9 @@ def test_gpu_flash_route_of_d32_and_fp32_is_mma_sync(cuda):
 
 
 def test_gpu_bf16_kernels_refuse_fp16_and_the_conv_kernels_bf16(cuda):
-    """On the card too: fp16 and mixed dtypes raise before any launch, and
-    the conv kernel takes fp32 only."""
+    """On the card too: fp16 and mixed dtypes raise before any launch, a
+    bf16 conv with fp32 weights among them, and the Winograd transforms
+    take fp32 only."""
     h = torch.zeros(16, 32, device="cuda", dtype=torch.float16)
     before = dict(common.LAUNCHES)
     with pytest.raises(TypeError):
@@ -1091,10 +1248,16 @@ def test_gpu_bf16_kernels_refuse_fp16_and_the_conv_kernels_bf16(cuda):
         matmul(h.bfloat16(), h.T.contiguous().float())
     with pytest.raises(TypeError):
         flash_attention(h[None], h[None], h[None])
+    x = torch.zeros(4, 8, 8, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(4, 4, 3, 3, device="cuda")
+    for xx, ww in ((x, w), (x.half(), w.half())):
+        with pytest.raises(TypeError):
+            conv_im2col(xx, ww, 1, bm=16, bn=8)
     with pytest.raises(TypeError):
-        conv_im2col(torch.zeros(4, 8, 8, device="cuda", dtype=torch.bfloat16),
-                    torch.zeros(4, 4, 3, 3, device="cuda", dtype=torch.bfloat16),
-                    1, bm=16, bk=16, bn=8)
+        winograd_point_gemm(torch.zeros(16, 1, 4, device="cuda", dtype=torch.bfloat16),
+                            torch.zeros(16, 4, 9, device="cuda"), bm=16, bn=8)
+    with pytest.raises(TypeError):
+        winograd_input_transform(x[None], 2)
     assert dict(common.LAUNCHES) == before
 
 
