@@ -49,7 +49,10 @@ Phases, each of which asserts:
    bf16 operands: ``matmul_batch_op`` on resnet18's convs at b=8,
    ``conv_im2col_op`` on each conv of one image and
    ``conv_im2col_batch_op`` on each conv at b=8 (bias and residual bf16,
-   ReLU), ``winograd_point_gemm`` and ``winograd_point_gemm_batch`` (b=8)
+   ReLU; every bf16 conv launch of at least 64 output channels, all 20 of
+   resnet18's, must run the wgmma route, ``csrc/conv_wgmma.cu``, every
+   other conv launch mma.sync), ``winograd_point_gemm`` and
+   ``winograd_point_gemm_batch`` (b=8)
    on each 3x3 stride-1 conv's F(2x2) U and V (made by the weight and
    input transforms in fp32, then rounded once to bf16), and
    ``flash_attention_op`` on the three attention shapes, each output
@@ -64,7 +67,8 @@ Phases, each of which asserts:
    signature); every bf16 launch at d = 64 or 128 must run the wgmma route
    (``csrc/flash_wgmma.cu``), every other one mma.sync. The sweep of
    variants or tiles runs at the largest signature of each operand dtype
-   (flash attention: both routes' tiles where a bf16 call takes both). A
+   (flash attention: both routes' tiles where a bf16 call takes both; the
+   matmuls and the convs: both routes' plans of every variant). A
    bf16 output is held to the plain version's fp32 result on the same
    values within one bf16 rounding (``hold_bf16``), an fp32 output to the
    plain version at ``KERNEL_TOL``. Flash attention is also timed (and
@@ -297,8 +301,10 @@ of the paths of its dtype. The routed kernels'
 rows also count their launches per route (``launches_by_route`` over the
 run, ``pass_launches_by_route`` over the timed pass: bf16 matmul operands
 that TMA can address run ``csrc/matmul_wgmma.cu``, the rest
-``csrc/matmul.cu``; bf16 attention at d = 64 or 128 runs
-``csrc/flash_wgmma.cu``, the rest ``csrc/flash_attention.cu``) and name
+``csrc/matmul.cu``; bf16 convs of at least 64 output channels run
+``csrc/conv_wgmma.cu``, the rest ``csrc/im2col_gemm.cu``; bf16 attention
+at d = 64 or 128 runs ``csrc/flash_wgmma.cu``, the rest
+``csrc/flash_attention.cu``) and name
 the source of each route; a row's ``source`` is the route with most
 launches in its timed pass. The bf16 flash row also carries its pass's
 A/B of the two routes (``ab_ms``). Phase 5's matmul_batch passes
@@ -451,10 +457,10 @@ FAMILY_HELD = {
     "mixtral_8x7b": (4, 4089, 7),          # 5.8 GB a layer in fp32; the grown
                                            # 4,096 slots are its window: a ring
     "qwen3_moe_30b_a3b": (8, 4089, 7),
-    "mamba2_2_7b": (32, 1792, 256),        # multiples of the 256-token chunk; 256
-    "zamba2_2_7b": (4, 1792, 256),         # decode steps, host-bound, so half depth
-                                           # (32 of 64 layers, 4 of 9 groups) for
-                                           # the script's time limit
+    "mamba2_2_7b": (16, 1792, 256),        # multiples of the 256-token chunk; 256
+    "zamba2_2_7b": (2, 1792, 256),         # decode steps, host-bound, so a quarter
+                                           # of the depth (16 of 64 layers, 2 of 9
+                                           # groups) for the script's time limit
     "whisper_medium": (None, 440, 8),      # within the 448-token decoder context
 }
 WHISPER_FRAMES = 1500                      # 30 s of audio at 50 frames a second
@@ -755,7 +761,7 @@ def kernel_rows(report: dict, launches: dict, entry_paths, smi: str) -> list:
                     "float64_err": lm["float64_err_by_dtype"].get(dt),
                     "passes": {p: pt for p, pt in lm["passes"].items()
                                if pt["dtype"] == dt}}
-            if k in ROUTED:
+            if k in ROUTED and "routes" in t:
                 by_route = {}
                 for p in launches:
                     for rt, n in PATH_ROUTES[p][k].get(dt, {}).items():
@@ -3507,14 +3513,20 @@ PATH_DTYPES: dict = {}
 PATH_ROUTES: dict = {}
 # path -> {(operand dtype, head dim, route): launches} of flash attention
 PATH_FLASH: dict = {}
+# path -> {(conv kernel, operand dtype, output channels, route): launches}
+PATH_CONV: dict = {}
 # the kernels with an mma.sync and a wgmma route, and each route's source
 ROUTE_SOURCES = {
     "matmul": {"mma.sync": "src/repro_torch/csrc/matmul.cu",
                "wgmma": "src/repro_torch/csrc/matmul_wgmma.cu"},
+    "conv_im2col": {"mma.sync": "src/repro_torch/csrc/im2col_gemm.cu",
+                    "wgmma": "src/repro_torch/csrc/conv_wgmma.cu"},
     "flash_attention": {"mma.sync": "src/repro_torch/csrc/flash_attention.cu",
                         "wgmma": "src/repro_torch/csrc/flash_wgmma.cu"}}
 ROUTE_SOURCES["matmul_batch"] = ROUTE_SOURCES["matmul"]
+ROUTE_SOURCES["conv_im2col_batch"] = ROUTE_SOURCES["conv_im2col"]
 ROUTED = tuple(ROUTE_SOURCES)
+CONVS = ("conv_im2col", "conv_im2col_batch")
 
 
 def sig_dtype(kernel: str, sig) -> str:
@@ -3531,9 +3543,25 @@ def sig_dtype(kernel: str, sig) -> str:
 
 def sig_route(kernel: str, sig) -> str:
     """The route of a launch signature of a kernel in ``ROUTED``: for the
-    matmul kernels the field before the stages and dtypes, for flash
-    attention the field before the scale and the dtype."""
-    return sig[-3] if kernel == "flash_attention" else sig[-4]
+    matmul kernels the field before the stages and dtypes, for the convs
+    the field before the dtype, for flash attention the field before the
+    scale and the dtype."""
+    if kernel in ("matmul", "matmul_batch"):
+        return sig[-4]
+    return sig[-3] if kernel == "flash_attention" else sig[-2]
+
+
+def conv_route_of(dtype: str, K: int) -> str:
+    """The route every main-path conv launch must take (``im2col_gemm.ops.
+    route``): wgmma for bf16 with at least ``WGMMA_MIN_K`` output channels,
+    else mma.sync."""
+    from repro_torch.kernels.im2col_gemm.im2col_gemm import WGMMA_MIN_K
+    return "wgmma" if dtype == "bfloat16" and K >= WGMMA_MIN_K else "mma.sync"
+
+
+def sig_conv_k(kernel: str, sig) -> int:
+    """The output channels of a conv launch signature: (N,) C, H, W, K."""
+    return sig[4] if kernel == "conv_im2col_batch" else sig[3]
 
 
 def flash_route_of(dtype: str, d: int) -> str:
@@ -3548,13 +3576,15 @@ def took(path: str) -> dict:
     """Read the launch counters after ``path`` ran (zeroed just before it):
     its launches per kernel, returned, and per kernel and operand dtype,
     from the launch signatures, kept in ``PATH_DTYPES[path]``; the routed
-    kernels' launches per dtype and route in ``PATH_ROUTES[path]``, and
-    flash attention's per dtype, head dim and route in ``PATH_FLASH[path]``."""
+    kernels' launches per dtype and route in ``PATH_ROUTES[path]``, flash
+    attention's per dtype, head dim and route in ``PATH_FLASH[path]``, and
+    the convs' per kernel, dtype, output channels and route in
+    ``PATH_CONV[path]``."""
     from repro_torch.kernels import common
     launches, seen = common.snapshot()
     by_dtype = {k: {} for k in common.KERNELS}
     by_route = {k: {} for k in ROUTED}
-    flash = {}
+    flash, conv = {}, {}
     for k, counts in seen.items():
         for sig, n in counts.items():
             dt = sig_dtype(k, sig)
@@ -3565,17 +3595,22 @@ def took(path: str) -> dict:
             if k == "flash_attention":
                 key = (dt, sig[3], sig_route(k, sig))
                 flash[key] = flash.get(key, 0) + n
+            if k in CONVS:
+                key = (k, dt, sig_conv_k(k, sig), sig_route(k, sig))
+                conv[key] = conv.get(key, 0) + n
     PATH_DTYPES[path] = by_dtype
     PATH_ROUTES[path] = by_route
     PATH_FLASH[path] = flash
+    PATH_CONV[path] = conv
     return launches
 
 
 def check_path_dtype(path: str, dtype: str) -> None:
     """Every launch of ``path`` (read by ``took``) ran on ``dtype`` operands
-    where its kernel takes more than fp32, and every flash attention launch
-    on its route (``flash_route_of``): each bf16 launch at d = 64 or 128 on
-    the wgmma kernel."""
+    where its kernel takes more than fp32, every flash attention launch on
+    its route (``flash_route_of``): each bf16 launch at d = 64 or 128 on the
+    wgmma kernel, and every conv launch on its route (``conv_route_of``):
+    each bf16 launch of at least 64 output channels on the wgmma kernel."""
     from repro_torch.kernels.common import DTYPES
     for k in DTYPES:
         got = set(PATH_DTYPES[path][k])
@@ -3583,6 +3618,9 @@ def check_path_dtype(path: str, dtype: str) -> None:
     wrong = {key: n for key, n in PATH_FLASH[path].items()
              if key[2] != flash_route_of(*key[:2])}
     assert not wrong, (path, "flash attention off its route", wrong)
+    wrong = {key: n for key, n in PATH_CONV[path].items()
+             if key[3] != conv_route_of(*key[1:3])}
+    assert not wrong, (path, "conv off its route", wrong)
 
 
 def _rand(torch, rng, device, *shape, scale=1.0):
@@ -3786,6 +3824,7 @@ def kernel_table(torch):
         conv_im2col_plain)
     from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
     from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_plan
+    from repro_torch.kernels.im2col_gemm.ops import wgmma_plan as conv_wgmma_plan
     from repro_torch.kernels.im2col_gemm.ref import conv_ref
     from repro_torch.kernels.matmul.matmul import (MMA_STAGES, matmul,
                                                    matmul_batch,
@@ -3858,12 +3897,17 @@ def kernel_table(torch):
                 + isz(odt) * M * N)
 
     def conv_plans(N, C, H, W, K, f, s, dtype):
-        """(bm, bk, bn, split_k) of every variant's plan at one conv on
-        operands of ``dtype``."""
-        P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
-        return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (conv_plan(K, P, C * f * f, v, getattr(torch, dtype))
-                 for v in CONV_VARIANTS)]
+        """(bm, bk, bn, split_k, route) of every variant's plan at one conv
+        on operands of ``dtype`` on the mma.sync route and, where the conv
+        takes it (bf16, K >= 64), on the wgmma route."""
+        P, R = N * ((H - f) // s + 1) * ((W - f) // s + 1), C * f * f
+        plans = [(bm, bk, bn, split, "mma.sync") for bm, bn, bk, split
+                 in (conv_plan(K, P, R, v, getattr(torch, dtype))
+                     for v in CONV_VARIANTS)]
+        if conv_route_of(dtype, K) == "wgmma":
+            plans += [(bm, bk, bn, split, "wgmma") for bm, bn, bk, split
+                      in (conv_wgmma_plan(K, P, R, v) for v in CONV_VARIANTS)]
+        return list(dict.fromkeys(plans))
 
     def f32(t):
         return None if t is None else t.float()
@@ -3872,8 +3916,8 @@ def kernel_table(torch):
         """(kernel, plain version, library call, plain version in fp32) of a
         batched conv signature; one image (``conv_im2col``'s signature) where
         it has no N."""
-        one = len(sig) == 14
-        N, C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu, dt = (
+        one = len(sig) == 15
+        N, C, H, W, K, f, s, bm, bk, bn, split, hb, hr, relu, route, dt = (
             (1, *sig) if one else sig)
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
         lead = () if one else (N,)
@@ -3885,7 +3929,8 @@ def kernel_table(torch):
         ep32 = dict(bias=f32(ep["bias"]), residual=f32(ep["residual"]), relu=relu)
         kern, plain = ((conv_im2col, conv_im2col_plain) if one
                        else (conv_im2col_batch, conv_im2col_batch_plain))
-        return (lambda: kern(x, w, s, bm=bm, bk=bk, bn=bn, split_k=split, **ep),
+        return (lambda: kern(x, w, s, bm=bm, bk=bk, bn=bn, split_k=split,
+                             route=route, **ep),
                 lambda: plain(x, w, s, **ep),
                 lambda: conv_ref(x[None] if one else x, w, s),
                 lambda: plain(x.float(), w.float(), s, **ep32))
@@ -3894,7 +3939,7 @@ def kernel_table(torch):
         """FLOPs, and bytes at the signature's dtypes counting only the rows
         and columns of x that some window reads (a 1x1 s2 conv reads a
         quarter of x)."""
-        N, C, H, W, K, f, s, *_, hb, hr, relu, dt = sig
+        N, C, H, W, K, f, s, *_, hb, hr, relu, _, dt = sig
         oh, ow = (H - f) // s + 1, (W - f) // s + 1
         rows, cols = ((o * f if f < s else (o - 1) * s + f) for o in (oh, ow))
         P = N * oh * ow
@@ -4073,7 +4118,7 @@ def kernel_table(torch):
             source="src/repro_torch/csrc/im2col_gemm.cu",
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:155",
             ops=conv_ops, work=conv_work, flops_s=lambda s: tc_rate(s[-1]),
-            sweep=lambda s: [(*s[:7], *p, *e, s[-1])
+            sweep=lambda s: [(*s[:7], *p[:4], *e, *p[4:], s[-1])
                              for p in conv_plans(*s[:7], s[-1])
                              for e in mm_eps(s[-1])]),
         "winograd_point_gemm_batch": dict(
@@ -4104,7 +4149,7 @@ def kernel_table(torch):
             replaces="src/repro/kernels/im2col_gemm/im2col_gemm.py:76",
             ops=conv_ops, flops_s=lambda s: tc_rate(s[-1]),
             work=lambda s: conv_work((1, *s)),
-            sweep=lambda s: [(*s[:6], *p, *e, s[-1])
+            sweep=lambda s: [(*s[:6], *p[:4], *e, *p[4:], s[-1])
                              for p in conv_plans(1, *s[:6], s[-1])
                              for e in mm_eps(s[-1])]),
         "winograd_point_gemm": dict(

@@ -79,11 +79,14 @@
 //    bias and residual as bf16 or fp32 (epilogue.cuh's Ep) and widens them
 //    to fp32.
 //
-// Left for later: wgmma with TMA's im2col mode. TMA im2col tensor maps
-// describe a padded NHWC convolution window, while this kernel reads NCHW
-// with the reference's (c, a, b) patch order and valid padding; wgmma's
-// 64-row warpgroup tile does not fit edge_cnn's 16-64 output channels, and
-// it reads B from shared memory, where the 3xTF32 split needs two copies.
+// The Hopper route: bf16 calls with at least 64 output channels run
+// conv_wgmma.cu (TMA weights, patches gathered by a producer warpgroup into
+// a swizzled ring, warp-specialised wgmma; kernels/im2col_gemm/ops.route
+// decides). TMA's own im2col mode describes a padded NHWC convolution
+// window, not this NCHW layout with the reference's (c, a, b) patch order
+// and valid padding; wgmma's 64-row warpgroup tile does not fit edge_cnn's
+// 16-48 output channels, and it reads B from shared memory, where the
+// 3xTF32 split needs two copies, so fp32 and narrow bf16 calls stay here.
 #include <type_traits>
 
 #include "epilogue.cuh"

@@ -421,9 +421,9 @@ def launched(monkeypatch):
 def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
     """A bf16 conv or point-GEMM launch binds the bf16 library's entry point
     with as many arguments as it declares, records the operand dtype last
-    (a conv's bias and residual as their dtype's name), and chip_smoke.py
-    reads that dtype (``sig_dtype``) and bounds the signature at 989 TFLOP/s
-    and 2-byte traffic, an fp32 bias at 4 bytes; fp32 launches keep the
+    (a conv's bias and residual as their dtype's name, then its route), and
+    chip_smoke.py reads that dtype (``sig_dtype``) and bounds the signature
+    at 989 TFLOP/s and 2-byte traffic, an fp32 bias at 4 bytes; fp32 launches keep the
     3xTF32 rate and 4-byte traffic."""
     smoke = _load_chip_smoke()
     table = smoke.kernel_table(torch)
@@ -446,8 +446,9 @@ def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
     (wb,), (w1,) = (common.SEEN["winograd_point_gemm_batch"],
                     common.SEEN["winograd_point_gemm"])
     assert cb == (2, 8, 10, 10, 16, 3, 1, 16, 32, 64, 1, "float32", "bfloat16",
-                  True, "bfloat16")
-    assert c1 == (8, 10, 10, 16, 3, 1, 16, 16, 64, 2, False, False, False, "float32")
+                  True, "mma.sync", "bfloat16")
+    assert c1 == (8, 10, 10, 16, 3, 1, 16, 16, 64, 2, False, False, False,
+                  "mma.sync", "float32")
     assert wb == (2, 16, 8, 24, 9, 16, 32, 8, 1, "bfloat16")
     assert w1 == (16, 8, 24, 9, 16, 16, 8, 1, "float32")
     for name, sig, dt in (("conv_im2col_batch", cb, "bfloat16"), ("conv_im2col", c1, "float32"),

@@ -22,6 +22,10 @@ the kernels are held to these plain versions in ``tests/test_torch_gpu.py``
 (``-k bf16``) and ``chip_smoke.py``.
 """
 import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,12 +40,19 @@ from repro.kernels.winograd.ops import winograd_conv_batch as ref_wino_conv_batc
 from repro.kernels.winograd.winograd import winograd_point_gemm as ref_point_gemm
 from repro.kernels.winograd.winograd import (
     winograd_point_gemm_batch as ref_point_gemm_batch)
+from repro_torch.kernels import common
 from repro_torch.kernels.im2col_gemm.im2col_gemm import (TILE_K, TILE_K_BF16,
+                                                         WGMMA_BK, WGMMA_TILE_M,
+                                                         WGMMA_TILE_N, WGMMA_TILES,
                                                          conv_im2col,
-                                                         conv_im2col_batch)
+                                                         conv_im2col_batch,
+                                                         takes_wgmma)
 from repro_torch.kernels.im2col_gemm.ops import VARIANTS as CONV_VARIANTS
-from repro_torch.kernels.im2col_gemm.ops import (ceiling, conv_im2col_batch_op,
-                                                 conv_im2col_op, cta_plan)
+from repro_torch.kernels.im2col_gemm.ops import (WGMMA_BM, WGMMA_BN, ceiling,
+                                                 conv_im2col_batch_op,
+                                                 conv_im2col_op, cta_plan, plan,
+                                                 route, wgmma_plan)
+from repro_torch.models import cnn_zoo
 from repro_torch.kernels.winograd import winograd as wino_mod
 from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
 from repro_torch.kernels.winograd.ops import ceiling as wino_ceiling
@@ -51,6 +62,9 @@ from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
 from repro_torch.kernels.winograd.winograd import (winograd_point_gemm,
                                                    winograd_point_gemm_batch)
 
+ROOT = Path(__file__).resolve().parents[1]
+CONV_WGMMA_CU = ROOT / "src" / "repro_torch" / "csrc" / "conv_wgmma.cu"
+SMEM = 232448                             # shared memory one H100 block can use
 F32_TOL = dict(rtol=1e-4, atol=1e-4)      # tests/test_kernels.py::_TOL[float32]
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py::_TOL[bfloat16]
 DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
@@ -238,3 +252,194 @@ def test_bf16_winograd_conv_matches_reference(batch, m):
     assert want.dtype == jnp.bfloat16
     _hold(port(x, w, m=m, bias=b, residual=r, relu=True), want, torch.bfloat16,
           BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route of the bf16 conv (csrc/conv_wgmma.cu): the rule that picks
+# it, its plans and tiles, its refusals, chip_smoke.py's reading of it, and
+# both routes' wrappers against the reference
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _convs(net):
+    """(C, H, K, f, s) of every conv of ``net`` at its input's actual size,
+    as chip_smoke.py's phase 5 drives them."""
+    return [layer[1:] for layer in _chip_smoke().conv_layers(cnn_zoo.get(net))]
+
+
+def _meta(*shape, dtype):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("net", ["resnet18", "edge_cnn"])
+def test_conv_route_rule_on_the_nets(net, dtype):
+    """Every conv of resnet18 (20, all of at least 64 output channels) and
+    edge_cnn (14): bf16 with K >= 64 takes the wgmma route, fp32 or K < 64
+    mma.sync, under every variant, one image and b = 8."""
+    tdt = DTYPES[dtype][1]
+    convs = _convs(net)
+    assert len(convs) == {"resnet18": 20, "edge_cnn": 14}[net]
+    routes = []
+    for C, H, K, f, s in convs:
+        x, w = _meta(C, H, H, dtype=tdt), _meta(K, C, f, f, dtype=tdt)
+        want = "wgmma" if dtype == "bf16" and K >= 64 else "mma.sync"
+        assert route(x, w) == want and takes_wgmma(x, w) == (want == "wgmma")
+        assert {plan(n, x, w, s, v)["route"] for v in CONV_VARIANTS
+                for n in (1, 8)} == {want}
+        routes.append(want)
+    if dtype == "bf16":
+        assert routes.count("wgmma") == {"resnet18": 20, "edge_cnn": 5}[net]
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("net", ["resnet18", "edge_cnn"])
+def test_conv_wgmma_plan_splits_only_to_fill_the_card(net, n):
+    """The wgmma plan of every conv with K >= 64, on one image and at b = 8,
+    under every variant: an instantiated tile, BM the smallest covering K
+    under the variant's ceiling, BN the smallest covering the pixels under
+    the BM's widest, narrowed only while the tiles would leave half the SMs
+    idle, BK 64; R split only where the output tiles leave SMs idle, into
+    no more slices than one wave holds, each slice owning a 64-deep step
+    (``common.check_plan`` accepts it)."""
+    for C, H, K, f, s in _convs(net):
+        if K < 64:
+            continue
+        oh = (H - f) // s + 1
+        P, R = n * oh * oh, C * f * f
+        for v in CONV_VARIANTS:
+            bm, bn, bk, split = wgmma_plan(K, P, R, v)
+            assert (bm, bn) in WGMMA_TILES and bk == WGMMA_BK
+            assert bm == min(t for t in WGMMA_TILE_M if t >= min(K, WGMMA_BM[v]))
+            widest = min(t for t in WGMMA_TILE_N if t >= min(P, WGMMA_BN[bm]))
+            mt = -(-K // bm)
+            assert bn == widest or 2 * mt * -(-P // (2 * bn)) < common.SMS
+            assert bn == WGMMA_TILE_N[0] or 2 * mt * -(-P // bn) >= common.SMS
+            tiles, steps = mt * -(-P // bn), -(-R // bk)
+            common.check_plan("conv", R, bm, bk, bn, split, WGMMA_TILE_M,
+                              (WGMMA_BK,), WGMMA_TILE_N)
+            if split > 1:
+                assert tiles < common.SMS and tiles * split <= common.SMS
+                assert (split - 1) * -(-steps // split) < steps
+            else:
+                assert tiles >= common.SMS or steps == 1 or common.SMS // tiles < 2
+    # resnet18's late layers split on one image; its 64-channel layers at
+    # b = 8 fill the card unsplit on 256 pixels a tile, and on one image
+    # take 128 (90 tiles, not 45)
+    assert wgmma_plan(512, 9, 4608, "conv-bk128")[3] > 1
+    assert wgmma_plan(64, 8 * 107 * 107, 576, "conv-bk128") == (64, 256, 64, 1)
+    assert wgmma_plan(64, 107 * 107, 576, "conv-bk128") == (64, 128, 64, 1)
+    assert wgmma_plan(128, 8 * 48 * 48, 1152, "conv-bk256") == (128, 64, 64, 1)
+
+
+def test_conv_wgmma_tiles_match_the_cuda_instantiations():
+    """WGMMA_TILES is what csrc/conv_wgmma.cu instantiates
+    (RT_FOR_EACH_CONV_WGMMA_TILE), each within a block's shared memory at
+    the kernel's ring depth (the ring, the producers' offset tables, the
+    consumers' epilogue staging and the barriers); every BM's widest BN is
+    one of them, and conv-bk256 runs as its 128-row twin."""
+    src = CONV_WGMMA_CU.read_text()
+    body = re.search(r"#define RT_FOR_EACH_CONV_WGMMA_TILE\(X\)((?:.*\\\n)*.*)",
+                     src).group(1)
+    tiles = tuple(tuple(int(v) for v in t)
+                  for t in re.findall(r"X\((\d+), (\d+)\)", body))
+    assert sorted(tiles) == sorted(WGMMA_TILES) and len(set(tiles)) == len(tiles)
+    stages = int(re.search(r"constexpr int kStages = (\d+);", src).group(1))
+    assert stages == 4
+    for bm, bn in WGMMA_TILES:
+        staging = bm // 64 * 4 * 16 * 40 * 4            # each consumer warp's rows
+        assert 1024 + stages * (bm + bn) * WGMMA_BK * 2 + 1024 + staging + 16 * stages <= SMEM
+    assert set(WGMMA_BN.items()) <= set(WGMMA_TILES)
+    assert WGMMA_BM == {"conv-bk64": 64, "conv-bk128": 128, "conv-bk256": 128}
+
+
+@pytest.mark.parametrize("case", ["fp32", "k63", "tile", "depth", "split",
+                                  "name"])
+def test_conv_wgmma_refusals_launch_nothing(case):
+    """An explicit wgmma call on fp32 operands or on fewer than 64 output
+    channels, an uninstantiated tile, depth or split, or an unknown route
+    raises ``ValueError`` before anything launches."""
+    x, w = torch.zeros(2, 8, 9, 9, dtype=torch.bfloat16), torch.zeros(64, 8, 3, 3,
+                                                                       dtype=torch.bfloat16)
+    kw = dict(bm=64, bn=128, route="wgmma")
+    if case == "fp32":
+        x, w = x.float(), w.float()
+    elif case == "k63":
+        w = w[:63]
+    elif case == "tile":
+        kw["bm"] = 32
+    elif case == "depth":
+        kw["bk"] = 32
+    elif case == "split":
+        kw["split_k"] = 3                  # R = 72: two 64-deep steps
+    else:
+        kw["route"] = "tma"
+    common.reset_launches()
+    with pytest.raises(ValueError, match="wgmma route takes|instantiated|split_k|"
+                                         "route must be"):
+        conv_im2col_batch(x, w, 1, **kw)
+    with pytest.raises(ValueError):
+        conv_im2col(x[0], w, 1, **kw)
+    assert sum(common.LAUNCHES.values()) == 0
+
+
+def test_chip_smoke_reads_the_conv_route():
+    """chip_smoke.py reads a conv launch's route, dtype and output channels
+    from the signature, names both routes' sources (the library
+    ``conv_wgmma`` builds), holds a main-path bf16 conv of K >= 64 to the
+    wgmma route, and sweeps both routes' plans at such a signature (the
+    mma.sync plans alone at fp32 or K < 64)."""
+    smoke = _chip_smoke()
+    assert common.LIBRARIES["conv_wgmma"] == ("conv_wgmma", ())
+    assert smoke.ROUTE_SOURCES["conv_im2col_batch"] == smoke.ROUTE_SOURCES["conv_im2col"] == {
+        "mma.sync": "src/repro_torch/csrc/im2col_gemm.cu",
+        "wgmma": "src/repro_torch/csrc/conv_wgmma.cu"}
+    sig = (8, 64, 109, 109, 64, 3, 1, 64, 64, 128, 1, "bfloat16", "bfloat16",
+           True, "wgmma", "bfloat16")
+    one = (3, 224, 224, 64, 7, 2, 128, 32, 64, 1, False, False, False,
+           "mma.sync", "float32")
+    assert smoke.sig_route("conv_im2col_batch", sig) == "wgmma"
+    assert smoke.sig_route("conv_im2col", one) == "mma.sync"
+    assert smoke.sig_dtype("conv_im2col_batch", sig) == "bfloat16"
+    assert (smoke.sig_conv_k("conv_im2col_batch", sig),
+            smoke.sig_conv_k("conv_im2col", one)) == (64, 64)
+    assert (smoke.conv_route_of("bfloat16", 64), smoke.conv_route_of("bfloat16", 63),
+            smoke.conv_route_of("float32", 512)) == ("wgmma", "mma.sync", "mma.sync")
+    table = smoke.kernel_table(torch)
+    swept = table["conv_im2col_batch"]["sweep"](sig)
+    assert {s[-2] for s in swept} == {"mma.sync", "wgmma"}
+    assert {(s[7], s[9]) for s in swept if s[-2] == "wgmma"} == {(64, 256)}
+    assert {s[-2] for s in table["conv_im2col"]["sweep"](one)} == {"mma.sync"}
+    assert table["conv_im2col_batch"]["work"](sig) == table["conv_im2col_batch"]["work"](
+        (*sig[:14], "mma.sync", "bfloat16"))
+
+
+@pytest.mark.parametrize("route_name", ["mma.sync", "wgmma"])
+@pytest.mark.parametrize("cfg", [(2, 4, 11, 64, 3, 1), (1, 3, 15, 72, 7, 2),
+                                 (2, 8, 9, 66, 1, 2)])
+def test_bf16_conv_both_routes_match_reference(cfg, route_name):
+    """bf16 convs of at least 64 output channels (R = 36, 147 and 8: weights
+    the wgmma kernel gathers itself and one 64-deep step) through each
+    route's wrappers, batched and on one image, bf16 bias and residual and
+    ReLU, against the reference's fused kernel at 5e-2; the entry points
+    plan them onto the wgmma route."""
+    jdt, tdt, tol = DTYPES["bf16"]
+    N, C, H, K, f, s = cfg
+    oh = (H - f) // s + 1
+    rng = np.random.default_rng(6)
+    (jx, x), (jw, w) = _pair(rng, "bf16", N, C, H, H), _pair(rng, "bf16", K, C, f, f)
+    jep, tep = _epilogue(rng, "bf16", "same", (K,), (N, K, oh, oh))
+    want = ref_conv_batch(jx, jw, s, bk=16, interpret=True, fuse_store=True, **jep)
+    kw = (dict(bm=64, bn=128, route="wgmma") if route_name == "wgmma"
+          else dict(bm=64, bn=64))
+    _hold(conv_im2col_batch(x, w, s, **kw, **tep), want, tdt, tol)
+    tep1 = dict(tep, residual=tep["residual"][0])
+    _hold(conv_im2col(x[0], w, s, **kw, **tep1), want[0], tdt, tol)
+    assert plan(N, x, w, s, "conv-bk128")["route"] == "wgmma"
+    _hold(conv_im2col_batch_op(x, w, s, **tep), want, tdt, tol)

@@ -834,27 +834,39 @@ def test_gpu_conv_bf16_every_instantiated_tile(bm, bn, bk, cuda):
                             conv_im2col_plain, x[0], w, s, **ep1)
 
 
+@pytest.mark.parametrize("route", ["wgmma", "mma.sync"])
 @pytest.mark.parametrize("ep_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sig", RESNET18_CONVS, ids=lambda s: "x".join(map(str, s)))
-def test_gpu_conv_bf16_resnet18_signatures(sig, ep_dtype, cuda):
-    """Each resnet18 conv in bf16 on one image through ``conv_im2col_op`` and
-    on b=2 through ``conv_im2col_batch_op`` (the late layers split R), bias
-    and residual bf16 or fp32, ReLU; one launch a call, its signature
-    naming the dtypes."""
+def test_gpu_conv_bf16_resnet18_signatures(sig, ep_dtype, route, cuda):
+    """Each resnet18 conv in bf16 on one image and on b=2 (the late layers
+    split R), bias and residual bf16 or fp32, ReLU, on each route: wgmma
+    through ``conv_im2col_op`` and ``conv_im2col_batch_op`` (every resnet18
+    conv has at least 64 output channels), mma.sync by explicit calls under
+    ``cta_plan``'s bf16 plan of the entry points' variant. One launch a
+    call, its signature naming the dtypes and the route."""
     gen = torch.Generator().manual_seed(0)
     x, w, b, r = _conv_bf16_operands(gen, 2, *sig, ep_dtype=ep_dtype)
-    s = sig[-1]
+    C, H, K, f, s = sig
+    oh = (H - f) // s + 1
+    if route == "wgmma":
+        batch, one = conv_im2col_batch_op, conv_im2col_op
+    else:
+        def planned(kern, n):
+            bm, bn, bk, split = conv_cta_plan(K, n * oh * oh, C * f * f, "conv-bk128",
+                                              torch.bfloat16)
+            return lambda *a, **kw: kern(*a, bm=bm, bk=bk, bn=bn, split_k=split,
+                                         route="mma.sync", **kw)
+        batch, one = planned(conv_im2col_batch, 2), planned(conv_im2col, 1)
     common.reset_launches()
     ep = dict(bias=b, residual=r, relu=True)
-    _hold_conv_bf16(lambda: conv_im2col_batch_op(x, w, s, **ep),
-                    conv_im2col_batch_plain, x, w, s, **ep)
+    _hold_conv_bf16(lambda: batch(x, w, s, **ep), conv_im2col_batch_plain, x, w, s, **ep)
     ep1 = dict(bias=b, residual=r[0], relu=True)
-    _hold_conv_bf16(lambda: conv_im2col_op(x[0], w, s, **ep1),
-                    conv_im2col_plain, x[0], w, s, **ep1)
+    _hold_conv_bf16(lambda: one(x[0], w, s, **ep1), conv_im2col_plain, x[0], w, s, **ep1)
     name = common.dtype_name(ep_dtype)
     for k in ("conv_im2col_batch", "conv_im2col"):
         assert common.LAUNCHES[k] == 2
-        assert {sig[-4:] for sig in common.SEEN[k]} == {(name, name, True, "bfloat16")}
+        assert {sig[-5:] for sig in common.SEEN[k]} == {
+            (name, name, True, route, "bfloat16")}
 
 
 @pytest.mark.parametrize("bm", wino_mod.TILE_M)

@@ -443,7 +443,7 @@ def test_conv_bound_counts_the_pixels_the_windows_read(sig):
     P = N * ((H - f) // s + 1) * ((W - f) // s + 1)
     for hb, hr, relu in EPILOGUES:
         flops, nbytes = work((*sig, 128, 16, 64, 1, hb and "float32",
-                              hr and "float32", relu, "float32"))
+                              hr and "float32", relu, "mma.sync", "float32"))
         assert flops == 2 * P * K * C * f * f + P * K * (hb + hr + relu)
         assert nbytes == 4 * (N * C * read + K * C * f * f + P * K * (1 + hr) + K * hb)
 
