@@ -54,7 +54,11 @@ Phases, each of which asserts:
    other conv launch mma.sync), ``winograd_point_gemm`` and
    ``winograd_point_gemm_batch`` (b=8)
    on each 3x3 stride-1 conv's F(2x2) U and V (made by the weight and
-   input transforms in fp32, then rounded once to bf16), and
+   input transforms in fp32, then rounded once to bf16) under
+   ``winograd/ops.plan`` (every bf16 point-GEMM launch the route rule
+   gives wgmma must run it, ``csrc/winograd_wgmma.cu``, every other one
+   mma.sync: 13 of resnet18's 13 at b=8, 11 on one image, whose last two
+   convs have 4 and 1 columns), and
    ``flash_attention_op`` on the three attention shapes, each output
    (bf16) held to its fp32 oracle on the same values within one bf16
    rounding (``hold_bf16``; ``F.conv2d`` + the epilogue, the fp32 product)
@@ -302,7 +306,10 @@ rows also count their launches per route (``launches_by_route`` over the
 run, ``pass_launches_by_route`` over the timed pass: bf16 matmul operands
 that TMA can address run ``csrc/matmul_wgmma.cu``, the rest
 ``csrc/matmul.cu``; bf16 convs of at least 64 output channels run
-``csrc/conv_wgmma.cu``, the rest ``csrc/im2col_gemm.cu``; bf16 attention
+``csrc/conv_wgmma.cu``, the rest ``csrc/im2col_gemm.cu``; bf16
+point-GEMMs of at least 64 output channels, C % 8 == 0 and 8 or more
+output columns run ``csrc/winograd_wgmma.cu``, the rest
+``csrc/winograd.cu``; bf16 attention
 at d = 64 or 128 runs ``csrc/flash_wgmma.cu``, the rest
 ``csrc/flash_attention.cu``) and name
 the source of each route; a row's ``source`` is the route with most
@@ -596,6 +603,8 @@ def main() -> int:
             assert launches[name][k] > 0, (name, k, launches[name])
         assert all(n == 0 for k, n in launches[name].items() if k not in want)
         routes = {k: PATH_ROUTES[name][k] for k in ROUTED if k in want}
+        if name in bf16_paths and kernel in WINOS:   # each on its route, above
+            assert routes[kernel]["bfloat16"].get("wgmma", 0) > 0, (name, routes[kernel])
         print(f"entry {name}: max |out - oracle| = {oracle_err[name]:.3g}, "
               f"launches {({k: launches[name][k] for k in sorted(want)})}"
               + (f", by dtype and route {routes}" if routes else ""),
@@ -681,7 +690,8 @@ def main() -> int:
     # -- report -----------------------------------------------------------
     summary = {k: {"launches": {p: launches[p][k] for p in launches},
                    "max_abs_err": r["max_abs_err"],
-                   "passes": r["passes"]}
+                   "passes": r["passes"],
+                   **({"sources_by_route": ROUTE_SOURCES[k]} if k in ROUTED else {})}
                for k, r in report.items()}
     print("kernels: " + json.dumps(summary))
     for name, r in rates.items():
@@ -3515,18 +3525,24 @@ PATH_ROUTES: dict = {}
 PATH_FLASH: dict = {}
 # path -> {(conv kernel, operand dtype, output channels, route): launches}
 PATH_CONV: dict = {}
+# path -> {(point-GEMM kernel, operand dtype, K, C, T, images, route): launches}
+PATH_WINO: dict = {}
 # the kernels with an mma.sync and a wgmma route, and each route's source
 ROUTE_SOURCES = {
     "matmul": {"mma.sync": "src/repro_torch/csrc/matmul.cu",
                "wgmma": "src/repro_torch/csrc/matmul_wgmma.cu"},
     "conv_im2col": {"mma.sync": "src/repro_torch/csrc/im2col_gemm.cu",
                     "wgmma": "src/repro_torch/csrc/conv_wgmma.cu"},
+    "winograd_point_gemm": {"mma.sync": "src/repro_torch/csrc/winograd.cu",
+                            "wgmma": "src/repro_torch/csrc/winograd_wgmma.cu"},
     "flash_attention": {"mma.sync": "src/repro_torch/csrc/flash_attention.cu",
                         "wgmma": "src/repro_torch/csrc/flash_wgmma.cu"}}
 ROUTE_SOURCES["matmul_batch"] = ROUTE_SOURCES["matmul"]
 ROUTE_SOURCES["conv_im2col_batch"] = ROUTE_SOURCES["conv_im2col"]
+ROUTE_SOURCES["winograd_point_gemm_batch"] = ROUTE_SOURCES["winograd_point_gemm"]
 ROUTED = tuple(ROUTE_SOURCES)
 CONVS = ("conv_im2col", "conv_im2col_batch")
+WINOS = ("winograd_point_gemm", "winograd_point_gemm_batch")
 
 
 def sig_dtype(kernel: str, sig) -> str:
@@ -3544,8 +3560,8 @@ def sig_dtype(kernel: str, sig) -> str:
 def sig_route(kernel: str, sig) -> str:
     """The route of a launch signature of a kernel in ``ROUTED``: for the
     matmul kernels the field before the stages and dtypes, for the convs
-    the field before the dtype, for flash attention the field before the
-    scale and the dtype."""
+    and the point-GEMMs the field before the dtype, for flash attention the
+    field before the scale and the dtype."""
     if kernel in ("matmul", "matmul_batch"):
         return sig[-4]
     return sig[-3] if kernel == "flash_attention" else sig[-2]
@@ -3557,6 +3573,25 @@ def conv_route_of(dtype: str, K: int) -> str:
     else mma.sync."""
     from repro_torch.kernels.im2col_gemm.im2col_gemm import WGMMA_MIN_K
     return "wgmma" if dtype == "bfloat16" and K >= WGMMA_MIN_K else "mma.sync"
+
+
+def wino_takes(dtype: str, K: int, C: int) -> bool:
+    """Whether the wgmma route can take a point-GEMM launch on the
+    allocator-aligned U the paths give it (``winograd.takes_wgmma``): bf16
+    with at least ``WGMMA_MIN_K`` output channels and C % 8 == 0."""
+    from repro_torch.kernels.winograd.winograd import WGMMA_MIN_K
+    return dtype == "bfloat16" and K >= WGMMA_MIN_K and C % 8 == 0
+
+
+def wino_route_of(dtype: str, K: int, C: int, T: int, images: int) -> str:
+    """The route every main-path point-GEMM launch of ``images`` images
+    must take (``winograd/ops.route``): wgmma where ``wino_takes`` and the
+    call has at least ``WGMMA_MIN_COLS`` output columns (``ops.columns``),
+    else mma.sync."""
+    from repro_torch.kernels.winograd.ops import columns
+    from repro_torch.kernels.winograd.winograd import WGMMA_MIN_COLS
+    wide = columns(T, images)[0] >= WGMMA_MIN_COLS
+    return "wgmma" if wide and wino_takes(dtype, K, C) else "mma.sync"
 
 
 def sig_conv_k(kernel: str, sig) -> int:
@@ -3577,14 +3612,15 @@ def took(path: str) -> dict:
     its launches per kernel, returned, and per kernel and operand dtype,
     from the launch signatures, kept in ``PATH_DTYPES[path]``; the routed
     kernels' launches per dtype and route in ``PATH_ROUTES[path]``, flash
-    attention's per dtype, head dim and route in ``PATH_FLASH[path]``, and
-    the convs' per kernel, dtype, output channels and route in
-    ``PATH_CONV[path]``."""
+    attention's per dtype, head dim and route in ``PATH_FLASH[path]``, the
+    convs' per kernel, dtype, output channels and route in
+    ``PATH_CONV[path]``, and the point-GEMMs' per kernel, dtype, K, C, T,
+    images and route in ``PATH_WINO[path]``."""
     from repro_torch.kernels import common
     launches, seen = common.snapshot()
     by_dtype = {k: {} for k in common.KERNELS}
     by_route = {k: {} for k in ROUTED}
-    flash, conv = {}, {}
+    flash, conv, wino = {}, {}, {}
     for k, counts in seen.items():
         for sig, n in counts.items():
             dt = sig_dtype(k, sig)
@@ -3598,10 +3634,15 @@ def took(path: str) -> dict:
             if k in CONVS:
                 key = (k, dt, sig_conv_k(k, sig), sig_route(k, sig))
                 conv[key] = conv.get(key, 0) + n
+            if k in WINOS:                     # (N,) P, K, C, T, ...
+                images = sig[0] if k == "winograd_point_gemm_batch" else 1
+                key = (k, dt, sig[-9], sig[-8], sig[-7], images, sig_route(k, sig))
+                wino[key] = wino.get(key, 0) + n
     PATH_DTYPES[path] = by_dtype
     PATH_ROUTES[path] = by_route
     PATH_FLASH[path] = flash
     PATH_CONV[path] = conv
+    PATH_WINO[path] = wino
     return launches
 
 
@@ -3609,8 +3650,9 @@ def check_path_dtype(path: str, dtype: str) -> None:
     """Every launch of ``path`` (read by ``took``) ran on ``dtype`` operands
     where its kernel takes more than fp32, every flash attention launch on
     its route (``flash_route_of``): each bf16 launch at d = 64 or 128 on the
-    wgmma kernel, and every conv launch on its route (``conv_route_of``):
-    each bf16 launch of at least 64 output channels on the wgmma kernel."""
+    wgmma kernel, every conv launch on its route (``conv_route_of``):
+    each bf16 launch of at least 64 output channels on the wgmma kernel,
+    and every point-GEMM launch on its route (``wino_route_of``)."""
     from repro_torch.kernels.common import DTYPES
     for k in DTYPES:
         got = set(PATH_DTYPES[path][k])
@@ -3621,6 +3663,9 @@ def check_path_dtype(path: str, dtype: str) -> None:
     wrong = {key: n for key, n in PATH_CONV[path].items()
              if key[3] != conv_route_of(*key[1:3])}
     assert not wrong, (path, "conv off its route", wrong)
+    wrong = {key: n for key, n in PATH_WINO[path].items()
+             if key[6] != wino_route_of(*key[1:6])}
+    assert not wrong, (path, "point-GEMM off its route", wrong)
 
 
 def _rand(torch, rng, device, *shape, scale=1.0):
@@ -3732,11 +3777,13 @@ def drive_point_gemm(torch, device, rng, layers, batch=None) -> float:
     """The F(2x2) point-GEMMs of each 3x3 stride-1 conv, in bf16, through
     ``winograd_point_gemm`` on one image or, with ``batch``,
     ``winograd_point_gemm_batch`` on ``batch`` images, under
-    ``wino-128x128``'s bf16 plan: U and V from the port's weight transform
+    ``wino-128x128``'s bf16 plan for the call's route (``ops.plan``: 13 of
+    resnet18's 13 on wgmma at b=8, 11 on one image): U and V from the
+    port's weight transform
     and input transform kernel (fp32), rounded once to bf16. Oracle: the
     fp32 product of the same bf16 values, the output held by ``hold_bf16``
     (``KERNEL_TOL`` for the fp32 part)."""
-    from repro_torch.kernels.winograd.ops import cta_plan, weight_transform
+    from repro_torch.kernels.winograd.ops import plan, weight_transform
     from repro_torch.kernels.winograd.winograd import (winograd_input_transform,
                                                        winograd_point_gemm,
                                                        winograd_point_gemm_batch)
@@ -3748,10 +3795,8 @@ def drive_point_gemm(torch, device, rng, layers, batch=None) -> float:
         v = winograd_input_transform(x, 2).bfloat16()            # (N, 16, C, T)
         if batch is None:
             v = v[0]
-        bm, bn, bk, split = cta_plan(K, v.shape[-1], C, u.shape[0] * (batch or 1),
-                                     "wino-128x128", torch.bfloat16)
         fn = winograd_point_gemm if batch is None else winograd_point_gemm_batch
-        y = fn(u, v, bm=bm, bk=bk, bn=bn, split_k=split)
+        y = fn(u, v, **plan(u, v, "wino-128x128"))
         worst = max(worst, hold_bf16(torch, y, torch.matmul(u.float(), v.float()),
                                      KERNEL_TOL["atol"]))
     return worst
@@ -3835,9 +3880,10 @@ def kernel_table(torch):
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.winograd.ops import VARIANTS as WINO_VARIANTS
     from repro_torch.kernels.winograd.ops import cta_plan as wino_plan
+    from repro_torch.kernels.winograd.ops import wgmma_plan as wino_wgmma_plan
     from repro_torch.kernels.winograd.ref import point_gemm_ref
     from repro_torch.kernels.winograd.winograd import (
-        tiles_of, winograd_input_transform, winograd_input_transform_plain,
+        WGMMA_BK, tiles_of, winograd_input_transform, winograd_input_transform_plain,
         winograd_inverse_transform, winograd_inverse_transform_plain,
         winograd_point_gemm, winograd_point_gemm_batch,
         winograd_point_gemm_batch_plain, winograd_point_gemm_plain)
@@ -3947,25 +3993,31 @@ def kernel_table(torch):
                 isz(dt) * (N * C * rows * cols + K * C * f * f + P * K)
                 + ep_bytes(hr, P * K) + ep_bytes(hb, K))
 
-    def wino_plans(K, C, T, batch, dtype):
-        """(bm, bk, bn, split_k) of every wino-* and mm-* plan at one
-        point-GEMM shape, ``batch`` = images x points, on operands of
-        ``dtype``."""
-        return [(bm, bk, bn, split) for bm, bn, bk, split in
-                (wino_plan(K, T, C, batch, v, getattr(torch, dtype))
-                 for v in (*WINO_VARIANTS, *MM_VARIANTS))]
+    def wino_plans(K, C, T, batch, dtype, images=1):
+        """(bm, bk, bn, split_k, route) of every wino-* and mm-* plan at
+        one point-GEMM shape, ``batch`` = ``images`` x points, on operands
+        of ``dtype`` on the mma.sync route, and the wgmma route's one plan
+        where the shape can take it (``wino_takes``)."""
+        plans = [(bm, bk, bn, split, "mma.sync") for bm, bn, bk, split in
+                 (wino_plan(K, T, C, batch, v, getattr(torch, dtype))
+                  for v in (*WINO_VARIANTS, *MM_VARIANTS))]
+        if wino_takes(dtype, K, C):
+            bm, bn = wino_wgmma_plan(K, T, batch, images)
+            plans.append((bm, WGMMA_BK, bn, 1, "wgmma"))
+        return list(dict.fromkeys(plans))
 
     def wino_ops(sig):
         """(kernel, plain version, library call, plain version in fp32) of a
         batched point-GEMM signature; one image (``winograd_point_gemm``'s
         signature) where it has no N."""
-        one = len(sig) == 9
-        N, P, K, C, T, bm, bk, bn, split, dt = (1, *sig) if one else sig
+        one = len(sig) == 10
+        N, P, K, C, T, bm, bk, bn, split, route, dt = (1, *sig) if one else sig
         u = rnd(P, K, C, scale=C ** -0.5, dtype=dt)
         v = rnd(P, C, T, dtype=dt) if one else rnd(N, P, C, T, dtype=dt)
         kern, plain = ((winograd_point_gemm, winograd_point_gemm_plain) if one
                        else (winograd_point_gemm_batch, winograd_point_gemm_batch_plain))
-        return (lambda: kern(u, v, bm=bm, bk=bk, bn=bn, split_k=split),
+        return (lambda: kern(u, v, bm=bm, bk=bk, bn=bn, split_k=split,
+                             route=route),
                 lambda: plain(u, v),
                 lambda: point_gemm_ref(u, v),
                 lambda: plain(u.float(), v.float()))
@@ -4126,7 +4178,7 @@ def kernel_table(torch):
             replaces="src/repro/kernels/winograd/winograd.py:77",
             ops=wino_ops, work=wino_work, flops_s=lambda s: tc_rate(s[-1]),
             sweep=lambda s: [(*s[:5], *p, s[-1]) for p in
-                             wino_plans(*s[2:5], s[0] * s[1], s[-1])]),
+                             wino_plans(*s[2:5], s[0] * s[1], s[-1], s[0])]),
         "winograd_input_transform": dict(
             source="src/repro_torch/csrc/winograd.cu",
             replaces="src/repro/kernels/winograd/ops.py:97",

@@ -6,9 +6,10 @@
 with ``ctypes``. ``matmul.cu``, ``im2col_gemm.cu``, ``winograd.cu`` and
 ``flash_attention.cu`` build once per operand dtype (``-DRT_FP32`` /
 ``-DRT_BF16`` keep one dtype's entry points, so only that dtype's templates
-are instantiated), the other sources once (``matmul_wgmma.cu``, ``conv_wgmma.cu`` and
-``flash_wgmma.cu``, the bf16 matmul's, implicit-GEMM conv's and flash
-attention's wgmma routes).
+are instantiated), the other sources once (``matmul_wgmma.cu``,
+``conv_wgmma.cu``, ``winograd_wgmma.cu`` and ``flash_wgmma.cu``, the bf16
+matmul's, implicit-GEMM conv's, Winograd point-GEMM's and flash attention's
+wgmma routes).
 The build happens at first use (or by calling ``build_kernels()``): one
 ``nvcc`` process per library, all started together. A library's file name
 carries a digest of its source, the shared headers and the flags, so an
@@ -82,6 +83,7 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "conv_wgmma": ("conv_wgmma", ()),
     "winograd": ("winograd", ("-DRT_FP32",)),
     "winograd_bf16": ("winograd", ("-DRT_BF16",)),
+    "winograd_wgmma": ("winograd_wgmma", ()),
     "flash_attention": ("flash_attention", ("-DRT_FP32",)),
     "flash_attention_bf16": ("flash_attention", ("-DRT_BF16",)),
     "flash_wgmma": ("flash_wgmma", ()),

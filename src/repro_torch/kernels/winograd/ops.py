@@ -33,6 +33,24 @@ channel depth of 16. ``mm-*`` on a Winograd base tiles the point-GEMM as
 ``cta_plan`` fits the ceiling to each call's K x C by C x T point-GEMMs by
 the matmul kernel's rule (``common.fit_plan``), with the N images times P
 points as the batch.
+
+**Routes** of a direct point-GEMM call (``plan``): ``route`` picks each
+call's kernel from the call alone, before anything launches. bf16 u and v
+with at least 64 output channels, C % 8 == 0 and a 16-byte aligned u
+(``winograd.takes_wgmma``), and at least ``WGMMA_MIN_COLS`` (8) output
+columns, take ``"wgmma"`` (``csrc/winograd_wgmma.cu``), everything else
+``"mma.sync"`` (``csrc/winograd.cu``) under ``cta_plan``. The columns are
+T, or the images' T together where the wgmma kernel packs short rows
+(``WGMMA_PACK_T``), so U[p] is read once for all images. Of resnet18's
+one-image calls with fewer, T = 1 lost to mma.sync and T = 4 tied
+(tools/ab_wino_bf16.py). On the wgmma route ``wgmma_plan`` gives BM, the smallest of 64 and 128
+covering K (one or two consumer warpgroups of ``wgmma.m64n64k16``), or 64
+where 128 would leave half the SMs idle; every tile is 64 t-values wide
+and 64 deep a stage (``winograd.WGMMA_TILES``: two 64 x 64 CTAs share an
+SM, and were faster than 128- and 256-wide tiles on every resnet18
+layer). The wgmma route never splits C: every split of resnet18's
+point-GEMMs ran slower than none. The Winograd convs here run the fp32 point-GEMM whatever x's dtype,
+as the reference does, so they never take the wgmma route.
 """
 from __future__ import annotations
 
@@ -40,11 +58,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.common import as_f32, fit_plan
+from repro_torch.kernels.common import SMS, as_f32, fit_plan
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_CTA_TILES  # noqa: F401
 from repro_torch.kernels.matmul.ops import ceiling as mm_ceiling
 from repro_torch.kernels.winograd.winograd import (
-    TILE_M, TILE_N, transform_matrices, winograd_input_transform,
+    TILE_M, TILE_N, WGMMA_BK, WGMMA_BN, WGMMA_MIN_COLS, WGMMA_PACK_T,
+    WGMMA_TILE_M, takes_wgmma, transform_matrices, winograd_input_transform,
     winograd_inverse_transform, winograd_point_gemm, winograd_point_gemm_batch)
 
 VARIANTS: Dict[str, Tuple[int, int]] = {
@@ -80,6 +99,56 @@ def cta_plan(K: int, T: int, C: int, batch: int, variant: str,
     whole BK steps, until the output tiles give every SM a CTA and 8 warps
     (or one step per slice)."""
     return fit_plan(K, T, C, batch, ceiling(variant, dtype), TILE_M, TILE_N)
+
+
+def columns(T: int, images: int) -> Tuple[int, int]:
+    """(columns of a wgmma tile row, column runs) of ``images`` x P
+    point-GEMMs with T t-values: T once per image, or, where T <
+    ``WGMMA_PACK_T`` and there is more than one image, the images' T
+    together once (the kernel packs them)."""
+    if images > 1 and T < WGMMA_PACK_T:
+        return images * T, 1
+    return T, images
+
+
+def wgmma_plan(K: int, T: int, batch: int, images: int = 1) -> Tuple[int, int]:
+    """(BM, BN) for ``batch`` = ``images`` x P point-GEMMs (K, C) @ (C, T)
+    on the wgmma route, ``WGMMA_BK`` deep and unsplit. BM is the smallest
+    of ``WGMMA_TILE_M`` covering K (128 above), dropped to 64 where its
+    output tiles (``WGMMA_BN`` of the ``columns`` wide) would leave half of
+    the ``SMS`` streaming multiprocessors idle; BN is ``WGMMA_BN``."""
+    cols, runs = columns(T, images)
+    tiles = -(-cols // WGMMA_BN) * (batch // images) * runs   # per BM row
+    bm = next((t for t in WGMMA_TILE_M if t >= K), WGMMA_TILE_M[-1])
+    if bm > WGMMA_TILE_M[0] and 2 * -(-K // bm) * tiles < SMS:
+        bm = WGMMA_TILE_M[0]
+    return bm, WGMMA_BN
+
+
+def route(u, v) -> str:
+    """The kernel the point-GEMMs of ``u`` and ``v`` take: ``"wgmma"``
+    where ``winograd.takes_wgmma`` accepts the operands (bf16, K >= 64,
+    C % 8 == 0, u 16-byte aligned) and they have at least
+    ``WGMMA_MIN_COLS`` output ``columns``, else ``"mma.sync"``. Decided
+    from the call alone; neither route falls back to the other."""
+    images = 1 if v.dim() == 3 else v.shape[0]
+    wide = columns(v.shape[-1], images)[0] >= WGMMA_MIN_COLS
+    return "wgmma" if wide and takes_wgmma(u, v) else "mma.sync"
+
+
+def plan(u, v, variant: str = "wino-128x128") -> dict:
+    """The launch arguments of the point-GEMMs of ``u`` (P, K, C) and
+    ``v`` (N, P, C, T), or (P, C, T) for one image: route, tile and split,
+    as ``winograd_point_gemm`` / ``winograd_point_gemm_batch`` take them;
+    ``variant`` sets the mma.sync route's tile (``cta_plan``)."""
+    P, K, C = u.shape
+    T = v.shape[-1]
+    images = 1 if v.dim() == 3 else v.shape[0]
+    if route(u, v) == "wgmma":
+        bm, bn = wgmma_plan(K, T, P * images, images)
+        return dict(bm=bm, bk=WGMMA_BK, bn=bn, split_k=1, route="wgmma")
+    bm, bn, bk, split = cta_plan(K, T, C, P * images, variant, u.dtype)
+    return dict(bm=bm, bk=bk, bn=bn, split_k=split, route="mma.sync")
 
 
 def weight_transform(w: torch.Tensor, m: int) -> torch.Tensor:

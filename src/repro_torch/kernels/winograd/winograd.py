@@ -8,7 +8,8 @@ reference's kernels store it from their fp32 VMEM accumulator; and the
 input and inverse transforms around it, which the reference leaves to XLA
 and computes in fp32 (they take fp32 only).
 
-For CUDA tensors each wrapper launches its kernel in ``csrc/winograd.cu``;
+For CUDA tensors each wrapper launches its kernel in ``csrc/winograd.cu``
+(the point-GEMM's wgmma route in ``csrc/winograd_wgmma.cu``);
 for CPU tensors it computes its plain version (``*_plain``), the same
 function in plain torch.
 
@@ -20,7 +21,17 @@ function in plain torch.
   (``ops.cta_plan`` chooses both per shape and dtype). With ``split_k > 1``
   each slice writes its fp32 partial sum to a workspace allocated here and
   a second kernel adds the slices in a fixed order; the launch still counts
-  once. The launch signature ends with the operands' dtype.
+  once. The caller also names the kernel, ``route`` (``ROUTES``):
+  ``"mma.sync"`` (``csrc/winograd.cu``, either dtype, any shape) or, for the
+  operands ``takes_wgmma`` accepts (bf16, K >= 64, C % 8 == 0, u 16-byte
+  aligned; any T and any offset of v), ``"wgmma"``
+  (``csrc/winograd_wgmma.cu``: U by TMA, V gathered and realigned by a
+  producer warpgroup, Hopper's warpgroup MMA), whose tiles are the
+  ``(bm, bn)`` of ``WGMMA_TILES``, ``WGMMA_BK`` deep, and which never
+  splits C (``split_k`` 1). ``ops.route`` is the rule the entry points
+  use. A call that names ``"wgmma"`` on operands it
+  cannot take raises ``ValueError``; it is never run on the other route. The
+  launch signature ends with the route, then the operands' dtype.
 - ``winograd_input_transform``: x (N, C, H, W) -> V (N, n², C, T), one
   pass over x, zero past its edges.
 - ``winograd_inverse_transform``: M (N, n², K, T) -> y (N, K, oh, ow), with
@@ -47,6 +58,23 @@ TILE_M = (16, 32, 64, 128)
 TILE_N = (8, 32, 64, 128)
 TILE_K = (16, 32)
 TILE_K_BF16 = (32, 64)
+# the kernels a call may name: csrc/winograd.cu, csrc/winograd_wgmma.cu
+ROUTES = ("mma.sync", "wgmma")
+# (BM, BN) tiles csrc/winograd_wgmma.cu instantiates
+# (RT_FOR_EACH_WINO_WGMMA_BM by kBN), each WGMMA_BK deep: one or two
+# consumer warpgroups on 64 t-values
+WGMMA_TILE_M = (64, 128)              # one or two consumer warpgroups
+WGMMA_BN = 64                         # t-values: one 128-byte row of V
+WGMMA_TILES = tuple((bm, WGMMA_BN) for bm in WGMMA_TILE_M)
+WGMMA_BK = 64                         # one 128-byte swizzle row of U
+WGMMA_MIN_K = 64                      # output channels: one warpgroup's rows
+# calls with fewer output columns (t-values, packed across images) than
+# mma.sync's narrowest tile go to mma.sync (ops.route): a 64-wide wgmma
+# tile would compute 8 times the useful columns
+WGMMA_MIN_COLS = TILE_N[0]
+# rows of V shorter than this (one 64-wide box), in a batch of more than
+# one image, are packed: a wgmma tile's columns run over (image, t) pairs
+WGMMA_PACK_T = 64
 # operand dtype -> (library, suffix of its C entry points)
 _LIB = {torch.float32: ("winograd", "f32"),
         torch.bfloat16: ("winograd_bf16", "bf16")}
@@ -77,20 +105,59 @@ def winograd_point_gemm_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return y.to(u.dtype).contiguous()
 
 
+def takes_wgmma(u: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the wgmma route can take the point-GEMMs of ``u`` (P, K, C)
+    and ``v``: bf16 operands, K >= ``WGMMA_MIN_K`` output channels (one
+    consumer warpgroup's 64 rows), and U's rows where TMA can address them
+    (C % 8 == 0, u 16-byte aligned). Any T and any alignment of v: the
+    kernel's producers gather and realign V's rows themselves."""
+    return (u.dtype == torch.bfloat16 and v.dtype == torch.bfloat16
+            and u.shape[1] >= WGMMA_MIN_K and u.shape[2] % 8 == 0
+            and u.data_ptr() % 16 == 0)
+
+
+def _route_depth(name: str, u, v, C: int, plan: tuple, route: str) -> int:
+    """Check the launch plan ``(bm, bk, bn, split_k)`` on ``route`` and
+    return its depth ``bk`` (default: the route's at the dtype): the tile
+    must be instantiated for the route and dtype, each mma.sync split slice
+    own a step, and a wgmma call name operands ``takes_wgmma`` accepts and
+    no split."""
+    bm, bk, bn, split_k = plan
+    if route == "mma.sync":
+        bk = tile_k(u.dtype)[0] if bk is None else bk
+        check_plan(name, C, bm, bk, bn, split_k, TILE_M, tile_k(u.dtype),
+                   TILE_N)
+        return bk
+    if route != "wgmma":
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
+    if not takes_wgmma(u, v):
+        raise ValueError(f"{name}: the wgmma route takes bf16 operands with at "
+                         f"least {WGMMA_MIN_K} output channels, C % 8 == 0 and "
+                         f"a 16-byte aligned u; got {u.dtype} u "
+                         f"{tuple(u.shape)} at {u.data_ptr() % 16} bytes off "
+                         f"16, {v.dtype} v")
+    if split_k != 1:
+        raise ValueError(f"{name}: the wgmma route does not split C; got "
+                         f"split_k={split_k}")
+    bk = WGMMA_BK if bk is None else bk
+    check_plan(name, C, bm, bk, bn, split_k, WGMMA_TILE_M, (WGMMA_BK,),
+               (WGMMA_BN,))
+    return bk
+
+
 def _point_gemm(name: str, u: torch.Tensor, v: torch.Tensor, plan: tuple,
-                plain) -> torch.Tensor:
+                route: str, plain) -> torch.Tensor:
     """The body both wrappers share. ``v`` is (N, P, C, T), or (P, C, T) for
     one image, whose output then drops the N axis too; the one image runs
-    the single-image entry point, and ``plain`` is the wrapper's plain
-    version."""
+    the single-image entry point (the wgmma route's batched one at N = 1),
+    and ``plain`` is the wrapper's plain version."""
     one = v.dim() == 3
     P, K, C = u.shape
     N, P2, C2, T = (1, *v.shape) if one else v.shape
     if (P, C) != (P2, C2):
         raise ValueError(f"{name}: u {tuple(u.shape)} v {tuple(v.shape)}")
-    bm, bk, bn, split_k = plan
-    bk = tile_k(u.dtype)[0] if bk is None else bk
-    check_plan(name, C, bm, bk, bn, split_k, TILE_M, tile_k(u.dtype), TILE_N)
+    bm, _, bn, split_k = plan
+    bk = _route_depth(name, u, v, C, plan, route)
     check_int32(name, N=N, P=P, K=K, C=C, T=T)
     if on_cpu(name, u, v):
         return plain(u, v)
@@ -99,41 +166,51 @@ def _point_gemm(name: str, u: torch.Tensor, v: torch.Tensor, plan: tuple,
     ws = (torch.empty((split_k, *shape), dtype=torch.float32, device=u.device)
           if split_k > 1 else None)
     sizes = (P, K, C, T) if one else (N, P, K, C, T)
-    lib, suffix = _LIB[u.dtype]
-    fn = bind(lib, f"rt_winograd_point_gemm_{suffix}" if one
-              else f"rt_winograd_point_gemm_batch_{suffix}", 4, len(sizes) + 4)
-    check_launch(name, fn(ptr(u), ptr(v), ptr(out), ptr(ws), *sizes, bm, bn,
-                          bk, split_k, stream_of(u)))
-    count_launch(name, (*sizes, bm, bk, bn, split_k, dtype_name(u.dtype)))
+    if route == "wgmma":                  # one image as N = 1
+        fn = bind("winograd_wgmma", "rt_winograd_wgmma_bf16", 3, 6)
+        err = fn(ptr(u), ptr(v), ptr(out), N, P, K, C, T, bm, stream_of(u))
+    else:
+        lib, suffix = _LIB[u.dtype]
+        fn = bind(lib, f"rt_winograd_point_gemm_{suffix}" if one
+                  else f"rt_winograd_point_gemm_batch_{suffix}", 4, len(sizes) + 4)
+        err = fn(ptr(u), ptr(v), ptr(out), ptr(ws), *sizes, bm, bn, bk,
+                 split_k, stream_of(u))
+    check_launch(name, err)
+    count_launch(name, (*sizes, bm, bk, bn, split_k, route,
+                        dtype_name(u.dtype)))
     return out
 
 
 def winograd_point_gemm_batch(u: torch.Tensor, v: torch.Tensor, *,
                               bm: int = 64, bk: Optional[int] = None,
-                              bn: int = 64, split_k: int = 1) -> torch.Tensor:
+                              bn: int = 64, split_k: int = 1,
+                              route: str = "mma.sync") -> torch.Tensor:
     """u (P, K, C) shared weights, v (N, P, C, T) batched input transform ->
     (N, P, K, T) in u's dtype. The CTA tile covers ``bm`` of K by ``bn`` of
-    T with a reduction depth of ``bk`` channels (default: the dtype's
-    shallowest instantiated depth); one CTA column per (n, p, slice), the
-    images of one point p next to each other on the grid."""
+    T with a reduction depth of ``bk`` channels (default: the route's depth
+    at the dtype); on mma.sync one CTA column per (n, p, slice), the images
+    of one point p next to each other on the grid; on wgmma a persistent
+    grid walks the same tiles. ``route`` names the kernel (``ROUTES``)."""
     if v.dim() != 4:
         raise ValueError(f"winograd_point_gemm_batch: v {tuple(v.shape)} is "
                          f"not 4-D")
     return _point_gemm("winograd_point_gemm_batch", u, v,
-                       (bm, bk, bn, split_k), winograd_point_gemm_batch_plain)
+                       (bm, bk, bn, split_k), route,
+                       winograd_point_gemm_batch_plain)
 
 
 def winograd_point_gemm(u: torch.Tensor, v: torch.Tensor, *, bm: int = 64,
                         bk: Optional[int] = None, bn: int = 64,
-                        split_k: int = 1) -> torch.Tensor:
+                        split_k: int = 1,
+                        route: str = "mma.sync") -> torch.Tensor:
     """u (P, K, C), v (P, C, T) -> (P, K, T) in u's dtype: one image's P
     point-GEMMs. The CTA tile covers ``bm`` of K by ``bn`` of T with a
-    reduction depth of ``bk`` channels (default: the dtype's shallowest
-    instantiated depth); one CTA column per (p, slice)."""
+    reduction depth of ``bk`` channels (default: the route's depth at the
+    dtype). ``route`` as in ``winograd_point_gemm_batch``."""
     if v.dim() != 3:
         raise ValueError(f"winograd_point_gemm: v {tuple(v.shape)} is not 3-D")
     return _point_gemm("winograd_point_gemm", u, v, (bm, bk, bn, split_k),
-                       winograd_point_gemm_plain)
+                       route, winograd_point_gemm_plain)
 
 
 # ---------------------------------------------------------------------------

@@ -421,7 +421,8 @@ def launched(monkeypatch):
 def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
     """A bf16 conv or point-GEMM launch binds the bf16 library's entry point
     with as many arguments as it declares, records the operand dtype last
-    (a conv's bias and residual as their dtype's name, then its route), and
+    (a conv's bias and residual as their dtype's name, then its route; a
+    point-GEMM's route), and
     chip_smoke.py reads that dtype (``sig_dtype``) and bounds the signature
     at 989 TFLOP/s and 2-byte traffic, an fp32 bias at 4 bytes; fp32 launches keep the
     3xTF32 rate and 4-byte traffic."""
@@ -449,8 +450,8 @@ def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
                   True, "mma.sync", "bfloat16")
     assert c1 == (8, 10, 10, 16, 3, 1, 16, 16, 64, 2, False, False, False,
                   "mma.sync", "float32")
-    assert wb == (2, 16, 8, 24, 9, 16, 32, 8, 1, "bfloat16")
-    assert w1 == (16, 8, 24, 9, 16, 16, 8, 1, "float32")
+    assert wb == (2, 16, 8, 24, 9, 16, 32, 8, 1, "mma.sync", "bfloat16")
+    assert w1 == (16, 8, 24, 9, 16, 16, 8, 1, "mma.sync", "float32")
     for name, sig, dt in (("conv_im2col_batch", cb, "bfloat16"), ("conv_im2col", c1, "float32"),
                           ("winograd_point_gemm_batch", wb, "bfloat16"),
                           ("winograd_point_gemm", w1, "float32")):
@@ -470,8 +471,8 @@ def test_bf16_conv_and_point_gemm_signatures_and_bounds(launched):
     sweep = table["conv_im2col_batch"]["sweep"](cb)
     assert {s[8] for s in sweep} == {32} and {s[-1] for s in sweep} == {"bfloat16"}
     assert {s[11] for s in sweep} == {False, "bfloat16"}
-    assert {s[6] for s in table["winograd_point_gemm"]["sweep"](
-        (16, 8, 24, 9, 16, 32, 8, 1, "bfloat16"))} <= {32, 64}
+    assert {s[5] for s in table["winograd_point_gemm"]["sweep"](
+        (16, 8, 24, 9, 16, 32, 8, 1, "mma.sync", "bfloat16"))} <= {32, 64}
 
 
 def test_chip_smoke_served_rows_are_timed_on_served_passes(monkeypatch):

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""A/B of the fp32 implicit-GEMM conv and Winograd point-GEMM kernels (rows
-2, 3, 5 and 6 of PERF.md's table), two source trees on one card, in turns.
+"""A/B of the fp32 matmul, implicit-GEMM conv and Winograd point-GEMM
+kernels (rows 1, 2, 3, 5 and 6 of PERF.md's table), two source trees on one
+card, in turns.
 
     python3 tools/ab_conv_wino_fp32.py --trees build/parent . --order 0,1,1,0
 
 Each turn runs in a process of its own that imports the tree's
 ``repro_torch`` (``<tree>/src``) and ``chip_smoke.py``, builds only its
-fp32 conv and Winograd libraries (``im2col_gemm`` and ``winograd`` of
-``kernels/common.LIBRARIES``) into ``<tree>/build``, records the launch
+fp32 matmul, conv and Winograd libraries (``matmul``, ``im2col_gemm`` and
+``winograd`` of ``kernels/common.LIBRARIES``) into ``<tree>/build``,
+records the launch
 signatures of the passes ``chip_smoke.py`` times these rows on, and times
 each pass as ``chip_smoke.check_and_time`` does (each signature's kernel
 call through the tree's own ``kernel_table``, ``chip_smoke.time_ms``,
 times its launches, summed over the pass):
 
+- row 1 (``matmul``): one b=8 forward of edge_cnn / PBQP, served by
+  ``chip_smoke.make_server``;
 - rows 2 and 3 (``conv_im2col_batch``, ``winograd_point_gemm_batch``): one
-  b=8 forward of resnet18 / mix, served by ``chip_smoke.make_server``;
+  b=8 forward of resnet18 / mix, served likewise;
 - row 5 (``conv_im2col``): phase 5's ``conv_im2col_op`` pass over
   resnet18's 20 convs on one image;
 - row 6 (``winograd_point_gemm``): phase 5's F(2x2) ``winograd_conv_op``
@@ -39,8 +43,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
-ROWS = ("conv_im2col_batch", "winograd_point_gemm_batch", "conv_im2col",
-        "winograd_point_gemm")
+ROWS = ("matmul", "conv_im2col_batch", "winograd_point_gemm_batch",
+        "conv_im2col", "winograd_point_gemm")
 
 
 def card() -> str:
@@ -63,19 +67,22 @@ def measure(tree: Path, reps: int) -> dict:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
 
-    for name in [n for n in common.LIBRARIES if n not in ("im2col_gemm", "winograd")]:
+    for name in [n for n in common.LIBRARIES
+                 if n not in ("matmul", "im2col_gemm", "winograd")]:
         del common.LIBRARIES[name]         # this turn times the fp32 kernels alone
     build_s = common.build_kernels()
     passes = {}
     server, nets, _ = smoke.make_server(
-        torch, {"resnet18_mix": (cnn_zoo.get("resnet18"), smoke.kernel_mix_assignment)},
+        torch, {"edge_cnn_pbqp": (cnn_zoo.get("edge_cnn"), None),
+                "resnet18_mix": (cnn_zoo.get("resnet18"), smoke.kernel_mix_assignment)},
         SEED)
-    opt = nets["resnet18_mix"]
-    common.reset_launches()
-    server.serve("resnet18_mix", list(smoke.images(np.random.default_rng(SEED), opt.spec, 8)))
-    torch.cuda.synchronize()
-    for k in ROWS[:2]:
-        passes[k] = dict(common.SEEN[k])
+    for path, rows in (("edge_cnn_pbqp", ROWS[:1]), ("resnet18_mix", ROWS[1:3])):
+        opt = nets[path]
+        common.reset_launches()
+        server.serve(path, list(smoke.images(np.random.default_rng(SEED), opt.spec, 8)))
+        torch.cuda.synchronize()
+        for k in rows:
+            passes[k] = dict(common.SEEN[k])
     layers = smoke.conv_layers(cnn_zoo.get("resnet18"))
     wino = [l for l in layers if l[4] == 3 and l[5] == 1]
     for k, drive in (("conv_im2col", lambda r: smoke.drive_conv_im2col(torch, "cuda", r, layers)),
