@@ -46,7 +46,10 @@ Phases, each of which asserts:
    under every ``VARIANTS`` key at the largest (flash attention: under
    every instantiated tile, causal and not), and timed as in phase 2.
    The kernels that take bf16 run bf16 paths too (named ``bf16``), on
-   bf16 operands: ``matmul_batch_op`` on resnet18's convs at b=8,
+   bf16 operands: ``matmul_batch_op`` on resnet18's convs at b=8 (all 20
+   must run the wgmma route, ``csrc/matmul_wgmma.cu``: 3 with both operands
+   by TMA, 17 with the patches gathered, conv0's weights too; the loaders
+   per launch are printed, each layer's ms beside ``torch.matmul``'s),
    ``conv_im2col_op`` on each conv of one image and
    ``conv_im2col_batch_op`` on each conv at b=8 (bias and residual bf16,
    ReLU; every bf16 conv launch of at least 64 output channels, all 20 of
@@ -304,8 +307,8 @@ seven TPU kernels again in bf16 (sixteen rows), each row's launches those
 of the paths of its dtype. The routed kernels'
 rows also count their launches per route (``launches_by_route`` over the
 run, ``pass_launches_by_route`` over the timed pass: bf16 matmul operands
-that TMA can address run ``csrc/matmul_wgmma.cu``, the rest
-``csrc/matmul.cu``; bf16 convs of at least 64 output channels run
+of at least 64 rows run ``csrc/matmul_wgmma.cu`` (each operand by TMA
+or gathered, the loaders in the signature), the rest ``csrc/matmul.cu``; bf16 convs of at least 64 output channels run
 ``csrc/conv_wgmma.cu``, the rest ``csrc/im2col_gemm.cu``; bf16
 point-GEMMs of at least 64 output channels, C % 8 == 0 and 8 or more
 output columns run ``csrc/winograd_wgmma.cu``, the rest
@@ -605,9 +608,13 @@ def main() -> int:
         routes = {k: PATH_ROUTES[name][k] for k in ROUTED if k in want}
         if name in bf16_paths and kernel in WINOS:   # each on its route, above
             assert routes[kernel]["bfloat16"].get("wgmma", 0) > 0, (name, routes[kernel])
+        if name in bf16_paths and kernel == "matmul_batch":   # every conv on wgmma
+            assert routes[kernel] == {"bfloat16": {"wgmma": len(resnet18)}}, routes
+        how = mm_loaders(name, kernel) if kernel == "matmul_batch" else {}
         print(f"entry {name}: max |out - oracle| = {oracle_err[name]:.3g}, "
               f"launches {({k: launches[name][k] for k in sorted(want)})}"
-              + (f", by dtype and route {routes}" if routes else ""),
+              + (f", by dtype and route {routes}" if routes else "")
+              + (f", wgmma loaders (A/B) {how}" if how else ""),
               flush=True)
     for k in ENTRY_KERNELS:
         seen = set().union(*(set(c) for c in entry_seen[k].values()))
@@ -3303,7 +3310,8 @@ def examples_phase(torch, launches, seed, smi, device="cuda"):
           f"{data.seconds:.1f} s of timing; NN2 held-out MdRAE {mdrae!r} on "
           f"{len(data.split(seed)[2])} rows; phase (b) {s:.1f} s; "
           f"{launches[path]['matmul']} matmul launches, by route "
-          f"{PATH_ROUTES[path]['matmul']}; all {len(sites)} LM sites on wgmma  ({smi})",
+          f"{PATH_ROUTES[path]['matmul']}, wgmma loaders (A/B) "
+          f"{mm_loaders(path, 'matmul')}; all {len(sites)} LM sites on wgmma  ({smi})",
           flush=True)
     out["autotune"] = {"rows": int(data.feats.shape[0]), "sites": data.n_sites,
                        "dtype": dtype_name(data.dtype),
@@ -3527,6 +3535,8 @@ PATH_FLASH: dict = {}
 PATH_CONV: dict = {}
 # path -> {(point-GEMM kernel, operand dtype, K, C, T, images, route): launches}
 PATH_WINO: dict = {}
+# path -> {(matmul kernel, operand dtype, M, route, loaders): launches}
+PATH_MM: dict = {}
 # the kernels with an mma.sync and a wgmma route, and each route's source
 ROUTE_SOURCES = {
     "matmul": {"mma.sync": "src/repro_torch/csrc/matmul.cu",
@@ -3559,12 +3569,26 @@ def sig_dtype(kernel: str, sig) -> str:
 
 def sig_route(kernel: str, sig) -> str:
     """The route of a launch signature of a kernel in ``ROUTED``: for the
-    matmul kernels the field before the stages and dtypes, for the convs
-    and the point-GEMMs the field before the dtype, for flash attention the
-    field before the scale and the dtype."""
+    matmul kernels the field before the stages, the loaders and the dtypes,
+    for the convs and the point-GEMMs the field before the dtype, for flash
+    attention the field before the scale and the dtype."""
     if kernel in ("matmul", "matmul_batch"):
-        return sig[-4]
+        return sig[-5]
     return sig[-3] if kernel == "flash_attention" else sig[-2]
+
+
+def sig_loaders(sig) -> str:
+    """How a matmul launch loaded its operands (``matmul.loaders``: "a/b",
+    each "tma" or "gather"), None on mma.sync: the field before the
+    dtypes."""
+    return sig[-3]
+
+
+def mm_route_of(dtype: str, M: int) -> str:
+    """The route every main-path matmul launch must take (``matmul/ops.
+    route``): wgmma for bf16 with at least 64 rows of A, whatever the
+    operands' alignment, else mma.sync."""
+    return "wgmma" if dtype == "bfloat16" and M >= 64 else "mma.sync"
 
 
 def conv_route_of(dtype: str, K: int) -> str:
@@ -3620,7 +3644,7 @@ def took(path: str) -> dict:
     launches, seen = common.snapshot()
     by_dtype = {k: {} for k in common.KERNELS}
     by_route = {k: {} for k in ROUTED}
-    flash, conv, wino = {}, {}, {}
+    flash, conv, wino, mm = {}, {}, {}, {}
     for k, counts in seen.items():
         for sig, n in counts.items():
             dt = sig_dtype(k, sig)
@@ -3638,11 +3662,16 @@ def took(path: str) -> dict:
                 images = sig[0] if k == "winograd_point_gemm_batch" else 1
                 key = (k, dt, sig[-9], sig[-8], sig[-7], images, sig_route(k, sig))
                 wino[key] = wino.get(key, 0) + n
+            if k in ("matmul", "matmul_batch"):     # (B,) M, K, N, ...
+                key = (k, dt, sig[1 if k == "matmul_batch" else 0],
+                       sig_route(k, sig), sig_loaders(sig))
+                mm[key] = mm.get(key, 0) + n
     PATH_DTYPES[path] = by_dtype
     PATH_ROUTES[path] = by_route
     PATH_FLASH[path] = flash
     PATH_CONV[path] = conv
     PATH_WINO[path] = wino
+    PATH_MM[path] = mm
     return launches
 
 
@@ -3652,7 +3681,9 @@ def check_path_dtype(path: str, dtype: str) -> None:
     its route (``flash_route_of``): each bf16 launch at d = 64 or 128 on the
     wgmma kernel, every conv launch on its route (``conv_route_of``):
     each bf16 launch of at least 64 output channels on the wgmma kernel,
-    and every point-GEMM launch on its route (``wino_route_of``)."""
+    every point-GEMM launch on its route (``wino_route_of``), and every
+    matmul launch on its route (``mm_route_of``: each bf16 launch of at
+    least 64 rows on the wgmma kernel, whatever its loaders)."""
     from repro_torch.kernels.common import DTYPES
     for k in DTYPES:
         got = set(PATH_DTYPES[path][k])
@@ -3666,6 +3697,18 @@ def check_path_dtype(path: str, dtype: str) -> None:
     wrong = {key: n for key, n in PATH_WINO[path].items()
              if key[6] != wino_route_of(*key[1:6])}
     assert not wrong, (path, "point-GEMM off its route", wrong)
+    wrong = {key: n for key, n in PATH_MM[path].items()
+             if key[3] != mm_route_of(*key[1:3])}
+    assert not wrong, (path, "matmul off its route", wrong)
+
+
+def mm_loaders(path: str, kernel: str) -> dict:
+    """{loaders: launches} of ``kernel``'s wgmma launches on ``path``."""
+    out = {}
+    for (k, _, _, rt, how), n in PATH_MM[path].items():
+        if k == kernel and rt == "wgmma":
+            out[how] = out.get(how, 0) + n
+    return out
 
 
 def _rand(torch, rng, device, *shape, scale=1.0):
@@ -3871,10 +3914,10 @@ def kernel_table(torch):
     from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_plan
     from repro_torch.kernels.im2col_gemm.ops import wgmma_plan as conv_wgmma_plan
     from repro_torch.kernels.im2col_gemm.ref import conv_ref
-    from repro_torch.kernels.matmul.matmul import (MMA_STAGES, matmul,
-                                                   matmul_batch,
+    from repro_torch.kernels.matmul.matmul import (MMA_STAGES, loaders,
+                                                   matmul, matmul_batch,
                                                    matmul_batch_plain,
-                                                   matmul_plain)
+                                                   matmul_plain, packs)
     from repro_torch.kernels.matmul.ops import VARIANTS as MM_VARIANTS
     from repro_torch.kernels.matmul.ops import cta_plan, wgmma_plan
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -3900,16 +3943,32 @@ def kernel_table(torch):
         mma, or fp32 as 3xTF32."""
         return BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS / 3
 
-    def mm_plans(M, K, N, batch, dtype):
-        """(bm, bk, bn, split_k, route, stages) of every variant's plan at
-        one shape on the mma.sync route and, where the shape takes it (bf16,
-        M >= 64, K and N multiples of 8), on the wgmma route."""
-        plans = [(bm, bk, bn, split, "mma.sync", MMA_STAGES) for bm, bn, bk, split
+    def mm_loaders_of(M, K, N, batch, x_bcast):
+        """(loaders, packed) of a wgmma call on the fresh, contiguous
+        operands ``mm_ops`` / ``mmb_ops`` make: ``matmul.loaders`` and
+        ``matmul.packs`` on meta tensors of their shapes (address 0, so
+        16-byte aligned as an allocation is)."""
+        meta = dict(dtype=torch.bfloat16, device="meta")
+        lead = (batch,) if batch > 1 else ()
+        x = (torch.empty(M, K, **meta).expand(batch, M, K) if x_bcast and lead
+             else torch.empty(*lead, M, K, **meta))
+        y = torch.empty(*lead, K, N, **meta)
+        how = loaders(x, y)
+        return how, packs(x, y, how)
+
+    def mm_plans(M, K, N, batch, dtype, x_bcast=False):
+        """(bm, bk, bn, split_k, route, stages, loaders) of every variant's
+        plan at one shape on the mma.sync route and, where the shape takes
+        it (bf16, M >= 64), on the wgmma route under the operands'
+        loaders."""
+        plans = [(bm, bk, bn, split, "mma.sync", MMA_STAGES, None) for bm, bn, bk, split
                  in (cta_plan(M, N, K, batch, v, getattr(torch, dtype))
                      for v in MM_VARIANTS)]
-        if dtype == "bfloat16" and M >= 64 and K % 8 == N % 8 == 0:
-            plans += [(bm, bk, bn, split, "wgmma", st) for bm, bn, bk, st, split
-                      in (wgmma_plan(M, N, K, batch, v) for v in MM_VARIANTS)]
+        if mm_route_of(dtype, M) == "wgmma":
+            how, packed = mm_loaders_of(M, K, N, batch, x_bcast)
+            plans += [(bm, bk, bn, split, "wgmma", st, how) for bm, bn, bk, st, split
+                      in (wgmma_plan(M, N, K, batch, v, how, packed)
+                          for v in MM_VARIANTS)]
         return list(dict.fromkeys(plans))
 
     def mm_eps(dt):
@@ -3920,8 +3979,9 @@ def kernel_table(torch):
     def mm_ops(sig):
         """(kernel, plain version, library call, plain version in fp32):
         the last is the fp32 result a bf16 output is held to."""
-        M, K, N, bm, bk, bn, split, hb, hr, relu, route, stages, dt, odt = sig
+        M, K, N, bm, bk, bn, split, hb, hr, relu, route, stages, how, dt, odt = sig
         x, y = rnd(M, K, scale=K ** -0.5, dtype=dt), rnd(K, N, dtype=dt)
+        assert route != "wgmma" or loaders(x, y) == how, (sig, loaders(x, y))
         ep = dict(bias=rnd(M, dtype=hb) if hb else None,
                   residual=rnd(M, N, dtype=hr) if hr else None, relu=relu)
         out = getattr(torch, odt)
@@ -4029,10 +4089,11 @@ def kernel_table(torch):
 
     def mmb_ops(sig):
         (B, M, K, N, x_bcast, y_bcast, bm, bk, bn, split, hb, hr, relu, route,
-         stages, dt, odt) = sig
+         stages, how, dt, odt) = sig
         x = (rnd(M, K, scale=K ** -0.5, dtype=dt).expand(B, M, K) if x_bcast
              else rnd(B, M, K, scale=K ** -0.5, dtype=dt))
         y = rnd(K, N, dtype=dt).expand(B, K, N) if y_bcast else rnd(B, K, N, dtype=dt)
+        assert route != "wgmma" or loaders(x, y) == how, (sig, loaders(x, y))
         ep = dict(bias=rnd(M, dtype=hb) if hb else None,
                   residual=rnd(B, M, N, dtype=hr) if hr else None, relu=relu)
         out = getattr(torch, odt)
@@ -4194,7 +4255,7 @@ def kernel_table(torch):
             replaces="src/repro/kernels/matmul/matmul.py:87",
             ops=mmb_ops, work=mmb_work, flops_s=lambda s: tc_rate(s[-2]),
             sweep=lambda s: [(*s[:6], *p[:4], *e, *p[4:], *s[-2:])
-                             for p in mm_plans(*s[1:4], s[0], s[-2])
+                             for p in mm_plans(*s[1:4], s[0], s[-2], s[4])
                              for e in mm_eps(s[-2])]),
         "conv_im2col": dict(
             source="src/repro_torch/csrc/im2col_gemm.cu",

@@ -3,7 +3,9 @@
 // bytes, and warpgroup MMAs (wgmma) that read both operands from shared
 // memory through matrix descriptors (or A from registers).
 // matmul_wgmma.cu builds its GEMM from them, flash_wgmma.cu its attention;
-// nothing here knows a tile size.
+// nothing here knows a tile size. Rows TMA cannot address (off 16 bytes)
+// are read as aligned windows and realigned (load_window, realign), by
+// winograd_wgmma.cu and matmul_wgmma.cu's gathering producers.
 //
 // - Tensor maps are encoded on the host by cuTensorMapEncodeTiled, found
 //   through the runtime's driver entry point, so a library needs no -lcuda.
@@ -253,6 +255,58 @@ __device__ __forceinline__ void fence_async_shared() {
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: rows TMA cannot address, gathered by a producer warpgroup
+// ---------------------------------------------------------------------------
+//
+// A bf16 row that starts off a 16-byte boundary is read as aligned 16-byte
+// windows: for the 8 elements from element e (counted from the 16-byte
+// boundary at or below the operand's base, `base16`), the window at e & ~7
+// and, where e is off 16 bytes, the next one, then shifted into place by
+// the row's own misalignment e % 8 (winograd_wgmma.cu's V, matmul_wgmma.cu's
+// gathered A and B). A window that starts at or past `end` (the operand's
+// last element + 1, from base16) is not loaded and reads as zero; a window
+// that starts before the operand (a view at an odd offset) lies in the
+// 16-byte block of its first element, inside its allocation.
+
+// The two windows of the 8 elements from e, and e's misalignment; both
+// zero where !ok (a row past the operand's edge).
+__device__ __forceinline__ void load_window(int4& lo, int4& hi, int& mis,
+                                            const int4* base16, long long e,
+                                            long long end, bool ok) {
+  const long long w = e & ~7LL;                 // its aligned window
+  mis = (int)(e - w);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  lo = ok && w < end ? __ldg(base16 + (w >> 3)) : zero;
+  hi = ok && mis != 0 && w + 8 < end ? __ldg(base16 + (w >> 3) + 1) : zero;
+}
+
+// The 8 bf16 that start `mis` elements into the 32 bytes lo:hi (two aligned
+// 16-byte windows, lo first): whole words selected by mis / 2, then a
+// 16-bit funnel shift where mis is odd.
+__device__ __forceinline__ uint4 realign(int4 lo, int4 hi, int mis) {
+  uint32_t w[8] = {(uint32_t)lo.x, (uint32_t)lo.y, (uint32_t)lo.z,
+                   (uint32_t)lo.w, (uint32_t)hi.x, (uint32_t)hi.y,
+                   (uint32_t)hi.z, (uint32_t)hi.w};
+  if (mis & 4) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) w[i] = w[i + 2];
+  }
+  if (mis & 2) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) w[i] = w[i + 1];
+  }
+  const uint32_t s = (mis & 1) * 16;
+  return make_uint4(__funnelshift_r(w[0], w[1], s), __funnelshift_r(w[1], w[2], s),
+                    __funnelshift_r(w[2], w[3], s), __funnelshift_r(w[3], w[4], s));
 }
 
 // a barrier over `count` threads (a multiple of 32), id 1..15 (0 is

@@ -44,7 +44,9 @@
 //    the next one (ld.global.nc.v4; the second is the neighbour lane's
 //    first, an L1 hit), and shifts the pair into place by the row's own
 //    misalignment (base + c T + t0) mod 8, which changes from row to row
-//    when T is odd: a word select and one funnel shift a word. Each thread
+//    when T is odd: a word select and one funnel shift a word
+//    (wgmma_bf16.cuh's load_window and realign, which matmul_wgmma.cu's
+//    gathered operands share). Each thread
 //    issues all of a stage's loads before it shifts and stores any. A
 //    window that starts at or past V's end is not loaded (zero); a window
 //    that starts before V (a view at an odd offset) lies in the 16-byte
@@ -148,32 +150,6 @@ struct WinoTile {
   static_assert(BM == 64 || BM == 128, "one or two consumer warpgroups");
   static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
 };
-
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// The 8 bf16 that start `mis` elements into the 32 bytes lo:hi (two aligned
-// 16-byte windows, lo first): whole words selected by mis / 2, then a
-// 16-bit funnel shift where mis is odd.
-__device__ __forceinline__ uint4 realign(int4 lo, int4 hi, int mis) {
-  uint32_t w[8] = {(uint32_t)lo.x, (uint32_t)lo.y, (uint32_t)lo.z,
-                   (uint32_t)lo.w, (uint32_t)hi.x, (uint32_t)hi.y,
-                   (uint32_t)hi.z, (uint32_t)hi.w};
-  if (mis & 4) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) w[i] = w[i + 2];
-  }
-  if (mis & 2) {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) w[i] = w[i + 1];
-  }
-  const uint32_t s = (mis & 1) * 16;
-  return make_uint4(__funnelshift_r(w[0], w[1], s), __funnelshift_r(w[1], w[2], s),
-                    __funnelshift_r(w[2], w[3], s), __funnelshift_r(w[3], w[4], s));
-}
 
 // One stage of this warpgroup's slab: acc (+)= A (64 x 64, K-major at `a`)
 // @ B (64 x kBN, MN-major at `b`), four 16-deep wgmma steps, summed from
@@ -380,24 +356,18 @@ __global__ void __launch_bounds__(WinoTile<BM>::kThreads, 1)
 #pragma unroll
           for (int j = 0; j < TL::kPasses; ++j) {
             const int c = c0 + r0 + j * TL::kRows;
-            const long long e = z + (long long)c * T;   // from V16
-            const long long w = e & ~7LL;               // its aligned window
-            mis[j] = (int)(e - w);
-            const bool row = c < C;
-            const bool ok0 = row && w < end;
-            const bool ok1 = row && mis[j] != 0 && w + 8 < end;
-            const int4 zero = make_int4(0, 0, 0, 0);
-            lo[j] = ok0 ? __ldg(V16 + (w >> 3)) : zero;
-            hi[j] = ok1 ? __ldg(V16 + (w >> 3) + 1) : zero;
+            rt::wg::load_window(lo[j], hi[j], mis[j], V16, z + (long long)c * T,
+                                end, c < C);
           }
 #pragma unroll
-          for (int j = 0; j < TL::kPasses; ++j) x[j] = realign(lo[j], hi[j], mis[j]);
+          for (int j = 0; j < TL::kPasses; ++j)
+            x[j] = rt::wg::realign(lo[j], hi[j], mis[j]);
         }
         const uint32_t bs = rt::wg::smem_addr(a + TL::kABytes);
 #pragma unroll
         for (int j = 0; j < TL::kPasses; ++j) {
           const int r = r0 + j * TL::kRows;
-          st_shared_v4(bs + r * 128 + (((q & 7) ^ (r & 7)) << 4), x[j]);
+          rt::wg::st_shared_v4(bs + r * 128 + (((q & 7) ^ (r & 7)) << 4), x[j]);
         }
         // the stores reach the async proxy before the stage is published
         rt::wg::fence_async_shared();

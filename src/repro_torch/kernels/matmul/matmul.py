@@ -14,20 +14,23 @@ reference's ``_finish`` does; the output is stored once in ``out_dtype``
 
 The caller names the kernel, ``route`` (``ROUTES``): ``"mma.sync"``
 (``csrc/matmul.cu``, either dtype, any shape) or, for bf16 operands that
-``takes_wgmma`` accepts, ``"wgmma"`` (``csrc/matmul_wgmma.cu``: TMA loads
-and Hopper's warpgroup MMA). ``ops.route`` is the rule the entry points
-use. A call that names ``"wgmma"`` on operands it cannot take raises
-``ValueError``; it is never run on the other route. The caller also names
-the launch plan: a tile ``(bm, bk, bn)`` that the route's source
-instantiates (mma.sync: ``TILE_M`` x ``TILE_K`` x ``TILE_N`` for fp32,
-``TILE_K_BF16`` deep for bf16; wgmma: ``bk`` = ``WGMMA_BK`` and ``(bm, bn,
-stages)`` one of ``WGMMA_TILES``) and ``split_k``, the number of slices the
-K walk is cut into (``ops.cta_plan`` / ``ops.wgmma_plan`` choose them per
-shape). With ``split_k > 1`` each slice writes its fp32 partial sum to a
-workspace allocated here, and a second kernel adds the slices in a fixed
-order and applies the epilogue once. Either route counts its launch once,
-under ``matmul`` or ``matmul_batch``; the launch signature records the
-route and its ring's stages.
+``takes_wgmma`` accepts (M >= 64, any alignment), ``"wgmma"``
+(``csrc/matmul_wgmma.cu``: Hopper's warpgroup MMA, each operand loaded by
+TMA where TMA can address it and gathered by a producer warpgroup where it
+cannot; ``loaders`` says which, from the call alone). ``ops.route`` is the
+rule the entry points use. A call that names ``"wgmma"`` on operands it
+cannot take raises ``ValueError``; it is never run on the other route. The
+caller also names the launch plan: a tile ``(bm, bk, bn)`` that the route's
+source instantiates (mma.sync: ``TILE_M`` x ``TILE_K`` x ``TILE_N`` for
+fp32, ``TILE_K_BF16`` deep for bf16; wgmma: ``bk`` = ``WGMMA_BK`` and
+``(bm, bn, stages)`` one of ``WGMMA_TILES`` where both operands come by
+TMA, else one of ``WGMMA_GATHER_TILES``) and ``split_k``, the number of
+slices the K walk is cut into (``ops.cta_plan`` / ``ops.wgmma_plan`` choose
+them per shape). With ``split_k > 1`` each slice writes its fp32 partial
+sum to a workspace allocated here, and a second kernel adds the slices in a
+fixed order and applies the epilogue once. Either route counts its launch
+once, under ``matmul`` or ``matmul_batch``; the launch signature records
+the route, its ring's stages and, on wgmma, the loaders.
 """
 from __future__ import annotations
 
@@ -57,6 +60,16 @@ WGMMA_TILE_N = (64, 128, 256)
 WGMMA_TILES = tuple((bm, bn, s) for s in (3, 4) for bm in WGMMA_TILE_M
                     for bn in WGMMA_TILE_N) + ((64, 64, 8), (64, 128, 8))
 WGMMA_BK = 64                  # one 128-byte swizzle row of A
+# (BM, BN, stages) tiles of csrc/matmul_wgmma.cu's gathered kernel
+# (RT_FOR_EACH_GATHER_TILE, kGatherStages): calls with B gathered and A by
+# TMA; a gathered A takes WGMMA_GATHER_A_TILE alone (kGatherABM, kGatherABN)
+WGMMA_GATHER_STAGES = 4
+WGMMA_GATHER_TILES = tuple((bm, 64, WGMMA_GATHER_STAGES) for bm in WGMMA_TILE_M)
+WGMMA_GATHER_A_TILE = (64, 64, WGMMA_GATHER_STAGES)
+# B's rows shorter than this, with A broadcast over more than one entry,
+# are packed across the entries (csrc/matmul_wgmma.cu's kPackN)
+WGMMA_PACK_N = 64
+LOADERS = ("tma", "gather")    # how the wgmma route loads an operand
 ROUTES = ("mma.sync", "wgmma")
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 # operand dtype -> (library, suffix of its C entry points)
@@ -70,19 +83,47 @@ def tile_k(dtype: torch.dtype) -> tuple:
 
 def takes_wgmma(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Whether the wgmma route can take ``x`` (M, K) @ ``y`` (K, N), or the
-    batched (B, M, K) @ (B, K, N): bf16 operands, M >= 64, K and N positive
-    multiples of 8 (rows of 16 bytes), both base addresses 16-byte aligned
-    and batch strides (0 for a broadcast or a batch of one) multiples of 8
-    elements — what TMA needs to address every row. Plain comparisons: an
-    entry point asks on every call."""
+    batched (B, M, K) @ (B, K, N): bf16 operands, M >= 64 (one warpgroup's
+    rows), K and N positive, whatever their alignment (``loaders`` says how
+    each operand is read). Plain comparisons: an entry point asks on every
+    call."""
     if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
         return False
     M, K, N = x.shape[-2], x.shape[-1], y.shape[-1]
-    if M < 64 or K < 8 or N < 8 or K % 8 or N % 8:
-        return False
-    if x.data_ptr() % 16 or y.data_ptr() % 16:
-        return False
-    return _batch_stride_of(x) % 8 == 0 and _batch_stride_of(y) % 8 == 0
+    return M >= 64 and K >= 1 and N >= 1
+
+
+def loaders(x: torch.Tensor, y: torch.Tensor) -> str:
+    """How the wgmma route loads ``x`` (A) and ``y`` (B), as ``"a/b"``:
+    each ``"tma"`` where TMA can address every row (its row length, K for A
+    and N for B, a multiple of 8, so rows start on 16-byte boundaries; a
+    16-byte aligned base; a batch stride, 0 for a broadcast or a batch of
+    one, that is a multiple of 8 elements), else ``"gather"`` (the
+    producer warpgroup reads aligned windows and realigns them). From the
+    call alone; both ``"tma"`` is the route's first kernel, unchanged."""
+    K, N = x.shape[-1], y.shape[-1]
+    tma = [n % 8 == 0 and t.data_ptr() % 16 == 0 and _batch_stride_of(t) % 8 == 0
+           for t, n in ((x, K), (y, N))]
+    return "/".join(LOADERS[0] if ok else LOADERS[1] for ok in tma)
+
+
+def packs(x: torch.Tensor, y: torch.Tensor, how: str) -> bool:
+    """Whether the gathered kernel packs B's short rows across the batch
+    under loaders ``how``: B gathered beside a TMA A (``"tma/gather"``), A
+    broadcast (batch stride 0) over more than one entry, N <
+    ``WGMMA_PACK_N``; its tiles' columns then run over the (entry, n)
+    pairs."""
+    return (how == "tma/gather" and x.dim() == 3 and x.shape[0] > 1
+            and _batch_stride_of(x) == 0 and y.shape[-1] < WGMMA_PACK_N)
+
+
+def wgmma_tiles(how: str) -> tuple:
+    """The (BM, BN, stages) tiles instantiated for loaders ``how``: the TMA
+    kernel's where both operands come by TMA, the gathered kernel's where B
+    alone is gathered, its one A-gathering tile where A is."""
+    if how == "tma/tma":
+        return WGMMA_TILES
+    return WGMMA_GATHER_TILES if how == "tma/gather" else (WGMMA_GATHER_A_TILE,)
 
 
 def _batch_stride_of(t: torch.Tensor) -> int:
@@ -93,9 +134,10 @@ def _batch_stride_of(t: torch.Tensor) -> int:
 
 def _route_plan(name: str, x, y, K: int, bm: int, bk, bn: int, split_k: int,
                 route: str, stages) -> tuple:
-    """Check the launch plan on ``route`` and return its (bk, stages): the
-    tile must be instantiated for the route and dtype, each split slice own
-    a step, and a wgmma call name operands ``takes_wgmma`` accepts."""
+    """Check the launch plan on ``route`` and return its (bk, stages,
+    loaders): the tile must be instantiated for the route, dtype and (on
+    wgmma) loaders, each split slice own a step, and a wgmma call name
+    operands ``takes_wgmma`` accepts. Loaders are None on mma.sync."""
     if route == "mma.sync":
         bk = tile_k(x.dtype)[0] if bk is None else bk
         if stages not in (None, MMA_STAGES):
@@ -103,22 +145,23 @@ def _route_plan(name: str, x, y, K: int, bm: int, bk, bn: int, split_k: int,
                              f"stages, got {stages}")
         check_plan(name, K, bm, bk, bn, split_k, TILE_M, tile_k(x.dtype),
                    TILE_N)
-        return bk, MMA_STAGES
+        return bk, MMA_STAGES, None
     if route != "wgmma":
         raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
     if not takes_wgmma(x, y):
         raise ValueError(f"{name}: the wgmma route takes bf16 operands with "
-                         f"M >= 64, K and N multiples of 8, 16-byte aligned "
-                         f"bases and batch strides; got {x.dtype} "
-                         f"{tuple(x.shape)} @ {tuple(y.shape)}")
+                         f"M >= 64; got {x.dtype} {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
+    how = loaders(x, y)
+    tiles = wgmma_tiles(how)
     bk = WGMMA_BK if bk is None else bk
-    stages = WGMMA_TILES[0][2] if stages is None else stages
+    stages = tiles[0][2] if stages is None else stages
     check_plan(name, K, bm, bk, bn, split_k, WGMMA_TILE_M, (WGMMA_BK,),
                WGMMA_TILE_N)
-    if (bm, bn, stages) not in WGMMA_TILES:
+    if (bm, bn, stages) not in tiles:
         raise ValueError(f"{name}: ({bm}, {bk}, {bn}) x {stages} stages is not "
-                         f"an instantiated wgmma tile")
-    return bk, stages
+                         f"an instantiated wgmma tile for loaders {how}")
+    return bk, stages, how
 
 
 def _out_dtype(name: str, x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -173,8 +216,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     if residual is not None and tuple(residual.shape) != (M, N):
         raise ValueError(f"matmul: residual {tuple(residual.shape)} != ({M}, {N})")
     out_dtype = _out_dtype("matmul", x, out_dtype)
-    bk, stages = _route_plan("matmul", x, y, K, bm, bk, bn, split_k, route,
-                             stages)
+    bk, stages, how = _route_plan("matmul", x, y, K, bm, bk, bn, split_k,
+                                  route, stages)
     check_int32("matmul", M=M, N=N, K=K)
     if on_cpu("matmul", x, y, epilogue=(bias, residual)):
         return matmul_plain(x, y, bias=bias, residual=residual, relu=relu,
@@ -184,7 +227,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
           if split_k > 1 else None)
     if route == "wgmma":
         err = _wgmma(x, y, bias, residual, out, ws, 1, M, N, K, relu, bm, bn,
-                     stages, split_k, out_dtype, 0, 0)
+                     stages, split_k, out_dtype, how, 0, 0)
     else:
         lib, suffix = _LIB[x.dtype]
         fn = bind(lib, f"rt_matmul_{suffix}", 6, 11)
@@ -193,18 +236,20 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
                  *_bf16(out_dtype, bias, residual), stream_of(x))
     check_launch("matmul", err)
     count_launch("matmul", (M, K, N, bm, bk, bn, split_k, ep_name(bias),
-                            ep_name(residual), bool(relu), route, stages,
+                            ep_name(residual), bool(relu), route, stages, how,
                             dtype_name(x.dtype), dtype_name(out_dtype)))
     return out
 
 
 def _wgmma(x, y, bias, residual, out, ws, B, M, N, K, relu, bm, bn, stages,
-           split_k, out_dtype, sx, sy) -> int:
-    """Launch csrc/matmul_wgmma.cu's kernel; its cudaError_t."""
-    fn = bind("matmul_wgmma", "rt_matmul_wgmma_bf16", 6, 12, n_longs=2)
+           split_k, out_dtype, how, sx, sy) -> int:
+    """Launch csrc/matmul_wgmma.cu's kernel under loaders ``how``; its
+    cudaError_t."""
+    fn = bind("matmul_wgmma", "rt_matmul_wgmma_bf16", 6, 14, n_longs=2)
+    gather = [int(h == "gather") for h in how.split("/")]
     return fn(ptr(x), ptr(y), ptr(bias), ptr(residual), ptr(out), ptr(ws), B,
               M, N, K, int(relu), bm, bn, stages, split_k,
-              *_bf16(out_dtype, bias, residual), sx, sy, stream_of(x))
+              *_bf16(out_dtype, bias, residual), *gather, sx, sy, stream_of(x))
 
 
 def matmul_batch_plain(x: torch.Tensor, y: torch.Tensor, *,
@@ -248,8 +293,8 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
         raise ValueError(f"matmul_batch: residual {tuple(residual.shape)} "
                          f"!= {(B, M, N)}")
     out_dtype = _out_dtype("matmul_batch", x, out_dtype)
-    bk, stages = _route_plan("matmul_batch", x, y, K, bm, bk, bn, split_k,
-                             route, stages)
+    bk, stages, how = _route_plan("matmul_batch", x, y, K, bm, bk, bn,
+                                  split_k, route, stages)
     check_int32("matmul_batch", B=B, M=M, N=N, K=K)
     sx, sy = _batch_stride("matmul_batch", x), _batch_stride("matmul_batch", y)
     if on_cpu("matmul_batch", x[0], y[0], epilogue=(bias, residual)):
@@ -260,7 +305,7 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
           if split_k > 1 else None)
     if route == "wgmma":
         err = _wgmma(x, y, bias, residual, out, ws, B, M, N, K, relu, bm, bn,
-                     stages, split_k, out_dtype, sx, sy)
+                     stages, split_k, out_dtype, how, sx, sy)
     else:
         lib, suffix = _LIB[x.dtype]
         fn = bind(lib, f"rt_matmul_batch_{suffix}", 6, 12, n_longs=2)
@@ -270,6 +315,6 @@ def matmul_batch(x: torch.Tensor, y: torch.Tensor, *, bm: int = 64,
     check_launch("matmul_batch", err)
     count_launch("matmul_batch", (B, M, K, N, sx == 0, sy == 0, bm, bk, bn,
                                   split_k, ep_name(bias), ep_name(residual),
-                                  bool(relu), route, stages,
+                                  bool(relu), route, stages, how,
                                   dtype_name(x.dtype), dtype_name(out_dtype)))
     return out

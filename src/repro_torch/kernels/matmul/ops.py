@@ -33,10 +33,14 @@ dtype and the selection's columns keep their meaning; the two capped keys
 run as their 256-row twins.
 
 **Routes.** ``route`` picks each call's kernel from the call alone, before
-anything launches: bf16 operands that TMA can address (``matmul.
-takes_wgmma``: M >= 64, K and N multiples of 8, 16-byte aligned bases and
-batch strides) take ``"wgmma"`` (``csrc/matmul_wgmma.cu``), everything else
-``"mma.sync"`` (``csrc/matmul.cu``) under ``cta_plan``, as before. On the
+anything launches: bf16 operands with M >= 64 (``matmul.takes_wgmma``),
+whatever their alignment, take ``"wgmma"`` (``csrc/matmul_wgmma.cu``),
+everything else (fp32, M < 64) ``"mma.sync"`` (``csrc/matmul.cu``) under
+``cta_plan``, as before. ``matmul.loaders`` says how the wgmma route reads
+each operand: by TMA where TMA can address it (rows of a multiple of 8
+elements, 16-byte aligned base and batch stride), else gathered. Where
+both come by TMA the plan is the one below, unchanged; otherwise it is a
+gathered tile (``WGMMA_GATHER_TILES``, below the table). On the
 wgmma route ``WGMMA_CEILINGS`` gives each key a (BM, BN, stages) ceiling, 64
 deep a stage: BM half the TPU's bm, capped at 128 (one or two consumer
 warpgroups of ``wgmma.m64nBNk16``), BN the TPU's bn, capped at 256, and a
@@ -60,6 +64,17 @@ is 128 x 256. The six distinct TPU blocks stay six distinct kernels:
 only where the output tiles cannot give every SM a CTA (a wgmma CTA of one
 or two consumer warpgroups fills an SM by itself, so the mma.sync rule's
 warps per SM do not apply), into as many slices as one wave holds.
+
+A call with a gathered operand takes a gathered tile whatever the variant:
+64 x 64 (two CTAs an SM, each with its own producer) where M <= 64, 128 x
+64 (one CTA an SM, two consumer warpgroups on one producer) above it, 4
+stages; a gathered A takes ``matmul.WGMMA_GATHER_A_TILE``, the one tile
+instantiated for it. Measured on resnet18's 20 GEMMs at b = 8
+(``tools/ab_matmul_batch_bf16.py --tiles``, ``PERF.md`` section 6), 64 x
+64 won every M = 64 layer and 128 x 64 every M >= 256 layer (M = 128:
+within 2% either way); 64 x 128 won none and is not instantiated. Where
+B's short rows are packed across the batch (``matmul.packs``), the tiles
+are counted over the packed columns when the split is decided.
 """
 from __future__ import annotations
 
@@ -69,9 +84,11 @@ import torch
 
 from repro_torch.kernels.common import SMS, WARPS_PER_SM, fit_plan  # noqa: F401
 from repro_torch.kernels.matmul.matmul import (TILE_M, TILE_N, WGMMA_BK,
+                                               WGMMA_GATHER_A_TILE,
+                                               WGMMA_GATHER_TILES,
                                                WGMMA_TILE_M, WGMMA_TILE_N,
-                                               matmul, matmul_batch,
-                                               takes_wgmma)
+                                               loaders, matmul, matmul_batch,
+                                               packs, takes_wgmma)
 
 # (bm, bk, bn) TPU blocks, as in the reference
 VARIANTS: Dict[str, Tuple[int, int, int]] = {
@@ -131,34 +148,53 @@ def cta_plan(M: int, N: int, K: int, batch: int, variant: str,
     return fit_plan(M, N, K, batch, ceiling(variant, dtype), TILE_M, TILE_N)
 
 
-def wgmma_plan(M: int, N: int, K: int, batch: int,
-               variant: str) -> Tuple[int, int, int, int, int]:
+def wgmma_plan(M: int, N: int, K: int, batch: int, variant: str,
+               how: str = "tma/tma",
+               packed: bool = False) -> Tuple[int, int, int, int, int]:
     """(BM, BN, BK, stages, split_k) for a (batch x) (M, K) @ (K, N) call
     under ``variant`` on the wgmma route: BM and BN the smallest of
     ``WGMMA_TILE_M`` / ``WGMMA_TILE_N`` covering min(M, ceiling BM) and
-    min(N, ceiling BN), BK 64, the ceiling's stages. K is split only where
-    the output tiles of all batch entries are fewer than the ``SMS``
-    streaming multiprocessors, into as many slices as one wave of CTAs
-    holds, ``want = min(steps, SMS // tiles)``, dealt out as whole 64-deep
-    steps: ``per = ceil(steps / want)`` a slice, split_k = ceil(steps /
-    per). So (5,120, 2,048, 768) under a 128 x 256 tile, 120 tiles, stays
-    whole, where a second slice would start a second wave."""
-    cm, cn, stages = WGMMA_CEILINGS[variant]
-    bm = next(t for t in WGMMA_TILE_M if t >= min(M, cm))
-    bn = next(t for t in WGMMA_TILE_N if t >= min(N, cn))
-    tiles = -(-M // bm) * -(-N // bn) * batch
+    min(N, ceiling BN), BK 64, the ceiling's stages, where ``how``
+    (``matmul.loaders``) has both operands by TMA; else the smallest of
+    ``WGMMA_GATHER_TILES`` covering min(M, 128) rows (``WGMMA_GATHER_A_TILE``
+    where A is gathered), the tiles counted over the batch N packed columns
+    where ``packed``. K is split only where the output tiles of all batch
+    entries are fewer than the ``SMS`` streaming multiprocessors, into as
+    many slices as one wave of CTAs holds (``wgmma_split``): ``want =
+    min(steps, SMS // tiles)``, dealt out as whole 64-deep steps, ``per =
+    ceil(steps / want)`` a slice, split_k = ceil(steps / per). So (5,120,
+    2,048, 768) under a 128 x 256 tile, 120 tiles, stays whole, where a
+    second slice would start a second wave."""
+    if how != "tma/tma":
+        bm, bn, stages = (next(t for t in WGMMA_GATHER_TILES if t[0] >= min(M, 128))
+                          if how == "tma/gather" else WGMMA_GATHER_A_TILE)
+        cols, entries = (N * batch, 1) if packed else (N, batch)
+        tiles = -(-M // bm) * -(-cols // bn) * entries
+    else:
+        cm, cn, stages = WGMMA_CEILINGS[variant]
+        bm = next(t for t in WGMMA_TILE_M if t >= min(M, cm))
+        bn = next(t for t in WGMMA_TILE_N if t >= min(N, cn))
+        tiles = -(-M // bm) * -(-N // bn) * batch
+    return bm, bn, WGMMA_BK, stages, wgmma_split(tiles, K)
+
+
+def wgmma_split(tiles: int, K: int) -> int:
+    """split_k of a wgmma call of ``tiles`` output tiles over a K-deep
+    reduction: 1 where the tiles give every SM a CTA or K is one step, else
+    as many slices as one wave holds, dealt out as whole 64-deep steps
+    (``wgmma_plan``)."""
     steps = -(-K // WGMMA_BK)
     if tiles == 0 or tiles >= SMS or steps <= 1:
-        return bm, bn, WGMMA_BK, stages, 1
+        return 1
     per = -(-steps // min(steps, SMS // tiles))
-    return bm, bn, WGMMA_BK, stages, -(-steps // per)
+    return -(-steps // per)
 
 
 def route(x: torch.Tensor, y: torch.Tensor) -> str:
     """The kernel a call of ``x`` @ ``y`` (2-D, or batched 3-D) takes:
-    ``"wgmma"`` where ``matmul.takes_wgmma`` accepts the operands, else
-    ``"mma.sync"``. Decided from the call alone; neither route falls back
-    to the other."""
+    ``"wgmma"`` where ``matmul.takes_wgmma`` accepts the operands (bf16, M
+    >= 64, any alignment), else ``"mma.sync"``. Decided from the call
+    alone; neither route falls back to the other."""
     return "wgmma" if takes_wgmma(x, y) else "mma.sync"
 
 
@@ -168,7 +204,9 @@ def plan(x: torch.Tensor, y: torch.Tensor, variant: str) -> dict:
     M, K = x.shape[-2:]
     N, batch = y.shape[-1], (x.shape[0] if x.dim() == 3 else 1)
     if route(x, y) == "wgmma":
-        bm, bn, bk, stages, split = wgmma_plan(M, N, K, batch, variant)
+        how = loaders(x, y)
+        bm, bn, bk, stages, split = wgmma_plan(M, N, K, batch, variant, how,
+                                               packs(x, y, how))
         return dict(bm=bm, bk=bk, bn=bn, split_k=split, route="wgmma",
                     stages=stages)
     bm, bn, bk, split = cta_plan(M, N, K, batch, variant, x.dtype)

@@ -2,7 +2,9 @@
 card, at every tile the variant tables name and every epilogue combination
 (the bf16 matmul's wgmma route: ``-k wgmma``, every instantiated tile on
 ragged shapes, split and not, batched and broadcast, the longest K of the
-LM sites, repeats bit for bit, the route rule on the card; bf16 flash
+LM sites, repeats bit for bit, the route rule on the card; its gathered
+operands, ``-k gather``: every K and N mod 8, base offsets 0-7, batch
+strides off 8, broadcasts packed and not, resnet18's 20 GEMMs; bf16 flash
 attention's wgmma route the same way, ``-k flash``, with K and V read at
 their own heads on every route; the bf16 implicit-GEMM convs and Winograd
 point-GEMMs, ``-k bf16``, every instantiated tile split and not on aligned
@@ -60,9 +62,13 @@ from repro_torch.kernels.im2col_gemm.ops import (conv_im2col_batch_op,
                                                  conv_im2col_op)
 from repro_torch.kernels.im2col_gemm.ops import cta_plan as conv_cta_plan
 from repro_torch.kernels.matmul.matmul import (TILE_K, TILE_K_BF16, TILE_M,
-                                               TILE_N, WGMMA_TILES, matmul,
+                                               TILE_N, WGMMA_GATHER_A_TILE,
+                                               WGMMA_GATHER_TILES,
+                                               WGMMA_TILES, matmul,
                                                matmul_batch, matmul_batch_plain,
                                                matmul_plain)
+from repro_torch.kernels.matmul.matmul import loaders as matmul_loaders
+from repro_torch.kernels.matmul.matmul import packs as matmul_packs
 from repro_torch.kernels.matmul.ops import CTA_TILES as MM_TILES
 from repro_torch.kernels.matmul.ops import cta_plan, matmul_batch_op, matmul_op
 from repro_torch.kernels.winograd import winograd as wino_mod
@@ -949,7 +955,12 @@ def test_gpu_winograd_conv_bf16_transforms_in_fp32(m, cuda):
 
 def _wgmma_routes():
     """{kernel: set of routes} of the matmul launches since the last reset."""
-    return {k: {sig[-4] for sig in common.SEEN[k]} for k in ("matmul", "matmul_batch")}
+    return {k: {sig[-5] for sig in common.SEEN[k]} for k in ("matmul", "matmul_batch")}
+
+
+def _loaders():
+    """{kernel: set of loaders} of the matmul launches since the last reset."""
+    return {k: {sig[-3] for sig in common.SEEN[k]} for k in ("matmul", "matmul_batch")}
 
 
 @pytest.mark.parametrize("tile", WGMMA_TILES, ids=lambda t: "x".join(map(str, t)))
@@ -1051,9 +1062,10 @@ def test_gpu_wgmma_deterministic(cuda):
 
 
 def test_gpu_wgmma_route_rule_on_the_card(cuda):
-    """matmul_op takes wgmma on aligned bf16 operands and mma.sync on a view
-    one element off a 16-byte boundary (both held to plain), and an
-    explicit wgmma call on that view raises without launching."""
+    """matmul_op takes wgmma on aligned bf16 operands (both by TMA) and on a
+    view one element off a 16-byte boundary (A gathered), both held to
+    plain; M < 64 takes mma.sync, and an explicit wgmma call there raises
+    without launching."""
     gen = torch.Generator().manual_seed(4)
     x, y = _bf16_rand(gen, 200, 264, scale=264 ** -0.5), _bf16_rand(gen, 264, 136)
     flat = torch.empty(200 * 264 + 1, dtype=torch.bfloat16, device="cuda")
@@ -1062,13 +1074,196 @@ def test_gpu_wgmma_route_rule_on_the_card(cuda):
     common.reset_launches()
     want = matmul_plain(x, y, out_dtype=torch.float32)
     torch.testing.assert_close(matmul_op(x, y, out_dtype=torch.float32), want, **GEMM_TOL)
-    assert _wgmma_routes()["matmul"] == {"wgmma"}
+    assert _wgmma_routes()["matmul"] == {"wgmma"} and _loaders()["matmul"] == {"tma/tma"}
     common.reset_launches()
     torch.testing.assert_close(matmul_op(xv, y, out_dtype=torch.float32), want, **GEMM_TOL)
+    assert _wgmma_routes()["matmul"] == {"wgmma"} and _loaders()["matmul"] == {"gather/tma"}
+    common.reset_launches()
+    torch.testing.assert_close(matmul_op(x[:63], y, out_dtype=torch.float32),
+                               want[:63], **GEMM_TOL)
     assert _wgmma_routes()["matmul"] == {"mma.sync"}
     with pytest.raises(ValueError, match="wgmma route takes"):
-        matmul(xv, y, bm=128, bn=128, route="wgmma")
+        matmul(x[:63], y, bm=64, bn=64, route="wgmma")
     assert common.LAUNCHES["matmul"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route's gathered operands (csrc/matmul_wgmma.cu's
+# matmul_gather_kernel): rows TMA cannot address
+# ---------------------------------------------------------------------------
+
+def _view(t, off):
+    """A copy of ``t`` that starts ``off`` elements into a fresh allocation
+    (16-byte aligned), contiguous."""
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = flat[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _hold_gathered(call, want32, out_dtype):
+    """The call's output held to the plain fp32 result (fp32 at 1e-4, bf16
+    within one rounding) and bit-equal on a repeat."""
+    got = call()
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want32, **GEMM_TOL)
+    else:
+        _hold_bf16(got, want32)
+    assert torch.equal(call(), got)
+
+
+@pytest.mark.parametrize("r", range(8))
+def test_gpu_gather_k_and_n_every_residue(r, cuda):
+    """K = 320 + r and N = 136 + 3 r mod 8 (every residue of each over the
+    eight cases: A and B gathered), A's gathered tile, unsplit and split
+    three ways, bias and residual bf16 or fp32, both output dtypes; r = 0
+    is aligned, so its A is a view one element off (A gathered, B by TMA);
+    B alone gathered on every tile (A aligned at K = 320)."""
+    M, K, N = 200, 320 + r, 136 + 3 * r % 8
+    gen = torch.Generator().manual_seed(10 + r)
+    x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+    if r == 0:
+        x = _view(x, 1)
+    b, res = _cuda_rand(gen, M), _cuda_rand(gen, M, N)
+    xa = _bf16_rand(gen, M, 320, scale=320 ** -0.5)         # A by TMA
+    ya = _bf16_rand(gen, 320, N)
+    calls = [(x, y, WGMMA_GATHER_A_TILE)] + [(xa, ya, t) for t in WGMMA_GATHER_TILES]
+    for (xx, yy, (bm, bn, st)), split in itertools.product(calls, (1, 3)):
+        common.reset_launches()
+        for ep_dtype, out_dtype in ((torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)):
+            ep = dict(bias=b.to(ep_dtype), residual=res.to(ep_dtype), relu=True)
+            want = matmul_plain(xx, yy, out_dtype=torch.float32, **ep)
+            _hold_gathered(lambda: matmul(xx, yy, bm=bm, bn=bn, stages=st, split_k=split,
+                                          route="wgmma", out_dtype=out_dtype, **ep),
+                           want, out_dtype)
+        assert _wgmma_routes()["matmul"] == {"wgmma"}
+        want_how = ("tma/tma" if r == 0 else "tma/gather") if xx is xa else (
+            "gather/tma" if r == 0 else "gather/gather")
+        assert _loaders()["matmul"] == {want_how}
+
+
+@pytest.mark.parametrize("shape", [(65, 150, 99), (137, 200, 7), (64, 9, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gpu_gather_odd_outputs_split(shape, cuda):
+    """M N odd, so each split's fp32 partial starts on an odd element of
+    the workspace (its pairs stored element by element where they would
+    be off 8 bytes), and N of 7 and 1 (a row of one column): split and
+    unsplit, fp32 and bf16 outputs, held to plain and bit-equal on a
+    repeat."""
+    M, K, N = shape
+    gen = torch.Generator().manual_seed(50)
+    x, y = _bf16_rand(gen, M, K, scale=K ** -0.5), _bf16_rand(gen, K, N)
+    ep = dict(bias=_cuda_rand(gen, M), residual=_bf16_rand(gen, M, N), relu=True)
+    want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+    steps = -(-K // 64)
+    common.reset_launches()
+    for split in sorted({1, min(3, steps), steps}):
+        if split > 1 and (split - 1) * -(-steps // split) >= steps:
+            continue
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for bm, bn, st in ({WGMMA_GATHER_A_TILE} if K % 8 else set(WGMMA_GATHER_TILES)):
+                _hold_gathered(lambda: matmul(x, y, bm=bm, bn=bn, stages=st, split_k=split,
+                                              route="wgmma", out_dtype=out_dtype, **ep),
+                               want, out_dtype)
+    assert _wgmma_routes()["matmul"] == {"wgmma"}
+
+
+@pytest.mark.parametrize("off", range(8))
+def test_gpu_gather_base_offsets(off, cuda):
+    """A, B and the residual each starting ``off`` (B: off + 3, residual:
+    off + 5, mod 8) elements into their allocation, rows of K = 150 and N =
+    99, so the output's rows start at every offset mod 8 too: the gathered
+    loaders, held to plain, bit-equal on a repeat, bf16 and fp32 residual
+    and output."""
+    M, K, N = 136, 150, 99
+    gen = torch.Generator().manual_seed(20 + off)
+    x = _view(_bf16_rand(gen, M, K, scale=K ** -0.5), off)
+    y = _view(_bf16_rand(gen, K, N), (off + 3) % 8)
+    b = _bf16_rand(gen, M)
+    common.reset_launches()
+    for res_dtype, out_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.float32)):
+        res = _view(_cuda_rand(gen, M, N).to(res_dtype), (off + 5) % 8)
+        ep = dict(bias=b, residual=res, relu=True)
+        want = matmul_plain(x, y, out_dtype=torch.float32, **ep)
+        _hold_gathered(lambda: matmul_op(x, y, out_dtype=out_dtype, **ep), want, out_dtype)
+    assert _loaders()["matmul"] == {"gather/gather"}
+
+
+@pytest.mark.parametrize("case", ["a_stride_off_8", "b_stride_off_8", "a_broadcast_packed",
+                                  "a_broadcast_wide", "b_broadcast", "none"])
+def test_gpu_gather_batched(case, cuda):
+    """matmul_batch with gathered operands: a batch stride 4 elements off a
+    multiple of 8 (A, then B), A broadcast over the batch with B's short
+    rows packed across the entries (N = 9) or not (N = 99), B broadcast,
+    neither; every gathered tile, unsplit and split, the full epilogue,
+    both output dtypes, each bit-equal on a repeat."""
+    B, M, K = 3, 136, 312           # five 64-deep steps: split three ways
+    # the stride cases keep the other operand aligned (N = 96, by TMA)
+    N = 9 if case == "a_broadcast_packed" else 96 if "stride" in case else 99
+    gen = torch.Generator().manual_seed(30)
+    if case == "a_stride_off_8":
+        flat = _bf16_rand(gen, B * (M * K + 4), scale=K ** -0.5)
+        x = flat.as_strided((B, M, K), (M * K + 4, K, 1))
+    elif case.startswith("a_broadcast"):
+        x = _bf16_rand(gen, M, K, scale=K ** -0.5).expand(B, M, K)
+    else:
+        x = _bf16_rand(gen, B, M, K, scale=K ** -0.5)
+    if case == "b_stride_off_8":
+        flat = _bf16_rand(gen, B * (K * N + 4))
+        y = flat.as_strided((B, K, N), (K * N + 4, N, 1))
+    elif case == "b_broadcast":
+        y = _bf16_rand(gen, K, N).expand(B, K, N)
+    else:
+        y = _bf16_rand(gen, B, K, N)
+    ep = dict(bias=_bf16_rand(gen, M), residual=_bf16_rand(gen, B, M, N), relu=True)
+    want = matmul_batch_plain(x, y, out_dtype=torch.float32, **ep)
+    common.reset_launches()
+    how = matmul_loaders(x, y)
+    tiles = (WGMMA_GATHER_A_TILE,) if how.startswith("gather") else WGMMA_GATHER_TILES
+    for (bm, bn, st), split in itertools.product(tiles, (1, 3)):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            _hold_gathered(lambda: matmul_batch(x, y, bm=bm, bn=bn, stages=st,
+                                                split_k=split, route="wgmma",
+                                                out_dtype=out_dtype, **ep),
+                           want, out_dtype)
+    assert _wgmma_routes()["matmul_batch"] == {"wgmma"}
+    assert matmul_loaders(x, y) == ("gather/tma" if case == "a_stride_off_8" else "tma/gather")
+    assert matmul_packs(x, y, matmul_loaders(x, y)) == (case == "a_broadcast_packed")
+
+
+def test_gpu_gather_resnet18_gemms(cuda):
+    """resnet18's 20 convs as per-image GEMMs at 224 x 224, b = 2 (the
+    shapes of chip_smoke.py's phase 5: weights broadcast, unfolded
+    patches, bf16 bias and residual, ReLU) through matmul_batch_op: every
+    one on wgmma, 17 with B gathered (conv0 A too), each within one
+    rounding of the fp32 result and bit-equal on a repeat."""
+    import torch.nn.functional as F
+    layers = [(3, 224, 64, 7, 2), (64, 109, 64, 3, 1), (64, 107, 64, 3, 1),
+              (64, 105, 64, 3, 1), (64, 103, 64, 3, 1), (64, 101, 128, 1, 2),
+              (64, 101, 128, 3, 2), (128, 50, 128, 3, 1), (128, 48, 128, 3, 1),
+              (128, 46, 128, 3, 1), (128, 44, 256, 1, 2), (128, 44, 256, 3, 2),
+              (256, 21, 256, 3, 1), (256, 19, 256, 3, 1), (256, 17, 256, 3, 1),
+              (256, 15, 512, 1, 2), (256, 15, 512, 3, 2), (512, 7, 512, 3, 1),
+              (512, 5, 512, 3, 1), (512, 3, 512, 3, 1)]
+    gen = torch.Generator().manual_seed(40)
+    common.reset_launches()
+    for C, H, K, f, s in layers:
+        oh = (H - f) // s + 1
+        x = _bf16_rand(gen, 2, C, H, H)
+        w = _bf16_rand(gen, K, C * f * f, scale=(C * f * f) ** -0.5)
+        cols = F.unfold(x, f, stride=s)
+        ep = dict(bias=_bf16_rand(gen, K), residual=_bf16_rand(gen, 2, K, oh * oh),
+                  relu=True)
+        wb = w.expand(2, *w.shape)
+        want = matmul_batch_plain(wb, cols, out_dtype=torch.float32, **ep)
+        _hold_gathered(lambda: matmul_batch_op(wb, cols, **ep), want, torch.bfloat16)
+    assert _wgmma_routes()["matmul_batch"] == {"wgmma"}
+    how = [sig[-3] for sig in common.SEEN["matmul_batch"].elements()]
+    assert len(how) == 40
+    assert sorted(set(how)) == ["gather/gather", "tma/gather", "tma/tma"]
+    assert how.count("tma/tma") == 2 * 3 and how.count("gather/gather") == 2 * 1
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -3,11 +3,11 @@ the rule that picks it, its plan table, its instantiated tiles, and bf16
 ``matmul_op`` / ``matmul_batch_op`` on the shapes it serves against the
 reference's Pallas kernels in interpret mode.
 
-``kernels/matmul/ops.route`` sends bf16 operands that TMA can address (M >=
-64, K and N multiples of 8, 16-byte aligned bases and batch strides) to the
-wgmma kernel and everything else to the mma.sync kernels of
-``csrc/matmul.cu``, from the call alone; a call that names the wgmma route
-on operands it cannot take raises. On the CPU either route computes the
+``kernels/matmul/ops.route`` sends bf16 operands with M >= 64 to the wgmma
+kernel whatever their alignment (each operand by TMA where TMA can address
+it, else gathered: ``matmul.loaders``) and everything else to the mma.sync
+kernels of ``csrc/matmul.cu``, from the call alone; a call that names the
+wgmma route on operands it cannot take raises. On the CPU either route computes the
 wrapper's plain version, so the reference comparison holds the routing,
 planning and epilogue plumbing; ``tests/test_torch_gpu.py -k wgmma`` holds
 the kernel itself to that plain version on the card.
@@ -31,9 +31,11 @@ from repro.kernels.matmul.ops import VARIANTS as REF_VARIANTS
 from repro_torch.configs import base as cb
 from repro_torch.core import autotune as AT
 from repro_torch.kernels import common
-from repro_torch.kernels.matmul.matmul import (MMA_STAGES, WGMMA_BK, WGMMA_TILE_M,
-                                               WGMMA_TILE_N, WGMMA_TILES, matmul,
-                                               matmul_batch, takes_wgmma)
+from repro_torch.kernels.matmul.matmul import (MMA_STAGES, WGMMA_BK,
+                                               WGMMA_GATHER_A_TILE, WGMMA_TILE_M,
+                                               WGMMA_TILE_N, WGMMA_TILES, loaders,
+                                               matmul, matmul_batch, takes_wgmma,
+                                               wgmma_tiles)
 from repro_torch.kernels.matmul.ops import (SMS, VARIANTS, WGMMA_CEILINGS,
                                             cta_plan, matmul_batch_op, matmul_op,
                                             plan, route, wgmma_plan)
@@ -75,12 +77,18 @@ def test_every_autotune_site_takes_wgmma():
 
 @pytest.mark.parametrize("case", ["m_below_64", "odd_k", "odd_n", "k_not_8",
                                   "offset_view", "fp32", "batch_stride"])
-def test_route_falls_to_mma_sync(case):
-    """M < 64, K or N not a multiple of 8, a view one element off a 16-byte
-    boundary, fp32 operands or a batch stride off 8 elements take mma.sync;
-    an explicit wgmma call on them raises ``ValueError`` rather than run
-    the other route."""
+def test_route_rule_and_loaders(case):
+    """M < 64 and fp32 operands take mma.sync, and an explicit wgmma call on
+    them raises ``ValueError`` rather than run the other route. Every other
+    bf16 call takes wgmma whatever its alignment, each operand TMA cannot
+    address gathered: K or N not a multiple of 8 (odd or 4 off), a view one
+    element off a 16-byte boundary (A), a batch stride off 8 elements (A);
+    the result is the plain one."""
     x, y = torch.zeros(128, 64, dtype=BF), torch.zeros(64, 96, dtype=BF)
+    gathered = {"odd_k": "gather/tma", "odd_n": "tma/gather",
+                "k_not_8": "gather/tma", "offset_view": "gather/tma",
+                "batch_stride": "gather/tma"}.get(case)
+    rng = np.random.default_rng(3)
     if case == "m_below_64":
         x = x[:63]
     elif case == "odd_k":
@@ -94,22 +102,38 @@ def test_route_falls_to_mma_sync(case):
         assert x.is_contiguous() and x.data_ptr() % 16 == 2
     elif case == "fp32":
         x, y = x.float(), y.float()
+    x.copy_(torch.from_numpy(rng.standard_normal(tuple(x.shape), dtype=np.float32)))
+    y.copy_(torch.from_numpy(rng.standard_normal(tuple(y.shape), dtype=np.float32)))
     if case == "batch_stride":
         # three matrices of (128, 64) every 8,196 elements: each one
         # contiguous, the batch stride 4 elements off a multiple of 8
-        flat = torch.zeros(3 * 8196, dtype=BF)
+        flat = torch.from_numpy(rng.standard_normal(3 * 8196, dtype=np.float32)).to(BF)
         x = flat.as_strided((3, 128, 64), (8196, 64, 1))
-        y = torch.zeros(3, 64, 96, dtype=BF)
-        assert route(x, y) == "mma.sync" and not takes_wgmma(x, y)
-        with pytest.raises(ValueError, match="wgmma route takes"):
-            matmul_batch(x, y, bm=128, bn=128, route="wgmma")
+        y = torch.from_numpy(rng.standard_normal((3, 64, 96), dtype=np.float32)).to(BF)
+        assert route(x, y) == "wgmma" and takes_wgmma(x, y)
+        assert loaders(x, y) == gathered
+        p = plan(x, y, "mm-256x256x256")
+        assert (p["bm"], p["bn"], p["stages"]) == WGMMA_GATHER_A_TILE
+        out = matmul_batch(x, y, route="wgmma", out_dtype=torch.float32,
+                           **{k: v for k, v in p.items() if k != "route"})
+        torch.testing.assert_close(out, x.float() @ y.float(), **F32_TOL)
         out = matmul_batch_op(x, y, "mm-256x256x256", out_dtype=torch.float32)
         torch.testing.assert_close(out, x.float() @ y.float(), **F32_TOL)
         return
-    assert route(x, y) == "mma.sync" and not takes_wgmma(x, y)
-    assert plan(x, y, "mm-256x256x256")["route"] == "mma.sync"
-    with pytest.raises(ValueError, match="wgmma route takes"):
-        matmul(x, y, bm=128, bn=128, route="wgmma")
+    if gathered is None:
+        assert route(x, y) == "mma.sync" and not takes_wgmma(x, y)
+        assert plan(x, y, "mm-256x256x256")["route"] == "mma.sync"
+        with pytest.raises(ValueError, match="wgmma route takes"):
+            matmul(x, y, bm=128, bn=128, route="wgmma")
+    else:
+        assert route(x, y) == "wgmma" and takes_wgmma(x, y)
+        assert loaders(x, y) == gathered
+        p = plan(x, y, "mm-256x256x256")
+        assert p["route"] == "wgmma"
+        assert (p["bm"], p["bn"], p["stages"]) in wgmma_tiles(gathered)
+        # an aligned tile named on a gathered call is not instantiated there
+        with pytest.raises(ValueError, match="instantiated wgmma tile"):
+            matmul(x, y, bm=128, bn=256, stages=3, route="wgmma")
     out = matmul_op(x, y, "mm-256x256x256", out_dtype=torch.float32)
     torch.testing.assert_close(out, x.float() @ y.float(), **F32_TOL)
 
@@ -211,12 +235,12 @@ def test_wgmma_plan_splits_only_to_fill_the_card(variant):
 
 
 def test_mma_sync_plans_record_their_ring():
-    """A call on the mma.sync route plans as before and records the
-    3-stage ring; its fp32 plans are those of ``cta_plan``."""
-    x, y = torch.zeros(150, 27, dtype=BF), torch.zeros(27, 333, dtype=BF)
+    """A call on the mma.sync route (bf16 of M < 64) plans as before and
+    records the 3-stage ring; its fp32 plans are those of ``cta_plan``."""
+    x, y = torch.zeros(50, 27, dtype=BF), torch.zeros(27, 333, dtype=BF)
     p = plan(x, y, "mm-256x128x256")
     assert p == dict(zip(("bm", "bn", "bk", "split_k"),
-                         cta_plan(150, 333, 27, 1, "mm-256x128x256", BF)),
+                         cta_plan(50, 333, 27, 1, "mm-256x128x256", BF)),
                      route="mma.sync")
     assert MMA_STAGES == 3
     x32, y32 = torch.zeros(64, 1152), torch.zeros(1152, 128)
@@ -326,29 +350,39 @@ def fake_launch(monkeypatch):
 
 def test_launch_records_the_route_and_its_entry_point(fake_launch):
     """Each route calls its own C entry point with its full argument list
-    (wgmma: ``rt_matmul_wgmma_bf16``, 6 pointers, 12 ints, 2 strides and
+    (wgmma: ``rt_matmul_wgmma_bf16``, 6 pointers, 14 ints, 2 strides and
     the stream; mma.sync as before), and the launch signature records the
-    route and its ring after bias, residual and ReLU, so ``sig[-2]`` stays
-    the operand dtype; both count under ``matmul`` / ``matmul_batch``."""
+    route, its ring and the loaders (None on mma.sync) after bias, residual
+    and ReLU, so ``sig[-2]`` stays the operand dtype; both count under
+    ``matmul`` / ``matmul_batch``."""
     x, y = torch.zeros(128, 256, dtype=BF), torch.zeros(256, 128, dtype=BF)
     b = torch.zeros(128)
     matmul_op(x, y, "mm-256x256x256", bias=b)
     matmul(x, y, bm=64, bk=32, bn=64)
     matmul_batch_op(x.expand(2, 128, 256), torch.zeros(2, 256, 128, dtype=BF))
-    assert len(fake_launch["rt_matmul_wgmma_bf16"]) == 2
-    assert all(len(a) == 21 for a in fake_launch["rt_matmul_wgmma_bf16"])
+    matmul_batch_op(x.expand(2, 128, 256), torch.zeros(2, 256, 9, dtype=BF))
+    assert len(fake_launch["rt_matmul_wgmma_bf16"]) == 3
+    assert all(len(a) == 23 for a in fake_launch["rt_matmul_wgmma_bf16"])
     assert len(fake_launch["rt_matmul_bf16"][0]) == 18
     bm, bn, bk, stages, split = wgmma_plan(128, 128, 256, 1, "mm-256x256x256")
     assert (bm, bn, stages, split) == (128, 128, 4, 4)    # one tile: K split
-    sigs = sorted(common.SEEN["matmul"])
+    sigs = sorted(common.SEEN["matmul"], key=repr)
     assert sigs == sorted([
         (128, 256, 128, 128, 64, 128, 4, "float32", False, False, "wgmma", 4,
-         "bfloat16", "bfloat16"),
-        (128, 256, 128, 64, 32, 64, 1, False, False, False, "mma.sync", 3,
-         "bfloat16", "bfloat16")])
-    (bsig,) = common.SEEN["matmul_batch"]
-    assert bsig[4:6] == (True, False) and bsig[-4:] == ("wgmma", 4, "bfloat16",
-                                                         "bfloat16")
+         "tma/tma", "bfloat16", "bfloat16"),
+        (128, 256, 128, 64, 32, 64, 1, False, False, False, "mma.sync", 3, None,
+         "bfloat16", "bfloat16")], key=repr)
+    bsigs = sorted(common.SEEN["matmul_batch"], key=lambda s: s[3])
+    assert [s[3] for s in bsigs] == [9, 128]
+    assert all(s[4:6] == (True, False) for s in bsigs)
+    assert bsigs[1][-5:] == ("wgmma", 4, "tma/tma", "bfloat16", "bfloat16")
+    # N = 9 off 8, the weights broadcast: B gathered, packed across the two
+    # entries (tiles counted over 18 columns, so K is split)
+    assert bsigs[0][-5:] == ("wgmma", 4, "tma/gather", "bfloat16", "bfloat16")
+    bm, bn, _, _, split = wgmma_plan(128, 9, 256, 2, "mm-128x128x128", "tma/gather", True)
+    assert (bm, bn) == (128, 64) and bsigs[0][6:10] == (bm, 64, bn, split)
     args = fake_launch["rt_matmul_wgmma_bf16"][1]
     assert args[6:10] == (2, 128, 128, 256) and args[-3:-1] == (0, 256 * 128)
-    assert common.LAUNCHES["matmul"] == 2 and common.LAUNCHES["matmul_batch"] == 1
+    assert args[18:20] == (0, 0)                          # no operand gathered
+    assert fake_launch["rt_matmul_wgmma_bf16"][2][18:20] == (0, 1)
+    assert common.LAUNCHES["matmul"] == 2 and common.LAUNCHES["matmul_batch"] == 2
